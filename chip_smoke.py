@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's forward path on one NVIDIA GPU through its CUDA
-kernels, and check it.
+"""Drive the PyTorch port on one NVIDIA GPU through its CUDA kernels, the
+forward path and the adjoint (training) path, and check it.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -10,25 +10,36 @@ Phases (any failure raises and the script exits non-zero):
 
 0. Device: the card's name and power limit, torch/CUDA versions, and the
    build of the kernels from ``sigkernel_tpu_torch/csrc`` (nvcc at first use).
-1. Each kernel against its plain PyTorch version on the card: K1
-   (``rbf_gen_wavefront``) and K2 (``inc_wavefront``) x {float32, float64} x
-   {order-2, naive} x dyadic {0, 1, 2}, over the README quick-start shape
-   (both orientations), 8 pairs at length 1024, one pair at length 2048
-   (dyadic 1) and a length-1 path.
-2. The main path at the north-star size: ``SigKernel(RBFKernel(1.0),
+1. Each kernel against its plain PyTorch version on the card, over the README
+   quick-start shape (both orientations), 8 pairs at length 1024 and a
+   length-1 path, float32 and float64: K1 (``rbf_gen_wavefront``) and K2
+   (``inc_wavefront``) x {order-2, naive} x dyadic {0, 1, 2} (one pair at
+   length 2048 too); the adjoint's kernels K1-stack, K2-stack, K3
+   (``adjoint_collapse`` gen and inc) and K4 (``rbf_dd_vjp``) x {order-2,
+   naive} x dyadic {0, 1, 2} (order-2 only at length 1024).
+2. The forward main path at the north-star size: ``SigKernel(RBFKernel(1.0),
    dyadic_order=1)`` on X, Y of shape (100, 1024, 3), float64 and float32:
    ``compute_Gram(X, X, sym=True)``, ``compute_Gram(X, Y)``,
    ``compute_mmd(X, Y)`` and ``sig_gram_lincomb`` with ``pair_chunk=128``.
 3. A ``LinearKernel`` ``sym=True`` Gram at batch 50, length 100 (through K2).
 4. ``hypothesis_test`` at batch 32, length 200, dyadic 1.
+5. The training path at the north-star size: ``sig_gram_lincomb(RBFKernel
+   (1.0), X, Y, W, dyadic_order=1, pair_chunk=128).backward()`` with X, Y and
+   sigma requiring gradients, in three grades: float64 paths with
+   ``grad_solver="f32"``, float32 paths, and float64 paths with the default
+   (float64) grade.
+6. ``MMDFlow(RBFKernel(1.0), dyadic_order=1).fit`` for 5 steps at batch 32,
+   length 200, float64; and a ``LinearKernel`` ``sym=True`` Gram at batch
+   50, length 100 with ``.backward()`` (K2-stack and K3<inc>).
 
-The launch counters are zeroed before phases 2-4 and read after them: every
-kernel must have launched and no plain version may have run. The checks of
-those phases against plain versions come after the counters are read, then
-each kernel is timed beside its plain version at 128 pairs, length 1024,
-dyadic 1, dim 3. The last three lines of the output are the card's
-``nvidia-smi`` line, one JSON object describing the kernels, and the result
-line ``{"ok": true, "device": {...}}``.
+The launch counters are zeroed before phases 2-4, before phase 5 and before
+phase 6, and read after each: every kernel of the phase must have launched
+and no plain version may have run. The checks of those phases against plain
+versions come after the counters are read, then each kernel is timed beside
+its plain version at 128 pairs, length 1024, dyadic 1, dim 3. The last three
+lines of the output are the card's ``nvidia-smi`` line, one JSON object
+describing the kernels, and the result line ``{"ok": true, "device":
+{...}}``.
 """
 import json
 import math
@@ -47,6 +58,35 @@ F32_RTOL_LONG = 1e-3  # paths of length >= 1024
 # the f32 sweep's own drift (it adds millions of rounding errors of one
 # sign; not a kernel property)
 F32_VS_F64 = 1e-1
+# Gradients and stacks against their plain versions, max |err| / max |ref|
+# (an entry-wise relative error means nothing for entries near 0). float64:
+# the port's bar. float32: K1-stack, K2-stack and K3 round as their plain
+# versions do (bit-equal so far); K4 sums its rows in another order than the
+# plain version's matrix products.
+GRAD_F64 = 1e-10
+GRAD_F32 = 1e-4
+# Gradients through the whole chain against the plain tier on the card: the
+# float64 grade within the port's gradient bar; the float32 grades against
+# the float64 plain adjoint within the float32 chain's own error at a 2046^2
+# grid, about 3e-2 on the H100 (the JAX package measured 2.69e-2 there,
+# docs/VALIDATION.md:33).
+CHAIN_F64 = 1e-9
+CHAIN_F32 = 1e-1
+
+DEVICE = "cuda"
+# phase 1: name, pairs, M, N, D, sigma, dyadic orders
+PROBLEMS = [
+    ("quick-start 5 pairs 10x20 d2", 5, 10, 20, 2, 0.5, (0, 1, 2)),
+    ("quick-start 5 pairs 20x10 d2", 5, 20, 10, 2, 0.5, (0, 1, 2)),
+    ("8 pairs 1024x1024 d3", 8, 1024, 1024, 3, 1.0, (0, 1, 2)),
+    ("1 pair 2048x2048 d3", 1, 2048, 2048, 3, 1.0, (1,)),
+    ("length-1 path 3 pairs 1x5 d2", 3, 1, 5, 2, 0.5, (0, 1, 2)),
+]
+LONG = 1024           # phase 1: the adjoint runs order-2 only from here
+NORTH_STAR = (100, 1024)  # batch, length (dim 3, dyadic 1)
+LINEAR = (50, 100)    # phases 3 and 6: LinearKernel batch, length
+FLOW = (32, 200)      # phases 4 and 6: batch, length
+TIMED_PAIRS = 128     # kernel times at the north star's length
 
 
 def check(ok, msg):
@@ -58,13 +98,27 @@ def rel_err(got, want):
     return float(((got - want).abs() / want.abs()).max())
 
 
+def max_rel(got, want):
+    """max |got - want| / max |want| (0 for empty tensors)."""
+    if not want.numel():
+        return 0.0
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-300))
+
+
 def make_paths(gen, batch, length, dim, dtype):
     """``cumsum(normal) / sqrt(length)``, as the JAX benchmark makes them."""
     import torch
 
-    z = torch.randn(batch, length, dim, generator=gen, device="cuda",
+    z = torch.randn(batch, length, dim, generator=gen, device=DEVICE,
                     dtype=torch.float64)
     return (z.cumsum(dim=1) / math.sqrt(length)).to(dtype)
+
+
+def leaf(t, dtype):
+    """A fresh leaf copy of ``t`` in ``dtype`` that requires a gradient
+    (``t.to(dtype)`` alone may return ``t`` itself)."""
+    return t.detach().to(dtype).clone().requires_grad_()
 
 
 def synced(fn):
@@ -101,14 +155,16 @@ def main():
         return 1
 
     import sigkernel_tpu_torch as skt
-    from sigkernel_tpu_torch.ops import _build, cuda_gen, cuda_solver
+    from sigkernel_tpu_torch.ops import (_build, cuda_gen, cuda_solver,
+                                         incvjp)
     from sigkernel_tpu_torch.utils import double_difference
 
     # full-precision float32 matmuls (the plain versions' Grams)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     F32, F64 = torch.float32, torch.float64
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
+    name = {F32: "float32", F64: "float64"}
 
     # ---- phase 0: device and build --------------------------------------
     card = subprocess.run(
@@ -128,13 +184,21 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[0] ptxas: {line.strip()}")
 
-    instances = {
-        ("gen", F32): "rbf_gen_wavefront<float>",
-        ("gen", F64): "rbf_gen_wavefront<double>",
-        ("inc", F32): "inc_wavefront<float>",
-        ("inc", F64): "inc_wavefront<double>",
+    # every kernel instance: (kind, dtype) -> (name, its launch counter)
+    kinds = {
+        "gen": ("rbf_gen_wavefront", cuda_gen.COUNTS),
+        "gen_stack": ("rbf_gen_wavefront[stack]", cuda_gen.STACK_COUNTS),
+        "inc": ("inc_wavefront", cuda_solver.COUNTS),
+        "inc_stack": ("inc_wavefront[stack]", cuda_solver.STACK_COUNTS),
+        "adj_gen": ("adjoint_collapse_gen", cuda_gen.ADJOINT_COUNTS),
+        "adj_inc": ("adjoint_collapse_inc", cuda_solver.ADJOINT_COUNTS),
+        "vjp": ("rbf_dd_vjp", incvjp.COUNTS),
     }
-    max_abs = {k: 0.0 for k in instances}
+    ctype = {F32: "float", F64: "double"}
+    instances = {(k, dt): f"{kinds[k][0]}<{ctype[dt]}>"
+                 for k in kinds for dt in (F32, F64)}
+    max_abs = {key: 0.0 for key in instances}
+    launches = {key: 0 for key in instances}
 
     def compare(kind, dtype, got, want, limit, label):
         check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
@@ -145,23 +209,45 @@ def main():
         check(r <= limit, f"{label}: rel err {r:.3e} > {limit:.0e}")
         return r
 
+    def compare_max(kind, dtype, got, want, limit, label):
+        """As ``compare``, with max |err| / max |ref| as the measure."""
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+        check(got.shape == want.shape, f"{label}: shape {tuple(got.shape)}")
+        r = max_rel(got, want)
+        a = float((got - want).abs().max()) if got.numel() else 0.0
+        max_abs[(kind, dtype)] = max(max_abs[(kind, dtype)], a)
+        check(r <= limit, f"{label}: max err / max ref {r:.3e} > {limit:.0e}")
+        return r
+
+    def zero_counters():
+        for _, counts in kinds.values():
+            for k in counts:
+                counts[k] = 0
+
+    def read_counters(phase, expected):
+        """Add this phase's launches; every ``expected`` instance must have
+        launched and no plain version may have run."""
+        got = {key: kinds[key[0]][1][name[key[1]]] for key in instances}
+        plain = sum(c["plain"] for _, c in kinds.values())
+        print(f"[{phase}] launches: "
+              f"{ {instances[k]: v for k, v in got.items() if v} }, "
+              f"plain-version calls {plain}")
+        for key in expected:
+            check(got[key] > 0, f"{instances[key]} was never launched in "
+                                f"phase {phase}")
+        check(plain == 0, f"a plain version ran in phase {phase}")
+        for key, v in got.items():
+            launches[key] += v
+
     # ---- phase 1: kernels against their plain versions ------------------
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    problems = [
-        # name, pairs, M, N, D, sigma, dyadic orders
-        ("quick-start 5 pairs 10x20 d2", 5, 10, 20, 2, 0.5, (0, 1, 2)),
-        ("quick-start 5 pairs 20x10 d2", 5, 20, 10, 2, 0.5, (0, 1, 2)),
-        ("8 pairs 1024x1024 d3", 8, 1024, 1024, 3, 1.0, (0, 1, 2)),
-        ("1 pair 2048x2048 d3", 1, 2048, 2048, 3, 1.0, (1,)),
-        ("length-1 path 3 pairs 1x5 d2", 3, 1, 5, 2, 0.5, (0, 1, 2)),
-    ]
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
     t_phase = time.perf_counter()
-    for name, P, M, N, D, sigma, orders in problems:
+    for pname, P, M, N, D, sigma, orders in PROBLEMS:
         X64 = make_paths(gen, P, M, D, F64)
         Y64 = make_paths(gen, P, N, D, F64)
         ii = torch.arange(P, device=dev)
         jj = ii.flip(0)  # a non-identity pairing exercises the index arrays
-        long = max(M, N) >= 1024
+        long = max(M, N) >= LONG
         rbf = skt.RBFKernel(sigma)
         for dtype in (F64, F32):
             X, Y = X64.to(dtype), Y64.to(dtype)
@@ -169,9 +255,10 @@ def main():
                 rbf.batch_kernel(X[ii], Y[jj])).contiguous()
             limit = (F64_RTOL if dtype == F64 else
                      F32_RTOL_LONG if long else F32_RTOL_SMALL)
+            glimit = GRAD_F64 if dtype == F64 else GRAD_F32
             for dy in orders:
                 for naive in (False, True):
-                    label = (f"{name} {str(dtype)[6:]} dyadic {dy} "
+                    label = (f"{pname} {name[dtype]} dyadic {dy} "
                              f"{'naive' if naive else 'order-2'}")
                     k1, t1 = synced(lambda: cuda_gen.rbf_gen_solve_final(
                         X, Y, ii, jj, sigma, dy, naive))
@@ -186,28 +273,86 @@ def main():
                     print(f"[1] {label}: K1 rel {r1:.2e} ({t1 * 1e3:.1f} ms),"
                           f" K2 rel {r2:.2e} ({t2 * 1e3:.1f} ms), "
                           f"limit {limit:.0e}")
+                    if M == 1 or N == 1:
+                        # no increments: every gradient is exactly 0
+                        ct = cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, sigma,
+                                                      None, dy, naive)
+                        check(ct.shape == (P, 0, N - 1), "length-1 ct shape")
+                        x, y = leaf(X, dtype), leaf(Y, dtype)
+                        s = torch.tensor(sigma, dtype=dtype, device=dev,
+                                         requires_grad=True)
+                        skt.sig_gram_lincomb(
+                            skt.RBFKernel(s), x, y,
+                            torch.ones(P, P, dtype=dtype, device=dev),
+                            dyadic_order=dy, naive=naive).backward()
+                        check(not (x.grad.any() or y.grad.any()
+                                   or s.grad.any()),
+                              f"{label}: length-1 gradients are not 0")
+                        print(f"[1] {label}: length-1 gradients exactly 0")
+                        continue
+                    if long and (naive or P == 1):
+                        continue  # the adjoint at length 1024: order-2 only
+                    v, stk = cuda_gen.rbf_gen_solve_stack(X, Y, ii, jj, sigma,
+                                                          dy, naive)
+                    pv, pstk = cuda_gen.rbf_gen_solve_stack_plain(
+                        X, Y, ii, jj, sigma, dy, naive)
+                    check(torch.equal(v, k1), f"K1-stack {label}: values "
+                                              "differ from K1's")
+                    rs1 = compare_max("gen_stack", dtype, stk, pstk, glimit,
+                                      "K1-stack " + label)
+                    eq1 = torch.equal(stk, pstk)
+                    ct = cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, sigma, stk,
+                                                  dy, naive)
+                    pct = cuda_gen.rbf_gen_adjoint_plain(X, Y, ii, jj, sigma,
+                                                         stk, dy, naive)
+                    ra1 = compare_max("adj_gen", dtype, ct, pct, glimit,
+                                      "K3<gen> " + label)
+                    del stk, pstk
+                    got = incvjp.rbf_dd_vjp(X, Y, ii, jj, sigma, ct)
+                    want = incvjp.rbf_dd_vjp_plain(X, Y, ii, jj, sigma, ct)
+                    rv = max(compare_max("vjp", dtype, g, w, glimit,
+                                         f"K4 {label} output {n}")
+                             for n, g, w in zip("s X Y".split(), got, want))
+                    _, stk2 = cuda_solver.inc_solve_stack(inc, dy, naive)
+                    _, pstk2 = cuda_solver.inc_solve_stack_plain(inc, dy,
+                                                                 naive)
+                    rs2 = compare_max("inc_stack", dtype, stk2, pstk2,
+                                      glimit, "K2-stack " + label)
+                    eq2 = torch.equal(stk2, pstk2)
+                    ct2 = cuda_solver.inc_adjoint(inc, stk2, dy, naive)
+                    pct2 = cuda_solver.inc_adjoint_plain(inc, stk2, dy,
+                                                         naive)
+                    ra2 = compare_max("adj_inc", dtype, ct2, pct2, glimit,
+                                      "K3<inc> " + label)
+                    del stk2, pstk2
+                    torch.cuda.synchronize()
+                    print(f"[1] {label}: K1-stack {rs1:.2e} "
+                          f"(bit-equal {eq1}), K3<gen> {ra1:.2e}, K4 "
+                          f"{rv:.2e}, K2-stack {rs2:.2e} (bit-equal {eq2}), "
+                          f"K3<inc> {ra2:.2e}, max err / max ref, limit "
+                          f"{glimit:.0e}")
     print(f"[1] all kernel-vs-plain cases passed in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
-    # ---- phases 2-4: the main path, counted -----------------------------
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    A, L = 100, 1024
+    # ---- phases 2-4: the forward main path, counted ---------------------
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    A, L = NORTH_STAR
+    (AL, LL), (AF, LF) = LINEAR, FLOW
     X64 = make_paths(gen, A, L, 3, F64)
     Y64 = make_paths(gen, A, L, 3, F64)
-    XL64 = make_paths(gen, 50, 100, 3, F64)
-    H64 = make_paths(gen, 32, 200, 3, F64)
-    T64 = 1.5 * make_paths(gen, 32, 200, 3, F64)
+    XL64 = make_paths(gen, AL, LL, 3, F64)
+    H64 = make_paths(gen, AF, LF, 3, F64)
+    T64 = 1.5 * make_paths(gen, AF, LF, 3, F64)
     rbf = skt.RBFKernel(1.0)
     sig = skt.SigKernel(rbf, dyadic_order=1)
 
-    for m in (cuda_gen, cuda_solver):
-        for k in m.COUNTS:
-            m.COUNTS[k] = 0
+    zero_counters()
     main = {}
     for dtype in (F64, F32):
         X, Y = X64.to(dtype), Y64.to(dtype)
         W = torch.full((A, A), 1.0 / (A * A), dtype=dtype, device=dev)
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         calls = [
             ("compute_Gram(X, X, sym=True)", A * (A + 1) // 2,
              lambda: sig.compute_Gram(X, X, sym=True)),
@@ -221,37 +366,88 @@ def main():
         for label, pairs, fn in calls:
             out, sec = synced(fn)
             main[(dtype, label)] = out
-            print(f"[2] {str(dtype)[6:]} {label}: {sec:.3f} s, "
+            print(f"[2] {name[dtype]} {label}: {sec:.3f} s, "
                   f"{pairs / sec:.1f} path-pairs/s ({pairs} pairs)")
-        print(f"[2] {str(dtype)[6:]} peak memory allocated "
-              f"{torch.cuda.max_memory_allocated()} bytes")
+        print(f"[2] {name[dtype]} peak memory allocated "
+              f"{torch.cuda.max_memory_allocated()} bytes ({base} allocated "
+              "before the calls)")
 
     lin = skt.SigKernel(skt.LinearKernel(1.0), dyadic_order=0)
     for dtype in (F64, F32):
         XL = XL64.to(dtype)
         out, sec = synced(lambda: lin.compute_Gram(XL, XL, sym=True))
         main[(dtype, "linear")] = out
-        print(f"[3] {str(dtype)[6:]} LinearKernel Gram(sym=True) 50 x len "
-              f"100: {sec:.3f} s ({50 * 51 // 2} pairs)")
+        print(f"[3] {name[dtype]} LinearKernel Gram(sym=True) {AL} x len "
+              f"{LL}: {sec:.3f} s ({AL * (AL + 1) // 2} pairs)")
 
     (rejected, TU, c), sec = synced(lambda: skt.hypothesis_test(
         H64, T64, rbf, dyadic_order=1, verbose=True))
-    print(f"[4] hypothesis_test 32 vs 32 x len 200, dyadic 1: MMD {float(TU)}"
+    print(f"[4] hypothesis_test {AF} vs {AF} x len {LF}, dyadic 1: MMD "
+          f"{float(TU)}"
           f", threshold {c}, rejected {rejected}, {sec:.3f} s")
+    read_counters("2-4", [(k, dt) for k in ("gen", "inc")
+                          for dt in (F32, F64)])
 
-    launches = {("gen", F32): cuda_gen.COUNTS["float32"],
-                ("gen", F64): cuda_gen.COUNTS["float64"],
-                ("inc", F32): cuda_solver.COUNTS["float32"],
-                ("inc", F64): cuda_solver.COUNTS["float64"]}
-    plain_calls = cuda_gen.COUNTS["plain"] + cuda_solver.COUNTS["plain"]
-    print(f"[2-4] launches on the main path: "
-          f"{ {instances[k]: v for k, v in launches.items()} }, "
-          f"plain-version calls {plain_calls}")
-    for k, n in launches.items():
-        check(n > 0, f"{instances[k]} was never launched on the main path")
-    check(plain_calls == 0, "a plain version ran on the main path")
+    # ---- phase 5: the training path at full width, counted --------------
+    # (float64 paths, grade) or (float32 paths, grade)
+    grades = [("f64 in, grad_solver='f32'", F64, "f32"),
+              ("f32 in, grad_solver='auto'", F32, "auto"),
+              ("f64 in, grad_solver='auto'", F64, "auto")]
+    zero_counters()
+    train = {}
+    for label, dtype, grade in grades:
+        X, Y = leaf(X64, dtype), leaf(Y64, dtype)
+        s = torch.tensor(1.0, dtype=dtype, device=dev, requires_grad=True)
+        W = torch.full((A, A), 1.0 / (A * A), dtype=dtype, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
 
-    # ---- checks of phases 2-4 against plain versions --------------------
+        def step():
+            S = skt.sig_gram_lincomb(skt.RBFKernel(s), X, Y, W,
+                                     dyadic_order=1, pair_chunk=128,
+                                     grad_solver=grade)
+            S.backward()
+            return S.detach()
+
+        S, sec = synced(step)
+        peak = torch.cuda.max_memory_allocated()
+        train[label] = (S, X.grad, Y.grad, s.grad)
+        print(f"[5] {label}: sig_gram_lincomb fwd+bwd {sec:.3f} s, "
+              f"{A * A / sec:.1f} path-pairs/s ({A * A} pairs), peak memory "
+              f"allocated {peak} bytes ({base} before the call), S "
+              f"{float(S)}, dsigma {float(s.grad)}")
+    read_counters("5", [("gen", F64), ("gen_stack", F32), ("gen_stack", F64),
+                        ("adj_gen", F32), ("adj_gen", F64), ("vjp", F32),
+                        ("vjp", F64)])
+
+    # ---- phase 6: the trainer and the inc family's adjoint, counted -----
+    zero_counters()
+    Y6 = 1.5 * make_paths(gen, AF, LF, 3, F64)
+    X6 = make_paths(gen, AF, LF, 3, F64)
+    flow = skt.MMDFlow(skt.RBFKernel(1.0), dyadic_order=1)
+    (X6_fit, history), sec = synced(lambda: flow.fit(X6, Y6, n_steps=5))
+    print(f"[6] MMDFlow.fit {AF} x len {LF} x dim 3, dyadic 1, float64, 5 "
+          f"steps: {sec:.3f} s, history {history}")
+    lin_grads = {}
+    for dtype in (F64, F32):
+        XL = leaf(XL64, dtype)
+        scale = torch.tensor(1.0, dtype=dtype, device=dev, requires_grad=True)
+
+        def lin_step():
+            G = skt.sig_gram(skt.LinearKernel(scale), XL, XL, sym=True)
+            G.sum().backward()
+            return G
+
+        G, sec = synced(lin_step)
+        lin_grads[dtype] = (G.detach(), XL.grad, scale.grad)
+        print(f"[6] {name[dtype]} LinearKernel Gram(sym=True) {AL} x len "
+              f"{LL} fwd+bwd: {sec:.3f} s ({AL * (AL + 1) // 2} pairs)")
+    read_counters("6", [("gen", F64), ("gen_stack", F64), ("adj_gen", F64),
+                        ("vjp", F64), ("inc", F32), ("inc", F64),
+                        ("inc_stack", F32), ("inc_stack", F64),
+                        ("adj_inc", F32), ("adj_inc", F64)])
+
+    # ---- checks of phases 2-6 against plain versions --------------------
     pick = torch.Generator(device="cpu").manual_seed(2)
     ii = torch.randint(0, A, (4,), generator=pick).to(dev)
     jj = torch.randint(0, A, (4,), generator=pick).to(dev)
@@ -266,7 +462,7 @@ def main():
         check(G_sym.shape == (A, A) and G_xy.shape == (A, A), "Gram shapes")
         check(torch.equal(G_sym, G_sym.T), "sym Gram is not exactly symmetric")
         for Yv, G, what in ((Y, G_xy, "Gram(X, Y)"), (X, G_sym, "Gram(X, X)")):
-            label = f"{str(dtype)[6:]} {what} 4 random pairs"
+            label = f"{name[dtype]} {what} 4 random pairs"
             want = cuda_gen.rbf_gen_solve_final_plain(X, Yv, ii, jj, 1.0, 1)
             r = compare("gen", dtype, G[ii, jj], want, limit, label)
             print(f"[2] {label} vs plain version: rel {r:.2e} "
@@ -275,7 +471,7 @@ def main():
         r = abs(float(lin_v - G_xy.mean())) / abs(float(G_xy.mean()))
         check(r <= (1e-12 if dtype == F64 else 1e-5),
               f"lincomb vs Gram mean rel {r:.2e}")
-        print(f"[2] {str(dtype)[6:]} lincomb vs mean of Gram(X, Y): rel "
+        print(f"[2] {name[dtype]} lincomb vs mean of Gram(X, Y): rel "
               f"{r:.2e}")
     g32 = main[(F32, "compute_Gram(X, Y)")].double()
     g64 = main[(F64, "compute_Gram(X, Y)")]
@@ -292,8 +488,8 @@ def main():
                             solver="scan")
         limit = F64_RTOL if dtype == F64 else F32_RTOL_SMALL
         r = compare("inc", dtype, main[(dtype, "linear")], want, limit,
-                    f"{str(dtype)[6:]} LinearKernel Gram vs plain tier")
-        print(f"[3] {str(dtype)[6:]} LinearKernel Gram vs plain tier: rel "
+                    f"{name[dtype]} LinearKernel Gram vs plain tier")
+        print(f"[3] {name[dtype]} LinearKernel Gram vs plain tier: rel "
               f"{r:.2e} (limit {limit:.0e})")
 
     TU_plain = skt.sig_mmd(rbf, H64, T64, dyadic_order=1, solver="scan")
@@ -302,56 +498,173 @@ def main():
           f"hypothesis_test MMD vs plain tier abs err {err:.2e}")
     print(f"[4] hypothesis_test MMD vs plain tier: abs err {err:.2e}")
 
+    # phase 5: values equal to the forward-only lincomb of phase 2 (the
+    # same sweeps, summed in the same order), gradients finite
+    lin_key = "sig_gram_lincomb(X, Y, W, pair_chunk=128)"
+    for label, dtype, grade in grades:
+        S, gX, gY, gs = train[label]
+        for t in (gX, gY, gs):
+            check(t is not None and bool(torch.isfinite(t).all())
+                  and t.dtype == dtype, f"[5] {label}: gradient")
+        check(bool(gX.abs().max() > 0) and bool(gs.abs() > 0),
+              f"[5] {label}: zero gradient")
+        check(torch.equal(S, main[(dtype, lin_key)]),
+              f"[5] {label}: value {float(S)} differs from the forward-only "
+              f"lincomb {float(main[(dtype, lin_key)])}")
+        print(f"[5] {label}: value equals the forward-only lincomb")
+    a = train["f64 in, grad_solver='auto'"]
+    b = train["f64 in, grad_solver='f32'"]
+    print("[5] float64 paths, grad_solver='f32' against the float64 grade "
+          "(max |diff| / max |f64 grade|): dX "
+          f"{max_rel(b[1], a[1]):.3e}, dY {max_rel(b[2], a[2]):.3e}, dsigma "
+          f"{max_rel(b[3], a[3]):.3e} (not gated; the JAX package measured "
+          "2.69e-2 on a TPU at this grid)")
+    # the 2 x 2 sub-problem at length 1024 against the plain tier (float64)
+    ref = {}
+    for solver in ("scan", "auto"):
+        for label, dtype, grade in grades:
+            if solver == "scan" and label != grades[2][0]:
+                continue
+            x, y = leaf(X64[:2], dtype), leaf(Y64[:2], dtype)
+            s = torch.tensor(1.0, dtype=dtype, device=dev,
+                             requires_grad=True)
+            W = torch.full((2, 2), 0.25, dtype=dtype, device=dev)
+            skt.sig_gram_lincomb(skt.RBFKernel(s), x, y, W, dyadic_order=1,
+                                 solver=solver,
+                                 grad_solver=grade).backward()
+            ref[(solver, label)] = (x.grad.double(), y.grad.double(),
+                                    s.grad.double())
+    want = ref[("scan", grades[2][0])]
+    for label, dtype, grade in grades:
+        got = ref[("auto", label)]
+        bar = CHAIN_F64 if (dtype == F64 and grade == "auto") else CHAIN_F32
+        errs = [max_rel(g, w) for g, w in zip(got, want)]
+        print(f"[5] 2 x 2 pairs, len {L}, {label} vs solver='scan' (float64"
+              f" plain adjoint): dX {errs[0]:.3e}, dY {errs[1]:.3e}, dsigma "
+              f"{errs[2]:.3e} (limit {bar:.1e})")
+        check(max(errs) <= bar, f"[5] {label}: 2 x 2 gradients vs plain tier")
+
+    check(all(math.isfinite(h) for h in history) and len(history) == 5,
+          f"[6] MMDFlow history {history}")
+    check(history[-1] < history[0], f"[6] MMDFlow MMD did not fall: "
+                                    f"{history}")
+    check(bool(torch.isfinite(X6_fit).all()), "[6] MMDFlow particles")
+    for dtype in (F64, F32):
+        XL = leaf(XL64, dtype)
+        scale = torch.tensor(1.0, dtype=dtype, device=dev, requires_grad=True)
+        G = skt.sig_gram(skt.LinearKernel(scale), XL, XL, sym=True,
+                         solver="scan")
+        G.sum().backward()
+        bar = GRAD_F64 if dtype == F64 else GRAD_F32
+        got = lin_grads[dtype]
+        errs = [max_rel(got[1], XL.grad), max_rel(got[2], scale.grad)]
+        print(f"[6] {name[dtype]} LinearKernel Gram backward vs plain tier: "
+              f"dX {errs[0]:.3e}, dscale {errs[1]:.3e} (limit {bar:.0e}); "
+              f"dX max abs err {float((got[1] - XL.grad).abs().max()):.3e}")
+        check(max(errs) <= bar, f"[6] {name[dtype]} LinearKernel gradients")
+
     # ---- kernel times beside their plain versions -----------------------
-    P = 128
+    P = TIMED_PAIRS
     Xt64 = make_paths(gen, P, L, 3, F64)
     Yt64 = make_paths(gen, P, L, 3, F64)
     ar = torch.arange(P, device=dev)
     timing = {}
+
+    def timed(kind, dtype, kern, plain, cmp, lim):
+        got, want = kern(), plain()  # warm-up, and the comparison
+        r = cmp(kind, dtype, got, want, lim,
+                f"{instances[(kind, dtype)]} at {P} pairs")
+        del got, want
+        ms = event_ms(kern, 5)
+        plain_ms = event_ms(plain, 1)
+        timing[(kind, dtype)] = (ms, plain_ms)
+        print(f"[t] {instances[(kind, dtype)]}: {P} pairs, len {L}, "
+              f"dyadic 1, dim 3: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, err {r:.2e} ({card})")
+        torch.cuda.empty_cache()
+
     for dtype in (F32, F64):
         Xt, Yt = Xt64.to(dtype), Yt64.to(dtype)
         inc = double_difference(rbf.batch_kernel(Xt, Yt)).contiguous()
         limit = F64_RTOL if dtype == F64 else F32_RTOL_LONG
-        runs = {
-            "gen": (lambda: cuda_gen.rbf_gen_solve_final(
-                        Xt, Yt, ar, ar, 1.0, 1),
-                    lambda: cuda_gen.rbf_gen_solve_final_plain(
-                        Xt, Yt, ar, ar, 1.0, 1)),
-            "inc": (lambda: cuda_solver.inc_solve_final(inc, 1),
-                    lambda: cuda_solver.inc_solve_final_plain(inc, 1)),
-        }
-        for kind, (kern, plain) in runs.items():
-            got, want = kern(), plain()  # warm-up, and the comparison
-            r = compare(kind, dtype, got, want, limit,
-                        f"{instances[(kind, dtype)]} at {P} pairs")
-            ms = event_ms(kern, 5)
-            plain_ms = event_ms(plain, 1)
-            timing[(kind, dtype)] = (ms, plain_ms)
-            print(f"[t] {instances[(kind, dtype)]}: {P} pairs, len {L}, "
-                  f"dyadic 1, dim 3: kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, rel {r:.2e} ({card})")
+        glimit = GRAD_F64 if dtype == F64 else GRAD_F32
+        timed("gen", dtype,
+              lambda: cuda_gen.rbf_gen_solve_final(Xt, Yt, ar, ar, 1.0, 1),
+              lambda: cuda_gen.rbf_gen_solve_final_plain(Xt, Yt, ar, ar, 1.0,
+                                                         1), compare, limit)
+        timed("inc", dtype, lambda: cuda_solver.inc_solve_final(inc, 1),
+              lambda: cuda_solver.inc_solve_final_plain(inc, 1), compare,
+              limit)
+        timed("gen_stack", dtype,
+              lambda: cuda_gen.rbf_gen_solve_stack(Xt, Yt, ar, ar, 1.0, 1)[1],
+              lambda: cuda_gen.rbf_gen_solve_stack_plain(Xt, Yt, ar, ar, 1.0,
+                                                         1)[1],
+              compare_max, glimit)
+        timed("inc_stack", dtype,
+              lambda: cuda_solver.inc_solve_stack(inc, 1)[1],
+              lambda: cuda_solver.inc_solve_stack_plain(inc, 1)[1],
+              compare_max, glimit)
+        _, stk = cuda_gen.rbf_gen_solve_stack(Xt, Yt, ar, ar, 1.0, 1)
+        timed("adj_gen", dtype,
+              lambda: cuda_gen.rbf_gen_adjoint(Xt, Yt, ar, ar, 1.0, stk, 1),
+              lambda: cuda_gen.rbf_gen_adjoint_plain(Xt, Yt, ar, ar, 1.0,
+                                                     stk, 1),
+              compare_max, glimit)
+        ct = cuda_gen.rbf_gen_adjoint(Xt, Yt, ar, ar, 1.0, stk, 1)
+        del stk
+        _, stk = cuda_solver.inc_solve_stack(inc, 1)
+        timed("adj_inc", dtype, lambda: cuda_solver.inc_adjoint(inc, stk, 1),
+              lambda: cuda_solver.inc_adjoint_plain(inc, stk, 1),
+              compare_max, glimit)
+        del stk
+        timed("vjp", dtype,
+              lambda: incvjp.rbf_dd_vjp(Xt, Yt, ar, ar, 1.0, ct)[1],
+              lambda: incvjp.rbf_dd_vjp_plain(Xt, Yt, ar, ar, 1.0, ct)[1],
+              compare_max, glimit)
+        del ct, inc
 
+    adjoint = "sigkernel_tpu/ops/pallas_adjoint.py"
     replaces = {
         ("gen", F32): ("sigkernel_tpu/ops/pallas_gen32.py:143",
                        ["sigkernel_tpu/ops/pallas_fused.py:193",
                         "sigkernel_tpu/ops/pallas_fused.py:351"]),
         ("gen", F64): ("sigkernel_tpu/ops/pallas_df64.py:1066", []),
+        ("gen_stack", F32): ("sigkernel_tpu/ops/pallas_gen32.py:143",
+                             ["sigkernel_tpu/ops/pallas_gen32.py:347"]),
+        ("gen_stack", F64): ("sigkernel_tpu/ops/pallas_df64.py:1066",
+                             ["sigkernel_tpu/ops/pallas_df64.py:1770"]),
         ("inc", F32): ("sigkernel_tpu/ops/pallas_solver.py:115",
                        ["sigkernel_tpu/ops/pallas_solver.py:764"]),
         ("inc", F64): ("sigkernel_tpu/ops/pallas_df64.py:298",
                        ["sigkernel_tpu/ops/pallas_df64.py:607"]),
+        ("inc_stack", F32): ("sigkernel_tpu/ops/pallas_solver.py:115",
+                             ["sigkernel_tpu/ops/pallas_solver.py:764"]),
+        ("inc_stack", F64): ("sigkernel_tpu/ops/pallas_df64.py:298",
+                             ["sigkernel_tpu/ops/pallas_df64.py:607"]),
+        ("adj_gen", F32): (f"{adjoint}:1552", [f"{adjoint}:781"]),
+        ("adj_gen", F64): (f"{adjoint}:1127", [f"{adjoint}:781"]),
+        ("adj_inc", F32): (f"{adjoint}:215", [f"{adjoint}:64",
+                                              f"{adjoint}:442"]),
+        ("adj_inc", F64): (f"{adjoint}:215", [f"{adjoint}:64",
+                                              f"{adjoint}:442"]),
+        ("vjp", F32): ("sigkernel_tpu/ops/pallas_incvjp.py:61", []),
+        ("vjp", F64): ("sigkernel_tpu/ops/pallas_incvjp.py:61", []),
     }
-    source = {"gen": "sigkernel_tpu_torch/csrc/rbf_gen_wavefront.cu",
-              "inc": "sigkernel_tpu_torch/csrc/inc_wavefront.cu"}
+    source = {"gen": "rbf_gen_wavefront.cu",
+              "gen_stack": "rbf_gen_wavefront.cu",
+              "inc": "inc_wavefront.cu", "inc_stack": "inc_wavefront.cu",
+              "adj_gen": "adjoint_collapse.cu",
+              "adj_inc": "adjoint_collapse.cu", "vjp": "rbf_dd_vjp.cu"}
     kernels = []
-    for key, name in instances.items():
+    for key, iname in instances.items():
         rep, also = replaces[key]
         ms, plain_ms = timing[key]
-        kernels.append({"name": name, "route": "cuda", "source": source[key[0]],
-                         "replaces": rep, "also_replaces": also,
-                         "launches": launches[key],
-                         "max_abs_err": max_abs[key], "ms": ms,
-                         "plain_ms": plain_ms})
+        kernels.append({"name": iname, "route": "cuda",
+                        "source": f"sigkernel_tpu_torch/csrc/{source[key[0]]}",
+                        "replaces": rep, "also_replaces": also,
+                        "launches": launches[key],
+                        "max_abs_err": max_abs[key], "ms": ms,
+                        "plain_ms": plain_ms})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

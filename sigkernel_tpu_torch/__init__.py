@@ -22,7 +22,10 @@ from .sigkernel import (  # noqa: F401
     sig_gram_lincomb,
     sig_distance,
     sig_mmd,
+    sig_scoring_rule,
+    sig_expected_scoring_rule,
 )
+from .models.mmd_flow import MMDFlow, mmd_flow_step  # noqa: F401
 from .stats import hypothesis_test, c_alpha  # noqa: F401
 from . import ops  # noqa: F401
 from . import utils  # noqa: F401

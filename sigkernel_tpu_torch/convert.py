@@ -16,9 +16,10 @@ _KINDS = {"RBFKernel": RBFKernel, "LinearKernel": LinearKernel}
 
 
 def static_kernel_from_numpy(kind: str, leaves, *, dtype=torch.float64,
-                             device=None):
+                             device=None, requires_grad=False):
     """``kind``: the JAX class name (``"RBFKernel"`` or ``"LinearKernel"``);
-    ``leaves``: its flattened pytree leaves."""
+    ``leaves``: its flattened pytree leaves. ``requires_grad``: make the
+    hyper-parameter a trainable leaf (its gradient lands in its ``.grad``)."""
     if kind not in _KINDS:
         raise ValueError(f"unknown static kernel {kind!r}; expected one of "
                          f"{tuple(_KINDS)}")
@@ -26,4 +27,5 @@ def static_kernel_from_numpy(kind: str, leaves, *, dtype=torch.float64,
     if len(leaves) != 1:
         raise ValueError(f"{kind} has one leaf; got {len(leaves)}")
     value = torch.as_tensor(np.asarray(leaves[0]), dtype=dtype, device=device)
+    value.requires_grad_(requires_grad)
     return _KINDS[kind](value)

@@ -16,43 +16,49 @@
 // keeps the whole solution state in shared memory, and solves the
 // transposed problem when the rows are longer than the columns so the ring
 // holds the shorter side.
+//
+// K2-stack (kStack = true) also writes the solution stack the adjoint
+// consumes (layout in wavefront.cuh), replacing the grid/stack outputs of
+//   sigkernel_tpu/ops/pallas_solver.py::_wavefront_kernel (solve_grid)
+//   sigkernel_tpu/ops/pallas_solver.py::_wavefront_f32_planes_kernel
+//   sigkernel_tpu/ops/pallas_df64.py::_wavefront_df_kernel (solve_grid)
+//   sigkernel_tpu/ops/pallas_df64.py::_wavefront_df_planes_kernel
+// The stack's stores are coalesced along each diagonal; they, not the
+// increment reads, are the larger share of its device-memory bytes.
 #include "wavefront.cuh"
 
 namespace sigkernel {
 
-template <typename T>
+template <typename T, bool kStack>
 __global__ void inc_wavefront(const T* __restrict__ inc, T* __restrict__ out,
-                              int Mb, int Nb, int f, int transpose,
-                              int naive) {
+                              T* __restrict__ stack, int Mb, int Nb, int f,
+                              int transpose, int naive) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
   const int64_t pair = blockIdx.x;
-  const T* g = inc + pair * static_cast<int64_t>(Mb) * Nb;
+  const IncGrid<T> grid{inc + pair * static_cast<int64_t>(Mb) * Nb, Nb, f,
+                        transpose, T(1) / T(f * f)};
   const int R = (transpose ? Nb : Mb) * f;
   const int C = (transpose ? Mb : Nb) * f;
-  const T scale = T(1) / T(f * f);
-  const T v = sweep<T>(ring, R, C, naive != 0, [&](int r, int c) -> T {
-    const int a = (transpose ? c : r) / f;
-    const int b = (transpose ? r : c) / f;
-    return g[static_cast<int64_t>(a) * Nb + b] * scale;
-  });
+  T* pair_stack = kStack ? stack + pair * stack_elems(R, C) : nullptr;
+  const T v = sweep<T, kStack>(ring, R, C, naive != 0, grid, pair_stack);
   if (threadIdx.x == 0) out[pair] = v;
 }
 
-template <typename T>
-int launch_inc(const void* inc, void* out, int64_t P, int Mb, int Nb, int f,
-               int naive, int device, void* stream) {
+template <typename T, bool kStack>
+int launch_inc(const void* inc, void* out, void* stack, int64_t P, int Mb,
+               int Nb, int f, int naive, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const int transpose = Mb > Nb;
   const int R = (transpose ? Nb : Mb) * f;
   const size_t smem = 3 * static_cast<size_t>(R + 1) * sizeof(T);
-  e = allow_smem(inc_wavefront<T>, smem);
+  e = allow_smem(inc_wavefront<T, kStack>, smem);
   if (e != cudaSuccess) return e;
-  inc_wavefront<T><<<static_cast<unsigned>(P), threads_for(R), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(inc), static_cast<T*>(out), Mb, Nb, f, transpose,
-      naive);
+  inc_wavefront<T, kStack><<<static_cast<unsigned>(P), threads_for(R), smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(inc), static_cast<T*>(out),
+      static_cast<T*>(stack), Mb, Nb, f, transpose, naive);
   return cudaGetLastError();
 }
 
@@ -62,14 +68,29 @@ extern "C" {
 
 int sk_inc_wavefront_f32(const void* inc, void* out, int64_t P, int Mb,
                          int Nb, int f, int naive, int device, void* stream) {
-  return sigkernel::launch_inc<float>(inc, out, P, Mb, Nb, f, naive, device,
-                                      stream);
+  return sigkernel::launch_inc<float, false>(inc, out, nullptr, P, Mb, Nb, f,
+                                             naive, device, stream);
 }
 
 int sk_inc_wavefront_f64(const void* inc, void* out, int64_t P, int Mb,
                          int Nb, int f, int naive, int device, void* stream) {
-  return sigkernel::launch_inc<double>(inc, out, P, Mb, Nb, f, naive, device,
-                                       stream);
+  return sigkernel::launch_inc<double, false>(inc, out, nullptr, P, Mb, Nb, f,
+                                              naive, device, stream);
+}
+
+// stack: (P, R + C + 1, R + 1) with R = min(Mb, Nb) f, C = max(Mb, Nb) f
+int sk_inc_stack_f32(const void* inc, void* out, void* stack, int64_t P,
+                     int Mb, int Nb, int f, int naive, int device,
+                     void* stream) {
+  return sigkernel::launch_inc<float, true>(inc, out, stack, P, Mb, Nb, f,
+                                            naive, device, stream);
+}
+
+int sk_inc_stack_f64(const void* inc, void* out, void* stack, int64_t P,
+                     int Mb, int Nb, int f, int naive, int device,
+                     void* stream) {
+  return sigkernel::launch_inc<double, true>(inc, out, stack, P, Mb, Nb, f,
+                                             naive, device, stream);
 }
 
 const char* sk_error_string(int code) {

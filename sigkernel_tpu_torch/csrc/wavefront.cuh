@@ -12,6 +12,17 @@
 //
 // Only rows max(1, p - C) <= i <= min(R, p - 1) are written, so row 0 and
 // the not-yet-reached row p keep the boundary value 1 they were set to.
+//
+// The stack. With kStack the sweep also writes the whole solution, in the
+// solve's frame and diagonal-major: stack[p * (R + 1) + i] = K[i, p - i]
+// for 0 <= p <= R + C, 0 <= i <= R, with the boundary cells (value 1)
+// included and 0 where p - i lies outside [0, C]. That is (R + C + 1) x
+// (R + 1) values, about twice the (R + 1) x (C + 1) cells of a row-major
+// grid, bought for access: a diagonal's threads write neighbouring
+// addresses, and the adjoint (adjoint_collapse.cu), which walks the
+// diagonals in reverse, reads them the same way. A row-major grid would be
+// exact in size but strided by C + 1 between neighbouring threads on both
+// sides.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,13 +61,28 @@ __device__ __forceinline__ T scheme(T k00, T k01, T k10, T u, bool naive) {
   return sub(mul(s, add(lin, u2)), mul(k00, sub(T(1), u2)));
 }
 
+// The value of a cell that the sweep does not compute on diagonal p: 1 on
+// the boundary (row 0 or column 0), 0 outside the grid.
+template <typename T>
+__device__ __forceinline__ T edge(int i, int p, int C) {
+  return (i >= p - C && i <= p) ? T(1) : T(0);
+}
+
 // Sweep an R x C refined grid (R >= 1); inc(r, c) is the refined increment
 // of cell (r + 1, c + 1) in the solve's frame. Returns K[R, C] to every
-// thread.
-template <typename T, typename Inc>
-__device__ T sweep(T* ring, int R, int C, bool naive, const Inc& inc) {
+// thread. kStack: also write the diagonal-major stack (see above) to
+// `stack`; the value-only instance compiles to the loop it always was.
+template <typename T, bool kStack = false, typename Inc>
+__device__ T sweep(T* ring, int R, int C, bool naive, const Inc& inc,
+                   T* __restrict__ stack = nullptr) {
   const int stride = R + 1;
   for (int k = threadIdx.x; k < 3 * stride; k += blockDim.x) ring[k] = T(1);
+  if constexpr (kStack) {
+    for (int i = threadIdx.x; i <= R; i += blockDim.x) {
+      stack[i] = edge<T>(i, 0, C);
+      stack[stride + i] = edge<T>(i, 1, C);
+    }
+  }
   __syncthreads();
   for (int p = 2; p <= R + C; ++p) {
     T* cur = ring + (p % 3) * stride;
@@ -64,13 +90,47 @@ __device__ T sweep(T* ring, int R, int C, bool naive, const Inc& inc) {
     const T* m2 = ring + ((p - 2) % 3) * stride;
     const int lo = p - C > 1 ? p - C : 1;
     const int hi = p - 1 < R ? p - 1 : R;
-    for (int i = lo + threadIdx.x; i <= hi; i += blockDim.x) {
-      cur[i] = scheme(m2[i - 1], m1[i - 1], m1[i], inc(i - 1, p - i - 1),
-                      naive);
+    if constexpr (kStack) {
+      T* row = stack + static_cast<int64_t>(p) * stride;
+      for (int i = threadIdx.x; i <= R; i += blockDim.x) {
+        T v;
+        if (i >= lo && i <= hi) {
+          v = scheme(m2[i - 1], m1[i - 1], m1[i], inc(i - 1, p - i - 1),
+                     naive);
+          cur[i] = v;
+        } else {
+          v = edge<T>(i, p, C);
+        }
+        row[i] = v;
+      }
+    } else {
+      for (int i = lo + threadIdx.x; i <= hi; i += blockDim.x) {
+        cur[i] = scheme(m2[i - 1], m1[i - 1], m1[i], inc(i - 1, p - i - 1),
+                        naive);
+      }
     }
     __syncthreads();
   }
   return ring[((R + C) % 3) * stride + R];
+}
+
+// A base increment grid (Mb, Nb) read in the solve's frame (transposed when
+// Mb > Nb), refined by an index shift and the exact 1 / f^2 (K2, K3<inc>).
+template <typename T>
+struct IncGrid {
+  const T* g;
+  int Nb, f, transpose;
+  T scale;
+  __device__ __forceinline__ T operator()(int r, int c) const {
+    const int a = (transpose ? c : r) / f;
+    const int b = (transpose ? r : c) / f;
+    return g[static_cast<int64_t>(a) * Nb + b] * scale;
+  }
+};
+
+// Elements of one pair's stack: (R + C + 1) x (R + 1).
+__host__ __device__ inline int64_t stack_elems(int R, int C) {
+  return static_cast<int64_t>(R + C + 1) * (R + 1);
 }
 
 // Opt in to dynamic shared memory above the default 48 KB.

@@ -40,6 +40,29 @@ _SIGNATURES = {
                                  _D, _I, _I, _P],
     "sk_rbf_gen_wavefront_f64": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                                  _D, _I, _I, _P],
+    # inc, out, stack, P, Mb, Nb, f, naive, device, stream
+    "sk_inc_stack_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
+    "sk_inc_stack_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
+    # rows, cols, ri, ci, out, stack, P, Lr, Lc, D, f, sigma, naive, device,
+    # stream
+    "sk_rbf_gen_stack_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                             _D, _I, _I, _P],
+    "sk_rbf_gen_stack_f64": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                             _D, _I, _I, _P],
+    # inc, stack, ct, P, Mb, Nb, f, naive, device, stream
+    "sk_adjoint_inc_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
+    "sk_adjoint_inc_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
+    # rows, cols, ri, ci, stack, ct, P, Lr, Lc, D, f, sigma, transpose,
+    # naive, device, stream
+    "sk_adjoint_gen_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _D,
+                           _I, _I, _I, _P],
+    "sk_adjoint_gen_f64": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _D,
+                           _I, _I, _I, _P],
+    # X, Y, ii, jj, ct, dx, dy, esum, P, M, N, D, sigma, device, stream
+    "sk_rbf_dd_vjp_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                          _D, _I, _P],
+    "sk_rbf_dd_vjp_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                          _D, _I, _P],
 }
 
 _lib = None
@@ -118,6 +141,11 @@ def check_rows(rows: int, itemsize: int, what: str) -> None:
             f"({SMEM_BYTES // (3 * itemsize) - 1} rows)")
 
 
+def dtype_key(t) -> str:
+    """``"float32"`` / ``"float64"``: the launch counters' key for ``t``."""
+    return str(t.dtype).removeprefix("torch.")
+
+
 def stream_args(t):
     """``(device index, current stream handle)`` for a launch on ``t``'s card."""
     import torch
@@ -130,3 +158,13 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().sk_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
+
+
+def launch(what: str, fns, counts, t, *args) -> None:
+    """Call ``fns[t.dtype]`` of the library with ``args`` on ``t``'s card and
+    current stream, raise on a CUDA error, and count the launch in
+    ``counts`` under ``t``'s dtype."""
+    fn = getattr(library(), fns[t.dtype])
+    device, stream = stream_args(t)
+    check(fn(*args, device, stream), what)
+    counts[dtype_key(t)] += 1

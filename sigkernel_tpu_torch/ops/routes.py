@@ -1,25 +1,52 @@
-"""The one route resolver of the port's forward path.
+"""The one route resolver of the port, for both halves of every autograd
+Function.
 
-Every decision about which solver a tile takes goes through
-:func:`resolve_family`, so the whole matrix is enumerable in one place
+Every decision about which solver a tile takes, and in which dtype its
+gradient is computed, goes through :func:`resolve` (its family part is
+:func:`resolve_family`), so the whole matrix is enumerable in one place
 (``tests/test_torch_routes.py``). It takes the device *type string*, so the
 CPU tests pin the CUDA rows too. Callers reach it through this module object
-(``routes.resolve_family``), so a test can steer the route by patching it.
+(``routes.resolve_family``, ``routes.resolve``), so a test can steer the
+route by patching it; a Function's forward and backward both call it.
 
 ========  =====================================  ==========================
-family    computation                            kernel
+family    computation                            kernels (forward; adjoint)
 ========  =====================================  ==========================
-``gen``   RBF increments generated in-kernel     K1 ``cuda_gen``
-``inc``   ``double_difference(Gram)`` in torch   K2 ``cuda_solver``
+``gen``   RBF increments generated in-kernel     K1 ``cuda_gen``; K1-stack,
+                                                 K3<gen>, K4 ``incvjp``
+``inc``   ``double_difference(Gram)`` in torch   K2 ``cuda_solver``;
+                                                 K2-stack, K3<inc>
 ``scan``  the same increments, plain loop        none (``scan_solver``)
 ========  =====================================  ==========================
+
+The backward's dtype (``grad_solver``): ``"auto"`` and ``"df64"`` give
+gradients at the input precision (on Hopper, ``df64`` is native double);
+``"f32"`` runs the kernel chain in float32 and casts the gradients back to
+the input dtype. The ``scan`` family ignores the grade: its gradients are at
+the input precision, as the JAX scan tier's are.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
 
 from .. import kernels as _kernels
 
 SOLVERS = ("auto", "scan", "cuda")
 FAMILIES = ("gen", "inc", "scan")
+GRAD_SOLVERS = ("auto", "f32", "df64")
+
+
+class Route(NamedTuple):
+    family: str
+    bwd_dtype: torch.dtype
+
+
+def check_grad_solver(grad_solver: str) -> None:
+    if grad_solver not in GRAD_SOLVERS:
+        raise ValueError(f"unknown grad_solver {grad_solver!r}; expected one "
+                         f"of {GRAD_SOLVERS}")
 
 
 def resolve_family(static_kernel, device_type: str, solver: str) -> str:
@@ -44,3 +71,14 @@ def resolve_family(static_kernel, device_type: str, solver: str) -> str:
     if type(static_kernel) is _kernels.RBFKernel:
         return "gen"
     return "inc"
+
+
+def resolve(static_kernel, device_type: str, solver: str,
+            dtype: torch.dtype, grad_solver: str) -> Route:
+    """The family (:func:`resolve_family`) and the dtype its backward runs
+    in, for inputs of ``dtype``."""
+    check_grad_solver(grad_solver)
+    family = resolve_family(static_kernel, device_type, solver)
+    if family != "scan" and grad_solver == "f32":
+        return Route(family, torch.float32)
+    return Route(family, dtype)

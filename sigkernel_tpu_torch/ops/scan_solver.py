@@ -75,3 +75,86 @@ def solve_final(inc: torch.Tensor, naive: bool = False) -> torch.Tensor:
 def solve_grid(inc: torch.Tensor, naive: bool = False) -> torch.Tensor:
     """Solve the Goursat PDE; return the full ``(..., MM+1, NN+1)`` grid."""
     return _sweep(inc, naive, return_grid=True)[1]
+
+
+# ---------------------------------------------------------------------------
+# The adjoint's plain pieces (the kernels' layout and order, in torch)
+# ---------------------------------------------------------------------------
+#
+# The kernels solve in a frame whose rows are the shorter refined side: the
+# grid is transposed when MM > NN. Their forward stack is diagonal-major in
+# that frame, ``stack[..., p, i] = K[i, p - i]`` (0 outside the grid), of
+# shape ``(..., R + C + 1, R + 1)`` with ``R = min(MM, NN)``,
+# ``C = max(MM, NN)`` (see ``csrc/wavefront.cuh``).
+
+
+def _frame(grid: torch.Tensor, transpose: bool) -> torch.Tensor:
+    return grid.transpose(-1, -2) if transpose else grid
+
+
+def grid_to_stack(grid: torch.Tensor) -> torch.Tensor:
+    """A ``(..., MM+1, NN+1)`` solution grid as the kernels' stack."""
+    MM, NN = grid.shape[-2] - 1, grid.shape[-1] - 1
+    g = _frame(grid, MM > NN)
+    R, C = g.shape[-2] - 1, g.shape[-1] - 1
+    p = torch.arange(R + C + 1, device=grid.device)[:, None]
+    i = torch.arange(R + 1, device=grid.device)[None, :]
+    j = p - i
+    vals = g[..., i.expand_as(j), j.clamp(0, C)]
+    return torch.where((j >= 0) & (j <= C), vals, torch.zeros_like(vals))
+
+
+def stack_to_grid(stack: torch.Tensor, MM: int, NN: int) -> torch.Tensor:
+    """The kernels' stack back to the ``(..., MM+1, NN+1)`` grid."""
+    transpose = MM > NN
+    R, C = (NN, MM) if transpose else (MM, NN)
+    i = torch.arange(R + 1, device=stack.device)[:, None]
+    j = torch.arange(C + 1, device=stack.device)[None, :]
+    return _frame(stack[..., i + j, i.expand(R + 1, C + 1)], transpose)
+
+
+def collapse_refined(KK: torch.Tensor, f: int) -> torch.Tensor:
+    """Sum each ``f x f`` block of a refined ``(..., MM, NN)`` grid ->
+    ``(..., MM/f, NN/f)``, unscaled.
+
+    The terms of a block are added one at a time in the adjoint kernel's
+    order (``csrc/adjoint_collapse.cu``): in the frame whose rows are the
+    shorter side, by anti-diagonal ``k + l`` descending, then row ``k``
+    ascending. So this and the kernel agree bit for bit.
+    """
+    transpose = KK.shape[-2] > KK.shape[-1]
+    KK = _frame(KK, transpose)
+    *batch, R, C = KK.shape
+    blocks = KK.reshape(*batch, R // f, f, C // f, f)
+    acc = KK.new_zeros(*batch, R // f, C // f)
+    for d in range(2 * f - 2, -1, -1):
+        for k in range(max(0, d - f + 1), min(f - 1, d) + 1):
+            acc = acc + blocks[..., :, k, :, d - k]
+    return _frame(acc, transpose)
+
+
+def flip2(x: torch.Tensor) -> torch.Tensor:
+    """Reverse both trailing axes."""
+    return torch.flip(x, dims=(-2, -1))
+
+
+def product_collapse(grid: torch.Tensor, grid_rev: torch.Tensor,
+                     f: int) -> torch.Tensor:
+    """The adjoint's product and collapse: with ``grid`` the forward and
+    ``grid_rev`` the reverse solution (increments flipped along both axes),
+    ``KK[i, j] = K[i, j] * K_rev[MM-1-i, NN-1-j]`` is the corner's gradient
+    in the refined increment ``(i, j)``; the result is its ``f x f`` block
+    sums over ``f^2`` (the VJP of the dyadic refinement), at base
+    resolution."""
+    KK = grid[..., :-1, :-1] * flip2(grid_rev)[..., 1:, 1:]
+    return collapse_refined(KK, f) / (f * f)
+
+
+def adjoint_from_stack(inc_refined: torch.Tensor, stack: torch.Tensor,
+                       f: int, naive: bool = False) -> torch.Tensor:
+    """The plain version of the adjoint kernel K3: the forward solution
+    from its stack, the reverse solve of the flipped refined increments,
+    then :func:`product_collapse` -> ``(..., MM/f, NN/f)``."""
+    MM, NN = inc_refined.shape[-2:]
+    grid = stack_to_grid(stack, MM, NN)
+    return product_collapse(grid, solve_grid(flip2(inc_refined), naive), f)

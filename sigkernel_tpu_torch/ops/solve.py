@@ -1,11 +1,22 @@
-"""Forward Goursat solve on a base increment grid.
+"""Differentiable Goursat solve on a base increment grid.
 
-Counterpart of the value path of :func:`sigkernel_tpu.ops.solve.solve`:
-``inc`` of shape ``(..., M-1, N-1)`` is refined by ``2^dyadic_order`` inside
-the solver and the corner ``K[..., -1, -1]`` comes back with the batch shape
-of ``inc``. The route (K2 on the card, or the plain loop) comes from
-:func:`.routes.resolve_family`. A length-1 path gives a ``(..., 0, N-1)``
-grid, whose solution is the boundary value 1.
+Counterpart of :func:`sigkernel_tpu.ops.solve.solve`: ``inc`` of shape
+``(..., M-1, N-1)`` is refined by ``2^dyadic_order`` inside the solver and
+the corner ``K[..., -1, -1]`` comes back with the batch shape of ``inc``. A
+length-1 path gives a ``(..., 0, N-1)`` grid, whose solution is the boundary
+value 1.
+
+Gradients come from the adjoint PDE, as in JAX (``solve.py:130-297``): a
+second sweep over the increments flipped along both axes, whose product with
+the forward solution, collapsed to the base grid, is the gradient
+(:func:`.scan_solver.product_collapse`). Never autograd through the loop:
+that would be the derivative of the discrete scheme, another number. The
+route (:func:`.routes.resolve`) picks, for both halves of :class:`_Solve`:
+
+- ``inc`` (CUDA): K2 forward; backward K2-stack + K3<inc>, in chunks of
+  pairs whose stack fits :data:`STACK_BYTES`, in the grade's dtype;
+- ``scan``: the plain loop; backward :func:`grid_route_bwd`, one plain grid
+  sweep over ``[inc; flip2(inc)]``.
 """
 from __future__ import annotations
 
@@ -16,16 +27,84 @@ import torch
 from . import cuda_solver, routes, scan_solver
 from ..utils import dyadic_refine
 
+# the pairs of one backward chunk keep their forward stacks below this
+STACK_BYTES = 8 << 30
+
+
+def stack_chunk(P: int, MM: int, NN: int, itemsize: int) -> int:
+    """Pairs per backward chunk whose stacks stay within
+    :data:`STACK_BYTES` (at least one)."""
+    per_pair = math.prod(cuda_solver.stack_shape(1, MM, NN)) * itemsize
+    return max(1, min(P, STACK_BYTES // per_pair))
+
+
+def grid_route_bwd(inc: torch.Tensor, g: torch.Tensor, naive: bool,
+                   dyadic_order: int) -> torch.Tensor:
+    """The plain adjoint (JAX ``_grid_route_bwd``): one grid sweep over
+    ``[inc; flip2(inc)]`` refined, the product, the collapse, times ``g``
+    -> ``(B, Mb, Nb)`` in ``inc``'s dtype."""
+    B = inc.shape[0]
+    ref = dyadic_refine(inc, dyadic_order)
+    both = scan_solver.solve_grid(torch.cat([ref, scan_solver.flip2(ref)]),
+                                  naive)
+    ct = scan_solver.product_collapse(both[:B], both[B:], 2 ** dyadic_order)
+    return ct * g.to(ct.dtype)[:, None, None]
+
+
+def inc_route_bwd(inc: torch.Tensor, g: torch.Tensor, naive: bool,
+                  dyadic_order: int) -> torch.Tensor:
+    """The CUDA adjoint: per chunk of pairs K2-stack then K3<inc>, times
+    ``g`` -> ``(B, Mb, Nb)`` in ``inc``'s dtype."""
+    P, Mb, Nb = inc.shape
+    out = torch.zeros_like(inc)
+    if Mb == 0 or Nb == 0:
+        return out
+    f = 2 ** dyadic_order
+    chunk = stack_chunk(P, Mb * f, Nb * f, inc.element_size())
+    for s in range(0, P, chunk):
+        c = inc[s:s + chunk].contiguous()
+        _, stack = cuda_solver.inc_solve_stack(c, dyadic_order, naive)
+        ct = cuda_solver.inc_adjoint(c, stack, dyadic_order, naive)
+        del stack
+        out[s:s + chunk] = ct * g[s:s + chunk, None, None].to(ct.dtype)
+    return out
+
+
+class _Solve(torch.autograd.Function):
+    """``inc (B, Mb, Nb) -> K[:, -1, -1]`` with the adjoint-PDE backward."""
+
+    @staticmethod
+    def forward(ctx, inc, naive, solver, dyadic_order, grad_solver):
+        route = routes.resolve(None, inc.device.type, solver, inc.dtype,
+                               grad_solver)
+        ctx.save_for_backward(inc)
+        ctx.cfg = (naive, solver, dyadic_order, grad_solver)
+        if route.family == "inc":
+            return cuda_solver.inc_solve_final(inc.contiguous(), dyadic_order,
+                                               naive)
+        return scan_solver.solve_final(dyadic_refine(inc, dyadic_order),
+                                       naive)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inc,) = ctx.saved_tensors
+        naive, solver, dyadic_order, grad_solver = ctx.cfg
+        route = routes.resolve(None, inc.device.type, solver, inc.dtype,
+                               grad_solver)
+        if route.family == "inc":
+            ct = inc_route_bwd(inc.to(route.bwd_dtype), g, naive,
+                               dyadic_order)
+        else:
+            ct = grid_route_bwd(inc, g, naive, dyadic_order)
+        return ct.to(inc.dtype), None, None, None, None
+
 
 def solve(inc: torch.Tensor, naive: bool = False, solver: str = "auto",
-          dyadic_order: int = 0) -> torch.Tensor:
+          dyadic_order: int = 0, grad_solver: str = "auto") -> torch.Tensor:
+    """``K[..., -1, -1]`` of each base increment grid; differentiable in
+    ``inc`` through the adjoint PDE."""
     batch_shape = inc.shape[:-2]
     # explicit batch size: -1 cannot be inferred when a trailing dim is 0
     flat = inc.reshape((math.prod(batch_shape),) + tuple(inc.shape[-2:]))
-    if routes.resolve_family(None, inc.device.type, solver) == "inc":
-        out = cuda_solver.inc_solve_final(flat.contiguous(), dyadic_order,
-                                          naive)
-    else:
-        out = scan_solver.solve_final(dyadic_refine(flat, dyadic_order),
-                                      naive)
+    out = _Solve.apply(flat, naive, solver, dyadic_order, grad_solver)
     return out.reshape(batch_shape)

@@ -1,19 +1,28 @@
-"""Signature-kernel estimators: the public API of the port (forward values).
+"""Signature-kernel estimators: the public API of the port.
 
 Counterpart of :mod:`sigkernel_tpu.sigkernel` with the same signatures:
 ``sig_kernel``, ``sig_gram`` (with the ``sym`` triangle), ``sig_gram_lincomb``,
-``sig_mmd``, ``sig_distance`` and the ``SigKernel`` module. Each tile's solver
-family comes from :func:`.ops.routes.resolve_family`:
+``sig_mmd``, ``sig_distance``, the scoring rules and the ``SigKernel``
+module. Each tile's solver family and gradient dtype come from
+:func:`.ops.routes.resolve`:
 
 - ``gen``: RBF increments generated in the K1 kernel from the paths and the
-  pair index arrays (no path copies per pair, no increment grid);
+  pair index arrays (no path copies per pair, no increment grid). Gradients
+  through :class:`_RBFGen`, whose backward recomputes each chunk's forward
+  stack (K1-stack), runs the adjoint (K3<gen>) and the increment-chain VJP
+  (K4) to the paths and ``sigma``.
 - ``inc``/``scan``: ``double_difference`` of the static-kernel Gram in torch,
-  solved by the K2 kernel or the plain loop (:func:`.ops.solve.solve`).
+  solved by the K2 kernel or the plain loop (:func:`.ops.solve.solve`, whose
+  adjoint backward is K2-stack + K3<inc> or the plain grid route); autograd
+  carries the gradient through the Gram to the paths and the kernel's
+  hyper-parameter.
 
-Forward only: gradients (the adjoint PDE) are not ported yet, so a call that
-would need them raises ``NotImplementedError`` rather than differentiate
-through the plain loop (which would give gradients on the CPU and none on the
-card).
+Every estimator is differentiable in ``X``, ``Y``, ``W`` and the static
+kernel's hyper-parameter (``RBFKernel.sigma`` or ``LinearKernel.scale``, a
+buffer that may have ``requires_grad``). ``grad_solver`` sets the gradient's
+grade (see :mod:`.ops.routes`). :func:`sig_gram_lincomb` computes its
+gradients eagerly, chunk by chunk, in its forward (:class:`_GramLincomb`),
+so memory stays one chunk's stack at any Gram size.
 """
 from __future__ import annotations
 
@@ -22,67 +31,116 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .ops import cuda_gen, routes
-from .ops.solve import solve
+from . import kernels as _kernels
+from .ops import cuda_gen, incvjp, routes
+from .ops.solve import solve, stack_chunk
 from .utils import double_difference, pad_length
 
-_GRAD_SOLVERS = ("auto", "f32", "df64")
 
-
-def _check_grad_solver(grad_solver):
-    if grad_solver not in _GRAD_SOLVERS:
-        raise ValueError(f"unknown grad_solver {grad_solver!r}; expected one "
-                         f"of {_GRAD_SOLVERS}")
-
-
-def _forward_only(static_kernel, *tensors):
-    """Refuse inputs that ask for gradients while grad mode is on."""
-    if not torch.is_grad_enabled():
-        return
-    if (any(t.requires_grad for t in tensors)
-            or any(t.requires_grad for t in static_kernel.buffers())
-            or any(t.requires_grad for t in static_kernel.parameters())):
-        raise NotImplementedError(
-            "gradients of the signature kernel (the adjoint PDE) are not "
-            "ported yet: they land in the next slice (see ROADMAP.md). Call "
-            "under torch.no_grad() or detach the inputs.")
-
-
-def _prepare(static_kernel, X, Y, length_bucket, grad_solver, *more):
-    _check_grad_solver(grad_solver)
-    _forward_only(static_kernel, X, Y, *more)
+def _prepare(static_kernel, X, Y, length_bucket, grad_solver):
+    routes.check_grad_solver(grad_solver)
     if length_bucket:
         X = pad_length(X, length_bucket)
         Y = pad_length(Y, length_bucket)
     return X.contiguous(), Y.contiguous()
 
 
-def _pairs(static_kernel, X, Y, ii, jj, dyadic_order, naive, solver):
+def _hyper(static_kernel):
+    """The static kernel's hyper-parameter tensors (its pytree leaves)."""
+    return tuple(static_kernel.parameters()) + tuple(static_kernel.buffers())
+
+
+def _require_rbf(static_kernel):
+    # the gen gradient formulas (K3<gen>, K4) are the RBF kernel's own
+    if type(static_kernel) is not _kernels.RBFKernel:
+        raise TypeError("the generation route's gradient is RBFKernel's; "
+                        f"got {type(static_kernel).__name__}")
+
+
+def _gen_backward(X, Y, ii, jj, sigma, g, bwd_dtype, dyadic_order, naive,
+                  stack=None):
+    """``(d sigma, dX, dY)`` of ``sum_p g_p k(X[ii_p], Y[jj_p])`` for the RBF
+    kernel, in ``bwd_dtype``: per chunk K1-stack (skipped when the caller's
+    forward already made ``stack``, in ``bwd_dtype``), K3<gen> times ``g``,
+    then K4."""
+    Xb = X.detach().to(bwd_dtype).contiguous()
+    Yb = Y.detach().to(bwd_dtype).contiguous()
+    ds, dX, dY = Xb.new_zeros(()), torch.zeros_like(Xb), torch.zeros_like(Yb)
+    M, N, P = X.shape[1], Y.shape[1], ii.shape[0]
+    if M < 2 or N < 2 or P == 0:
+        return ds, dX, dY
+    f = 2 ** dyadic_order
+    chunk = P if stack is not None else stack_chunk(
+        P, (M - 1) * f, (N - 1) * f, Xb.element_size())
+    for s in range(0, P, chunk):
+        ic, jc = ii[s:s + chunk], jj[s:s + chunk]
+        stk = stack
+        if stk is None:
+            _, stk = cuda_gen.rbf_gen_solve_stack(Xb, Yb, ic, jc, sigma,
+                                                  dyadic_order, naive)
+        ct = cuda_gen.rbf_gen_adjoint(Xb, Yb, ic, jc, sigma, stk,
+                                      dyadic_order, naive)
+        del stk
+        ct = ct * g[s:s + chunk].to(bwd_dtype)[:, None, None]
+        e, dx, dy = incvjp.rbf_dd_vjp(Xb, Yb, ic, jc, sigma, ct)
+        ds, dX, dY = ds + e, dX + dx, dY + dy
+    return ds, dX, dY
+
+
+class _RBFGen(torch.autograd.Function):
+    """``k_sig(X[ii[p]], Y[jj[p]])`` on the ``gen`` family: paths, sigma and
+    pair indices in, values out. The forward keeps only its inputs; the
+    backward recomputes each chunk's stack, so residual memory does not grow
+    with the pair count (the JAX ``adjoint_planes_gen_df`` design)."""
+
+    @staticmethod
+    def forward(ctx, X, Y, sigma, ii, jj, cfg):
+        static_kernel, dyadic_order, naive, solver, grad_solver = cfg
+        _require_rbf(static_kernel)
+        ctx.save_for_backward(X, Y, sigma, ii, jj)
+        ctx.cfg = cfg
+        return cuda_gen.rbf_gen_solve_final(X, Y, ii, jj, sigma,
+                                            dyadic_order, naive)
+
+    @staticmethod
+    def backward(ctx, g):
+        X, Y, sigma, ii, jj = ctx.saved_tensors
+        static_kernel, dyadic_order, naive, solver, grad_solver = ctx.cfg
+        route = routes.resolve(static_kernel, X.device.type, solver, X.dtype,
+                               grad_solver)
+        ds, dX, dY = _gen_backward(X, Y, ii, jj, sigma, g, route.bwd_dtype,
+                                   dyadic_order, naive)
+        return dX.to(X.dtype), dY.to(Y.dtype), ds.to(sigma), None, None, None
+
+
+def _pairs(static_kernel, X, Y, ii, jj, dyadic_order, naive, solver,
+           grad_solver="auto"):
     """``k_sig(X[ii[p]], Y[jj[p]])`` per pair; ``ii = jj = None`` pairs
     ``X[p]`` with ``Y[p]``."""
     fam = routes.resolve_family(static_kernel, X.device.type, solver)
     if fam == "gen":
         if ii is None:
             ii = jj = torch.arange(X.shape[0], device=X.device)
-        return cuda_gen.rbf_gen_solve_final(X, Y, ii, jj, static_kernel.sigma,
-                                            dyadic_order, naive)
+        return _RBFGen.apply(X, Y, static_kernel.sigma.to(X), ii, jj,
+                             (static_kernel, dyadic_order, naive, solver,
+                              grad_solver))
     x = X if ii is None else X[ii]
     y = Y if jj is None else Y[jj]
     dd = double_difference(static_kernel.batch_kernel(x, y))
-    return solve(dd, naive, solver, dyadic_order)
+    return solve(dd, naive, solver, dyadic_order, grad_solver)
 
 
-def _gram_tile(static_kernel, x, y, dyadic_order, naive, solver):
+def _gram_tile(static_kernel, x, y, dyadic_order, naive, solver,
+               grad_solver):
     """One ``(a, b)`` Gram tile."""
     a, b = x.shape[0], y.shape[0]
     if routes.resolve_family(static_kernel, x.device.type, solver) == "gen":
         ii = torch.arange(a, device=x.device).repeat_interleave(b)
         jj = torch.arange(b, device=x.device).repeat(a)
-        return cuda_gen.rbf_gen_solve_final(
-            x, y, ii, jj, static_kernel.sigma, dyadic_order,
-            naive).reshape(a, b)
+        return _pairs(static_kernel, x, y, ii, jj, dyadic_order, naive,
+                      solver, grad_solver).reshape(a, b)
     dd = double_difference(static_kernel.Gram_matrix(x, y))
-    return solve(dd, naive, solver, dyadic_order)
+    return solve(dd, naive, solver, dyadic_order, grad_solver)
 
 
 def sig_kernel(static_kernel, X, Y, dyadic_order=0, naive=False,
@@ -94,15 +152,15 @@ def sig_kernel(static_kernel, X, Y, dyadic_order=0, naive=False,
     batch = X.shape[0]
     if max_batch is None or batch <= max_batch:
         return _pairs(static_kernel, X, Y, None, None, dyadic_order, naive,
-                      solver)
+                      solver, grad_solver)
     return torch.cat([
         _pairs(static_kernel, X[s:s + max_batch], Y[s:s + max_batch], None,
-               None, dyadic_order, naive, solver)
+               None, dyadic_order, naive, solver, grad_solver)
         for s in range(0, batch, max_batch)])
 
 
 def _gram_sym_triangle(static_kernel, X, dyadic_order, naive, solver,
-                       max_batch):
+                       max_batch, grad_solver):
     """Symmetric Gram ``G(X, X)``: solve exactly the ``A(A+1)/2`` upper
     triangle (the solve is transpose-covariant), ``max_batch**2`` pairs at a
     time, then mirror."""
@@ -112,7 +170,7 @@ def _gram_sym_triangle(static_kernel, X, dyadic_order, naive, solver,
     chunk = P if max_batch is None else min(max(max_batch, 1) ** 2, P)
     vals = torch.cat([X.new_empty(0)] + [
         _pairs(static_kernel, X, X, iu[s:s + chunk], ju[s:s + chunk],
-               dyadic_order, naive, solver)
+               dyadic_order, naive, solver, grad_solver)
         for s in range(0, P, chunk)])
     K = X.new_zeros(A, A)
     K[iu, ju] = vals
@@ -131,12 +189,12 @@ def sig_gram(static_kernel, X, Y, dyadic_order=0, sym=False, naive=False,
     X, Y = _prepare(static_kernel, X, Y, length_bucket, grad_solver)
     if sym and X.shape == Y.shape:
         return _gram_sym_triangle(static_kernel, X, dyadic_order, naive,
-                                  solver, max_batch)
+                                  solver, max_batch, grad_solver)
     bx, by = X.shape[0], Y.shape[0]
     mb = max(bx, by, 1) if max_batch is None else max_batch
     K = torch.cat([
         torch.cat([_gram_tile(static_kernel, X[a:a + mb], Y[b:b + mb],
-                              dyadic_order, naive, solver)
+                              dyadic_order, naive, solver, grad_solver)
                    for b in range(0, by, mb)], dim=1)
         for a in range(0, bx, mb)], dim=0)
     if sym:
@@ -157,28 +215,141 @@ def _lincomb_pairs(A, B, W, sym):
     return ii, jj, w
 
 
+def _lincomb_value(static_kernel, X, Y, ii, jj, w, cfg):
+    """The lincomb's value alone, chunk by chunk."""
+    dyadic_order, naive, solver, grad_solver, chunk = cfg
+    acc_dtype = torch.promote_types(w.dtype, X.dtype)
+    S = torch.zeros((), dtype=acc_dtype, device=X.device)
+    for s in range(0, ii.shape[0], chunk):
+        v = _pairs(static_kernel, X, Y, ii[s:s + chunk], jj[s:s + chunk],
+                   dyadic_order, naive, solver, grad_solver)
+        S = S + torch.sum(w[s:s + chunk] * v.to(acc_dtype))
+    return S
+
+
+def _chunk_grads_gen(static_kernel, X, Y, ic, jc, wc, route, cfg):
+    """One lincomb chunk on the ``gen`` family, kernels called directly:
+    values and stack from one forward sweep (K1-stack; for a float32 grade
+    on float64 paths, K1 values plus a float32 K1-stack), then K3<gen>
+    weighted by ``wc`` and K4. Returns ``(values, dX, dY, (d sigma,))``."""
+    dyadic_order, naive, _, _, _ = cfg
+    _require_rbf(static_kernel)
+    sigma = static_kernel.sigma
+    bdt = route.bwd_dtype
+    if X.shape[1] < 2 or Y.shape[1] < 2:
+        v = cuda_gen.rbf_gen_solve_final(X, Y, ic, jc, sigma, dyadic_order,
+                                         naive)
+        return v, torch.zeros_like(X), torch.zeros_like(Y), (
+            torch.zeros_like(sigma),)
+    Xb, Yb = X.to(bdt), Y.to(bdt)
+    if bdt == X.dtype:
+        v, stack = cuda_gen.rbf_gen_solve_stack(X, Y, ic, jc, sigma,
+                                                dyadic_order, naive)
+    else:
+        v = cuda_gen.rbf_gen_solve_final(X, Y, ic, jc, sigma, dyadic_order,
+                                         naive)
+        _, stack = cuda_gen.rbf_gen_solve_stack(Xb, Yb, ic, jc, sigma,
+                                                dyadic_order, naive)
+    ds, dX, dY = _gen_backward(Xb, Yb, ic, jc, sigma, wc, bdt, dyadic_order,
+                               naive, stack=stack)
+    return v, dX, dY, (ds,)
+
+
+def _chunk_grads_autograd(static_kernel, X, Y, ic, jc, wc, hyper, cfg):
+    """One lincomb chunk on the ``inc``/``scan`` families: the chunk's
+    weighted sum and its gradients by ``torch.autograd.grad`` (through the
+    static kernel's Gram and :class:`.ops.solve._Solve`'s adjoint)."""
+    dyadic_order, naive, solver, grad_solver, _ = cfg
+    want = [h for h in hyper if h.requires_grad]
+    with torch.enable_grad():
+        Xd = X.detach().requires_grad_()
+        Yd = Y.detach().requires_grad_()
+        v = _pairs(static_kernel, Xd, Yd, ic, jc, dyadic_order, naive,
+                   solver, grad_solver)
+        s = torch.sum(wc * v.to(wc.dtype))
+        grads = torch.autograd.grad(s, [Xd, Yd] + want, allow_unused=True)
+    dX, dY, *dw = [torch.zeros_like(t) if d is None else d
+                   for t, d in zip([Xd, Yd] + want, grads)]
+    dw = iter(dw)
+    dh = tuple(next(dw) if h.requires_grad else torch.zeros_like(h)
+               for h in hyper)
+    return v.detach(), dX, dY, dh
+
+
+class _GramLincomb(torch.autograd.Function):
+    """``S = sum_ij W_ij k(X_i, Y_j)`` with eager gradients: each chunk's
+    forward and adjoint run inside the forward's loop, and only ``gX, gY,
+    g_hyper`` and the Gram values (for ``dW``) are kept; the backward scales
+    them by ``g`` (JAX ``_gram_lincomb_fwd``/``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, static_kernel, cfg, sym, X, Y, W, *hyper):
+        dyadic_order, naive, solver, grad_solver, chunk = cfg
+        ii, jj, w = _lincomb_pairs(X.shape[0], Y.shape[0], W, sym)
+        acc_dtype = torch.promote_types(W.dtype, X.dtype)
+        w = w.to(acc_dtype)
+        route = routes.resolve(static_kernel, X.device.type, solver, X.dtype,
+                               grad_solver)
+        S = torch.zeros((), dtype=acc_dtype, device=X.device)
+        gX, gY = torch.zeros_like(X), torch.zeros_like(Y)
+        gh = [torch.zeros_like(h) for h in hyper]
+        vals = []
+        for s in range(0, ii.shape[0], chunk):
+            ic, jc, wc = ii[s:s + chunk], jj[s:s + chunk], w[s:s + chunk]
+            if route.family == "gen":
+                v, dX, dY, dh = _chunk_grads_gen(static_kernel, X, Y, ic, jc,
+                                                 wc, route, cfg)
+            else:
+                v, dX, dY, dh = _chunk_grads_autograd(static_kernel, X, Y, ic,
+                                                      jc, wc, hyper, cfg)
+            S = S + torch.sum(wc * v.to(acc_dtype))
+            gX += dX.to(X.dtype)
+            gY += dY.to(Y.dtype)
+            for acc, d in zip(gh, dh):
+                acc += d.to(acc)
+            vals.append(v)
+        v = torch.cat([X.new_empty(0)] + vals).to(W.dtype)
+        if sym:
+            K = W.new_zeros(W.shape)
+            K[ii, jj] = v
+            K = K + K.T - torch.diag(torch.diag(K))
+        else:
+            K = v.reshape(W.shape)
+        ctx.save_for_backward(gX, gY, K, *gh)
+        return S
+
+    @staticmethod
+    def backward(ctx, g):
+        gX, gY, K, *gh = ctx.saved_tensors
+        return (None, None, None, (g * gX).to(gX.dtype),
+                (g * gY).to(gY.dtype), (g * K).to(K.dtype),
+                *[(g * h).to(h.dtype) for h in gh])
+
+
 def sig_gram_lincomb(static_kernel, X, Y, W, dyadic_order=0, sym=False,
                      naive=False, solver="auto",
                      length_bucket: Optional[int] = None, grad_solver="auto",
                      pair_chunk: int = 128):
     """Scalar ``sum_ij W_ij k_sig(X_i, Y_j)``, solved ``pair_chunk`` pairs at
     a time so the Gram never materialises. ``sym=True`` (``X is Y``) solves
-    only the ``A(A+1)/2`` triangle."""
-    X, Y = _prepare(static_kernel, X, Y, length_bucket, grad_solver, W)
+    only the ``A(A+1)/2`` triangle. Differentiable in ``X``, ``Y``, ``W`` and
+    the kernel's hyper-parameter, with memory bounded by one chunk: the
+    gradients are computed chunk by chunk in the forward when any of them
+    requires a gradient."""
+    X, Y = _prepare(static_kernel, X, Y, length_bucket, grad_solver)
     if sym and X.shape != Y.shape:
         raise ValueError("sym=True requires X and Y of identical shape "
                          "(the caller asserts Y is X)")
     chunk = int(pair_chunk)
     if chunk < 1:
         raise ValueError(f"pair_chunk must be >= 1; got {pair_chunk}")
+    cfg = (dyadic_order, naive, solver, grad_solver, chunk)
+    hyper = _hyper(static_kernel)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (X, Y, W) + hyper):
+        return _GramLincomb.apply(static_kernel, cfg, sym, X, Y, W, *hyper)
     ii, jj, w = _lincomb_pairs(X.shape[0], Y.shape[0], W, sym)
-    acc_dtype = torch.promote_types(W.dtype, X.dtype)
-    S = torch.zeros((), dtype=acc_dtype, device=X.device)
-    for s in range(0, ii.shape[0], chunk):
-        v = _pairs(static_kernel, X, Y, ii[s:s + chunk], jj[s:s + chunk],
-                   dyadic_order, naive, solver)
-        S = S + torch.sum(w[s:s + chunk] * v.to(acc_dtype))
-    return S
+    return _lincomb_value(static_kernel, X, Y, ii, jj, w, cfg)
 
 
 def _offdiag_mean(K):
@@ -201,6 +372,45 @@ def sig_distance(static_kernel, X, Y, dyadic_order=0, naive=False,
     k_yy = sig_kernel(static_kernel, Y, Y, **kw)
     k_xy = sig_kernel(static_kernel, X, Y, **kw)
     return torch.mean(k_xx) + torch.mean(k_yy) - 2.0 * torch.mean(k_xy)
+
+
+def _scoring_core(static_kernel, X, Y2, dyadic_order, naive, solver,
+                  max_batch, grad_solver, pair_chunk):
+    """``offdiag_mean(K_XX) - 2 mean(K_XY2)``, the body of both scoring
+    rules; the bounded-memory lincomb route when a batch exceeds
+    ``max_batch``."""
+    n, m = X.shape[0], Y2.shape[0]
+    if max_batch is not None and (n > max_batch or m > max_batch):
+        kw = dict(dyadic_order=dyadic_order, naive=naive, solver=solver,
+                  grad_solver=grad_solver, pair_chunk=pair_chunk)
+        dt, dev = X.dtype, X.device
+        s_xx = sig_gram_lincomb(static_kernel, X, X, _offdiag_w(n, dt, dev),
+                                sym=True, **kw)
+        w_xy = torch.full((n, m), -2.0 / (n * m), dtype=dt, device=dev)
+        return s_xx + sig_gram_lincomb(static_kernel, X, Y2, w_xy, **kw)
+    kw = dict(dyadic_order=dyadic_order, naive=naive, solver=solver,
+              max_batch=max_batch, grad_solver=grad_solver)
+    K_XX = sig_gram(static_kernel, X, X, sym=True, **kw)
+    K_XY = sig_gram(static_kernel, X, Y2, sym=False, **kw)
+    return _offdiag_mean(K_XX) - 2.0 * torch.mean(K_XY)
+
+
+def sig_scoring_rule(static_kernel, X, y, dyadic_order=0, naive=False,
+                     solver="auto", max_batch: Optional[int] = 100,
+                     grad_solver="auto", pair_chunk: int = 128):
+    """Scoring rule ``E[k(X,X)] - 2 E[k(X,y)]`` with unbiased diagonal
+    removal."""
+    return _scoring_core(static_kernel, X, y, dyadic_order, naive, solver,
+                         max_batch, grad_solver, pair_chunk)
+
+
+def sig_expected_scoring_rule(static_kernel, X, Y, dyadic_order=0,
+                              naive=False, solver="auto",
+                              max_batch: Optional[int] = 100,
+                              grad_solver="auto", pair_chunk: int = 128):
+    """Expected scoring rule ``E_Y[S(X, y)]``."""
+    return _scoring_core(static_kernel, X, Y, dyadic_order, naive, solver,
+                         max_batch, grad_solver, pair_chunk)
 
 
 def sig_mmd(static_kernel, X, Y, dyadic_order=0, naive=False,
@@ -261,6 +471,14 @@ class SigKernel(nn.Module):
 
     def compute_distance(self, X, Y, max_batch=100):
         return sig_distance(self.static_kernel, X, Y, **self._kw(max_batch))
+
+    def compute_scoring_rule(self, X, y, max_batch=100):
+        return sig_scoring_rule(self.static_kernel, X, y,
+                                **self._kw(max_batch))
+
+    def compute_expected_scoring_rule(self, X, Y, max_batch=100):
+        return sig_expected_scoring_rule(self.static_kernel, X, Y,
+                                         **self._kw(max_batch))
 
     def compute_mmd(self, X, Y, max_batch=100):
         return sig_mmd(self.static_kernel, X, Y, **self._kw(max_batch))

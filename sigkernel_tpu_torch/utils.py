@@ -21,6 +21,13 @@ def double_difference(G: torch.Tensor) -> torch.Tensor:
     )
 
 
+def dd_transpose(ct: torch.Tensor) -> torch.Tensor:
+    """Transpose (VJP) of :func:`double_difference`: ``(..., M-1, N-1)``
+    -> ``(..., M, N)``. Zero-padding ``ct`` by one on each side turns the
+    scatter into the forward stencil: ``double_difference(pad(ct, 1))``."""
+    return double_difference(torch.nn.functional.pad(ct, (1, 1, 1, 1)))
+
+
 def dyadic_refine(dd: torch.Tensor, dyadic_order: int) -> torch.Tensor:
     """Split each increment cell into ``2^d x 2^d`` sub-cells, each carrying
     ``1/4^d`` of the original increment."""
@@ -67,3 +74,14 @@ def pad_batch(X: torch.Tensor, multiple: int):
     if rem:
         X = torch.cat([X, X.new_zeros((rem,) + tuple(X.shape[1:]))], dim=0)
     return X, n
+
+
+def flip(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Reverse along an axis (the reference's ``flip`` helper)."""
+    return torch.flip(x, dims=(dim,))
+
+
+def tile(a: torch.Tensor, dim: int, n_tile: int) -> torch.Tensor:
+    """Interleaved repeat along an axis: each element ``n_tile`` times in a
+    row (the reference's ``tile`` helper)."""
+    return torch.repeat_interleave(a, n_tile, dim=dim)

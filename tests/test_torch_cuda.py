@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card: the
+forward kernels K1 and K2, their stack-emitting instances, the adjoint K3
+(gen and inc sources), the increment-chain VJP K4, and gradients through the
+estimators against the plain tier.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode); without one
 they skip. On a GPU machine, run them without the JAX-side conftest:
@@ -13,7 +16,7 @@ import pytest
 import torch
 
 import sigkernel_tpu_torch as skt
-from sigkernel_tpu_torch.ops import _build, cuda_gen, cuda_solver
+from sigkernel_tpu_torch.ops import _build, cuda_gen, cuda_solver, incvjp
 from sigkernel_tpu_torch.utils import double_difference
 
 pytestmark = pytest.mark.requires_cuda
@@ -140,3 +143,102 @@ def test_estimators_on_card_match_plain_tier(cuda, kernel, dtype):
         mmd = sig.compute_mmd(X, Y, max_batch=3)
         assert abs(float(mmd - plain.compute_mmd(X, Y))) <= (
             10 * RTOL[dtype] * float(K.abs().max()))
+
+
+# ---- the adjoint's kernels: K1-stack, K2-stack, K3<gen|inc>, K4 ----------
+
+# gradients against their plain versions, max |err| / max |ref|: f64 the
+# port's bar; f32 the order of the kernels' sums (K4) and the float32
+# adjoint chain
+GRAD_BAR = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+def _max_rel(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-300))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("naive", [False, True])
+@pytest.mark.parametrize("dyadic", [0, 1, 2])
+@pytest.mark.parametrize("M,N", [(10, 20), (20, 10), (17, 17)])
+def test_adjoint_kernels_match_plain(cuda, dtype, naive, dyadic, M, N):
+    X = _paths(3, M, 2, 10, cuda, dtype)
+    Y = _paths(4, N, 2, 11, cuda, dtype)
+    ii = torch.tensor([0, 2, 1, 2, 0], device=cuda)
+    jj = torch.tensor([3, 0, 1, 2, 2], device=cuda)
+    v, stack = cuda_gen.rbf_gen_solve_stack(X, Y, ii, jj, 0.5, dyadic, naive)
+    pv, pstack = cuda_gen.rbf_gen_solve_stack_plain(X, Y, ii, jj, 0.5,
+                                                    dyadic, naive)
+    assert torch.equal(v, pv) and torch.equal(stack, pstack)
+    assert torch.equal(v, cuda_gen.rbf_gen_solve_final(X, Y, ii, jj, 0.5,
+                                                       dyadic, naive))
+    ct = cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, 0.5, stack, dyadic, naive)
+    assert torch.equal(ct, cuda_gen.rbf_gen_adjoint_plain(
+        X, Y, ii, jj, 0.5, pstack, dyadic, naive))
+    got = incvjp.rbf_dd_vjp(X, Y, ii, jj, 0.5, ct)
+    want = incvjp.rbf_dd_vjp_plain(X, Y, ii, jj, 0.5, ct)
+    for g, w in zip(got, want):
+        assert _max_rel(g, w) <= GRAD_BAR[dtype]
+    inc = double_difference(skt.RBFKernel(0.5).batch_kernel(
+        X[ii], Y[jj])).contiguous()
+    v2, stack2 = cuda_solver.inc_solve_stack(inc, dyadic, naive)
+    pv2, pstack2 = cuda_solver.inc_solve_stack_plain(inc, dyadic, naive)
+    assert torch.equal(v2, pv2) and torch.equal(stack2, pstack2)
+    assert torch.equal(cuda_solver.inc_adjoint(inc, stack2, dyadic, naive),
+                       cuda_solver.inc_adjoint_plain(inc, pstack2, dyadic,
+                                                     naive))
+
+
+@pytest.mark.parametrize("grade", ["auto", "f32"])
+@pytest.mark.parametrize("kernel", [skt.RBFKernel(0.5), skt.LinearKernel(0.8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gradients_on_card_match_plain_tier(cuda, kernel, dtype, grade):
+    """Gram, triangle and lincomb gradients through the kernels against
+    solver='scan' (the plain adjoint) on the card."""
+    X0 = _paths(5, 12, 3, 12, cuda, dtype)
+    Y0 = _paths(4, 9, 3, 13, cuda, dtype)
+    W = torch.randn(5, 4, generator=torch.Generator().manual_seed(0),
+                    dtype=dtype).to(cuda)
+    bar = GRAD_BAR[dtype] if grade == "auto" else 1e-4
+    grads = {}
+    for solver in ("auto", "scan"):
+        X, Y = X0.clone().requires_grad_(), Y0.clone().requires_grad_()
+        k = type(kernel)(torch.tensor(0.6, dtype=dtype, device=cuda,
+                                      requires_grad=True))
+        S = (skt.sig_gram_lincomb(k, X, Y, W, dyadic_order=1, pair_chunk=7,
+                                  solver=solver, grad_solver=grade)
+             + (W * skt.sig_gram(k, X, Y, dyadic_order=1, max_batch=3,
+                                 solver=solver, grad_solver=grade)).sum()
+             + skt.sig_mmd(k, X, Y, dyadic_order=1, solver=solver,
+                           grad_solver=grade))
+        S.backward()
+        hyper = next(iter(k.buffers()))
+        grads[solver] = (X.grad, Y.grad, hyper.grad)
+    for g, w in zip(grads["auto"], grads["scan"]):
+        assert g.dtype == dtype and _max_rel(g, w) <= bar
+
+
+def test_adjoint_launch_counters_count_launches(cuda):
+    X = _paths(3, 8, 3, 14, cuda, torch.float64).requires_grad_()
+    counters = (cuda_gen.STACK_COUNTS, cuda_gen.ADJOINT_COUNTS, incvjp.COUNTS)
+    before = [dict(c) for c in counters]
+    skt.sig_gram(skt.RBFKernel(1.0), X, X, sym=True).sum().backward()
+    for c, b in zip(counters, before):
+        assert c["float64"] > b["float64"] and c["plain"] == b["plain"]
+    n_stack = cuda_solver.STACK_COUNTS["float64"]
+    n_adj = cuda_solver.ADJOINT_COUNTS["float64"]
+    X.grad = None
+    skt.sig_gram(skt.LinearKernel(1.0), X, X).sum().backward()
+    assert cuda_solver.STACK_COUNTS["float64"] == n_stack + 1
+    assert cuda_solver.ADJOINT_COUNTS["float64"] == n_adj + 1
+
+
+def test_length_one_gradients_are_zero_without_launches(cuda):
+    X = _paths(2, 1, 2, 15, cuda, torch.float64).requires_grad_()
+    Y = _paths(3, 6, 2, 16, cuda, torch.float64).requires_grad_()
+    before = dict(cuda_gen.STACK_COUNTS)
+    skt.sig_gram_lincomb(skt.RBFKernel(0.5), X, Y,
+                         torch.ones(2, 3, dtype=X.dtype, device=cuda)
+                         ).backward()
+    assert not X.grad.any() and not Y.grad.any()
+    assert dict(cuda_gen.STACK_COUNTS) == before

@@ -5,6 +5,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 import sigkernel_tpu_torch as skt
 from sigkernel_tpu_torch.ops import routes
@@ -50,10 +51,40 @@ def test_unknown_solver_lists_the_options(solver):
         routes.resolve_family(skt.RBFKernel(1.0), "cuda", solver)
 
 
+# (family, input dtype, grad_solver) -> backward dtype
+_F32, _F64 = torch.float32, torch.float64
+_BWD = {}
+for _fam in routes.FAMILIES:
+    for _dt in (_F32, _F64):
+        for _grade in routes.GRAD_SOLVERS:
+            _BWD[(_fam, _dt, _grade)] = (
+                _F32 if _fam != "scan" and _grade == "f32" else _dt)
+
+
+@pytest.mark.parametrize("family,dtype,grade", sorted(
+    _BWD, key=lambda k: (k[0], str(k[1]), k[2])))
+def test_backward_dtype_matrix(family, dtype, grade):
+    """f64 in: "f32" is the float32 chain, "auto"/"df64" native double; f32
+    in: float32; the plain (scan) family always at the input precision."""
+    kernel, device, solver = {
+        "gen": (_KERNELS["rbf"], "cuda", "auto"),
+        "inc": (_KERNELS["linear"], "cuda", "auto"),
+        "scan": (_KERNELS["rbf"], "cpu", "auto")}[family]
+    route = routes.resolve(kernel, device, solver, dtype, grade)
+    assert route == routes.Route(family, _BWD[(family, dtype, grade)])
+
+
+def test_unknown_grad_solver_raises():
+    with pytest.raises(ValueError, match="'auto', 'f32', 'df64'"):
+        routes.resolve(None, "cuda", "auto", torch.float64, "f64")
+
+
 def test_import_pulls_in_no_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = ("import sys, sigkernel_tpu_torch, sigkernel_tpu_torch.ops.solve, "
-            "sigkernel_tpu_torch.ops.cuda_gen, sigkernel_tpu_torch.stats\n"
+            "sigkernel_tpu_torch.ops.cuda_gen, sigkernel_tpu_torch.stats, "
+            "sigkernel_tpu_torch.ops.incvjp, "
+            "sigkernel_tpu_torch.models.mmd_flow\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'sigkernel_tpu'))\n"
             "assert not bad, bad\n")

@@ -144,26 +144,6 @@ def test_length_one_paths_and_length_bucket(rng, kind):
                                     dyadic_order=1, length_bucket=5), want)
 
 
-def test_inputs_that_need_gradients_are_refused(rng):
-    X = torch.tensor(make_paths(rng, 3, 6, 2))
-    Y = torch.tensor(make_paths(rng, 3, 8, 2))
-    k = skt.RBFKernel(0.5)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        skt.sig_kernel(k, X.clone().requires_grad_(), Y)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        skt.sig_gram(k, X, Y.clone().requires_grad_(), sym=False)
-    W = torch.ones(3, 3, requires_grad=True, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        skt.sig_gram_lincomb(k, X, Y, W)
-    kg = skt.RBFKernel(torch.tensor(0.5, requires_grad=True))
-    with pytest.raises(NotImplementedError):
-        skt.SigKernel(kg, 1).compute_mmd(X, Y)
-    # without grad mode the same calls run
-    with torch.no_grad():
-        v = skt.sig_kernel(kg, X.clone().requires_grad_(), Y)
-    assert v.shape == (3,) and not v.requires_grad
-
-
 def test_unknown_solvers_raise(rng):
     X = torch.tensor(make_paths(rng, 2, 5, 2))
     k = skt.LinearKernel(1.0)
