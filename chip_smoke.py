@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU through its CUDA kernels, the
-forward path and the adjoint (training) path, and check it.
+forward path, the adjoint (training) path, the derivative Gram, CHSIC and
+the Linear generator, and check it.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -12,16 +13,20 @@ Phases (any failure raises and the script exits non-zero):
    build of the kernels from ``sigkernel_tpu_torch/csrc`` (nvcc at first use).
 1. Each kernel against its plain PyTorch version on the card, over the README
    quick-start shape (both orientations), 8 pairs at length 1024 and a
-   length-1 path, float32 and float64: K1 (``rbf_gen_wavefront``) and K2
-   (``inc_wavefront``) x {order-2, naive} x dyadic {0, 1, 2} (one pair at
-   length 2048 too); the adjoint's kernels K1-stack, K2-stack, K3
-   (``adjoint_collapse`` gen and inc) and K4 (``rbf_dd_vjp``) x {order-2,
-   naive} x dyadic {0, 1, 2} (order-2 only at length 1024).
+   length-1 path, float32 and float64: K1 (``rbf_gen_wavefront``), K2
+   (``inc_wavefront``) and K6 (``linear_gen_wavefront``) x {order-2, naive}
+   x dyadic {0, 1, 2} (one pair at length 2048 too); K5
+   (``deriv_wavefront``, order-2 only, on the RBF kernel's derivative
+   grids; at length 1024, dyadic 2 and length 2048, dyadic 1 its shorter
+   refined side is 4,092 and 4,094 rows); the adjoint's kernels K1-stack,
+   K2-stack, K3 (``adjoint_collapse`` gen and inc) and K4 (``rbf_dd_vjp``)
+   x {order-2, naive} x dyadic {0, 1, 2} (order-2 only at length 1024).
 2. The forward main path at the north-star size: ``SigKernel(RBFKernel(1.0),
    dyadic_order=1)`` on X, Y of shape (100, 1024, 3), float64 and float32:
    ``compute_Gram(X, X, sym=True)``, ``compute_Gram(X, Y)``,
    ``compute_mmd(X, Y)`` and ``sig_gram_lincomb`` with ``pair_chunk=128``.
-3. A ``LinearKernel`` ``sym=True`` Gram at batch 50, length 100 (through K2).
+3. ``sym=True`` Grams at batch 50, length 100: ``LinearKernel`` (K6) and
+   ``RBF_SQR_Kernel`` (K2).
 4. ``hypothesis_test`` at batch 32, length 200, dyadic 1.
 5. The training path at the north-star size: ``sig_gram_lincomb(RBFKernel
    (1.0), X, Y, W, dyadic_order=1, pair_chunk=128).backward()`` with X, Y and
@@ -30,10 +35,19 @@ Phases (any failure raises and the script exits non-zero):
    (float64) grade.
 6. ``MMDFlow(RBFKernel(1.0), dyadic_order=1).fit`` for 5 steps at batch 32,
    length 200, float64; and a ``LinearKernel`` ``sym=True`` Gram at batch
-   50, length 100 with ``.backward()`` (K2-stack and K3<inc>).
+   50, length 100 with ``.backward()`` (K6 values; K2-stack and K3<inc>).
+7. The derivative Gram at the north-star size: ``compute_kernel_and_
+   derivatives_Gram(X, Y, gamma, max_batch=16)`` of ``SigKernel(RBFKernel
+   (1.0), dyadic_order=1)``, float64 and float32 (K5).
+8. ``sig_chsic`` at the long-path stress configuration: m = 50 paths of
+   length 1024, dim 5, dyadic 2, float64 (three ``sym`` Grams through K1).
+9. The Linear Gram at the north-star size: ``SigKernel(LinearKernel(1.0),
+   dyadic_order=1).compute_Gram(X, Y)``, float64 and float32, one K6 launch
+   each; then, uncounted, the route it replaces (K2 on the torch-built
+   increment grid, ``max_batch=25``), timed beside it.
 
-The launch counters are zeroed before phases 2-4, before phase 5 and before
-phase 6, and read after each: every kernel of the phase must have launched
+The launch counters are zeroed before phases 2-4 and before each later
+phase, and read after each: every kernel of the phase must have launched
 and no plain version may have run. The checks of those phases against plain
 versions come after the counters are read, then each kernel is timed beside
 its plain version at 128 pairs, length 1024, dyadic 1, dim 3. The last three
@@ -72,6 +86,15 @@ GRAD_F32 = 1e-4
 # docs/VALIDATION.md:33).
 CHAIN_F64 = 1e-9
 CHAIN_F32 = 1e-1
+# K5 and K6 against their plain versions: no exp in either kernel, so the
+# float32 bar holds at every length. K entry-wise relative; K_diff and
+# K_diffdiff as max |err| / max |ref| (their entries cross 0).
+NEW_F32 = 1e-4
+# The derivative Gram and CHSIC on the card against the plain tier on a
+# sub-problem: float64 K within the port's value bar, the derivatives within
+# its gradient bar; float32 within the float32 derivative bar.
+DERIV_F64 = 1e-9
+DERIV_F32 = 1e-3
 
 DEVICE = "cuda"
 # phase 1: name, pairs, M, N, D, sigma, dyadic orders
@@ -86,6 +109,9 @@ LONG = 1024           # phase 1: the adjoint runs order-2 only from here
 NORTH_STAR = (100, 1024)  # batch, length (dim 3, dyadic 1)
 LINEAR = (50, 100)    # phases 3 and 6: LinearKernel batch, length
 FLOW = (32, 200)      # phases 4 and 6: batch, length
+DERIV_TILE = 16       # phase 7: max_batch of the derivative Gram
+CHSIC = (50, 1024, 5, 2)  # phase 8: m, length, dim, dyadic order
+GRID_TILE = 25        # phase 9: max_batch of the grid route K6 replaces
 TIMED_PAIRS = 128     # kernel times at the north star's length
 
 
@@ -102,8 +128,9 @@ def max_rel(got, want):
     """max |got - want| / max |want| (0 for empty tensors)."""
     if not want.numel():
         return 0.0
-    return float((got - want).abs().max()
-                 / want.abs().max().clamp_min(1e-300))
+    # in Python floats: a float32 clamp to 1e-300 would underflow to 0
+    return (float((got - want).abs().max())
+            / max(float(want.abs().max()), 1e-300))
 
 
 def make_paths(gen, batch, length, dim, dtype):
@@ -147,6 +174,24 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def deriv_grids(kernel, X, Y, gamma, ii, jj):
+    """K5's three base increment grids for the pairs ``(X[ii[p]],
+    Y[jj[p]])`` along ``gamma[ii[p]]``: the static kernel and its first and
+    second directional derivatives (nested jvp, as the estimator builds
+    them), double-differenced."""
+    import torch
+    from sigkernel_tpu_torch.utils import double_difference
+
+    y, g = Y[jj], gamma[ii]
+
+    def first(x):
+        return torch.func.jvp(lambda z: kernel.batch_kernel(z, y), (x,),
+                              (g,))
+
+    (G, dG), (_, ddG) = torch.func.jvp(first, (X[ii],), (g,))
+    return [double_difference(t).contiguous() for t in (G, dG, ddG)]
+
+
 def main():
     import torch
 
@@ -155,8 +200,8 @@ def main():
         return 1
 
     import sigkernel_tpu_torch as skt
-    from sigkernel_tpu_torch.ops import (_build, cuda_gen, cuda_solver,
-                                         incvjp)
+    from sigkernel_tpu_torch.ops import (_build, cuda_deriv, cuda_gen,
+                                         cuda_lgen, cuda_solver, incvjp)
     from sigkernel_tpu_torch.utils import double_difference
 
     # full-precision float32 matmuls (the plain versions' Grams)
@@ -193,6 +238,8 @@ def main():
         "adj_gen": ("adjoint_collapse_gen", cuda_gen.ADJOINT_COUNTS),
         "adj_inc": ("adjoint_collapse_inc", cuda_solver.ADJOINT_COUNTS),
         "vjp": ("rbf_dd_vjp", incvjp.COUNTS),
+        "deriv": ("deriv_wavefront", cuda_deriv.COUNTS),
+        "lgen": ("linear_gen_wavefront", cuda_lgen.COUNTS),
     }
     ctype = {F32: "float", F64: "double"}
     instances = {(k, dt): f"{kinds[k][0]}<{ctype[dt]}>"
@@ -241,21 +288,24 @@ def main():
 
     # ---- phase 1: kernels against their plain versions ------------------
     gen = torch.Generator(device=DEVICE).manual_seed(1)
+    gamma_gen = torch.Generator(device=DEVICE).manual_seed(3)
     t_phase = time.perf_counter()
     for pname, P, M, N, D, sigma, orders in PROBLEMS:
         X64 = make_paths(gen, P, M, D, F64)
         Y64 = make_paths(gen, P, N, D, F64)
+        G64 = make_paths(gamma_gen, P, M, D, F64)
         ii = torch.arange(P, device=dev)
         jj = ii.flip(0)  # a non-identity pairing exercises the index arrays
         long = max(M, N) >= LONG
         rbf = skt.RBFKernel(sigma)
         for dtype in (F64, F32):
-            X, Y = X64.to(dtype), Y64.to(dtype)
+            X, Y, G = X64.to(dtype), Y64.to(dtype), G64.to(dtype)
             inc = double_difference(
                 rbf.batch_kernel(X[ii], Y[jj])).contiguous()
             limit = (F64_RTOL if dtype == F64 else
                      F32_RTOL_LONG if long else F32_RTOL_SMALL)
             glimit = GRAD_F64 if dtype == F64 else GRAD_F32
+            nlimit = F64_RTOL if dtype == F64 else NEW_F32
             for dy in orders:
                 for naive in (False, True):
                     label = (f"{pname} {name[dtype]} dyadic {dy} "
@@ -273,6 +323,31 @@ def main():
                     print(f"[1] {label}: K1 rel {r1:.2e} ({t1 * 1e3:.1f} ms),"
                           f" K2 rel {r2:.2e} ({t2 * 1e3:.1f} ms), "
                           f"limit {limit:.0e}")
+                    k6, t6 = synced(lambda: cuda_lgen.linear_gen_solve_final(
+                        X, Y, ii, jj, 0.8, dy, naive))
+                    p6 = cuda_lgen.linear_gen_solve_final_plain(
+                        X, Y, ii, jj, 0.8, dy, naive)
+                    r6 = compare("lgen", dtype, k6, p6, nlimit, "K6 " + label)
+                    msg = (f"K6 rel {r6:.2e} (bit-equal {torch.equal(k6, p6)},"
+                           f" {t6 * 1e3:.1f} ms)")
+                    if not naive:  # the derivative path has no naive scheme
+                        grids = deriv_grids(rbf, X, Y, G, ii, jj)
+                        k5, t5 = synced(lambda: cuda_deriv.deriv_solve_final(
+                            *grids, dy))
+                        p5 = cuda_deriv.deriv_solve_final_plain(*grids, dy)
+                        del grids
+                        r5 = compare("deriv", dtype, k5[0], p5[0], nlimit,
+                                     "K5 K " + label)
+                        r5d = max(compare_max("deriv", dtype, g, w, nlimit,
+                                              f"K5 {n} {label}")
+                                  for n, g, w in zip(("K_diff", "K_diffdiff"),
+                                                     k5[1:], p5[1:]))
+                        eq5 = all(torch.equal(g, w) for g, w in zip(k5, p5))
+                        msg += (f"; K5 K rel {r5:.2e}, K_diff/K_diffdiff max "
+                                f"err / max ref {r5d:.2e} (bit-equal {eq5}, "
+                                f"{t5 * 1e3:.1f} ms)")
+                    torch.cuda.synchronize()
+                    print(f"[1] {label}: {msg}, limit {nlimit:.0e}")
                     if M == 1 or N == 1:
                         # no increments: every gradient is exactly 0
                         ct = cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, sigma,
@@ -372,20 +447,24 @@ def main():
               f"{torch.cuda.max_memory_allocated()} bytes ({base} allocated "
               "before the calls)")
 
-    lin = skt.SigKernel(skt.LinearKernel(1.0), dyadic_order=0)
+    phase3 = {"linear": skt.LinearKernel(1.0),  # K6
+              "rbf_sqr": skt.RBF_SQR_Kernel(1.0, 2.0)}  # K2
     for dtype in (F64, F32):
         XL = XL64.to(dtype)
-        out, sec = synced(lambda: lin.compute_Gram(XL, XL, sym=True))
-        main[(dtype, "linear")] = out
-        print(f"[3] {name[dtype]} LinearKernel Gram(sym=True) {AL} x len "
-              f"{LL}: {sec:.3f} s ({AL * (AL + 1) // 2} pairs)")
+        for kname, kern in phase3.items():
+            sig3 = skt.SigKernel(kern, dyadic_order=0)
+            out, sec = synced(lambda: sig3.compute_Gram(XL, XL, sym=True))
+            main[(dtype, kname)] = out
+            print(f"[3] {name[dtype]} {type(kern).__name__} Gram(sym=True) "
+                  f"{AL} x len {LL}: {sec:.3f} s ({AL * (AL + 1) // 2} "
+                  "pairs)")
 
     (rejected, TU, c), sec = synced(lambda: skt.hypothesis_test(
         H64, T64, rbf, dyadic_order=1, verbose=True))
     print(f"[4] hypothesis_test {AF} vs {AF} x len {LF}, dyadic 1: MMD "
           f"{float(TU)}"
           f", threshold {c}, rejected {rejected}, {sec:.3f} s")
-    read_counters("2-4", [(k, dt) for k in ("gen", "inc")
+    read_counters("2-4", [(k, dt) for k in ("gen", "inc", "lgen")
                           for dt in (F32, F64)])
 
     # ---- phase 5: the training path at full width, counted --------------
@@ -443,9 +522,61 @@ def main():
         print(f"[6] {name[dtype]} LinearKernel Gram(sym=True) {AL} x len "
               f"{LL} fwd+bwd: {sec:.3f} s ({AL * (AL + 1) // 2} pairs)")
     read_counters("6", [("gen", F64), ("gen_stack", F64), ("adj_gen", F64),
-                        ("vjp", F64), ("inc", F32), ("inc", F64),
+                        ("vjp", F64), ("lgen", F32), ("lgen", F64),
                         ("inc_stack", F32), ("inc_stack", F64),
                         ("adj_inc", F32), ("adj_inc", F64)])
+
+    # ---- phase 7: the derivative Gram at the north-star size, counted ---
+    zero_counters()
+    G64 = make_paths(gen, A, L, 3, F64)
+    deriv = {}
+    for dtype in (F64, F32):
+        X, Y, G = X64.to(dtype), Y64.to(dtype), G64.to(dtype)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, sec = synced(lambda: sig.compute_kernel_and_derivatives_Gram(
+            X, Y, G, max_batch=DERIV_TILE))
+        deriv[dtype] = out
+        print(f"[7] {name[dtype]} compute_kernel_and_derivatives_Gram(X, Y, "
+              f"gamma, max_batch={DERIV_TILE}): {sec:.3f} s, "
+              f"{A * A / sec:.1f} path-pairs/s ({A * A} pairs), peak memory "
+              f"allocated {torch.cuda.max_memory_allocated()} bytes ({base} "
+              "before the call)")
+    read_counters("7", [("deriv", F32), ("deriv", F64)])
+
+    # ---- phase 8: CHSIC at the long-path stress size, counted -----------
+    zero_counters()
+    m8, L8, D8, dy8 = CHSIC
+    XYZ = [make_paths(gen, m8, L8, D8, F64) for _ in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    chsic, sec = synced(lambda: skt.sig_chsic(*XYZ, skt.RBFKernel(1.0),
+                                              dyadic_order=dy8))
+    pairs8 = 3 * m8 * (m8 + 1) // 2
+    print(f"[8] float64 sig_chsic m {m8} x len {L8} x dim {D8}, dyadic {dy8}:"
+          f" {float(chsic)}, {sec:.3f} s, {pairs8 / sec:.1f} path-pairs/s "
+          f"({pairs8} pairs in three sym Grams), peak memory allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes ({base} before the "
+          "call)")
+    read_counters("8", [("gen", F64)])
+
+    # ---- phase 9: the Linear Gram at the north-star size, counted -------
+    zero_counters()
+    lin9 = skt.SigKernel(skt.LinearKernel(1.0), dyadic_order=1)
+    linear9 = {}
+    for dtype in (F64, F32):
+        X, Y = X64.to(dtype), Y64.to(dtype)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, sec = synced(lambda: lin9.compute_Gram(X, Y))
+        linear9[dtype] = (out, sec)
+        print(f"[9] {name[dtype]} LinearKernel compute_Gram(X, Y): {sec:.3f}"
+              f" s, {A * A / sec:.1f} path-pairs/s ({A * A} pairs), peak "
+              f"memory allocated {torch.cuda.max_memory_allocated()} bytes "
+              f"({base} before the call)")
+    launched = cuda_lgen.COUNTS["float32"] + cuda_lgen.COUNTS["float64"]
+    read_counters("9", [("lgen", F32), ("lgen", F64)])
+    check(launched == 2, f"[9] {launched} K6 launches, expected one per dtype")
 
     # ---- checks of phases 2-6 against plain versions --------------------
     pick = torch.Generator(device="cpu").manual_seed(2)
@@ -482,15 +613,28 @@ def main():
           f"{rel_err(g32, g64):.2e}; |K| in [{float(g64.abs().min()):.3g}, "
           f"{float(g64.abs().max()):.3g}]")
 
+    iu, ju = torch.triu_indices(AL, AL, device=dev)
     for dtype in (F64, F32):
         XL = XL64.to(dtype)
-        want = skt.sig_gram(skt.LinearKernel(1.0), XL, XL, sym=True,
+        # the Linear Gram against the plain version of its route (K6's): in
+        # float32 the grid route's double difference cancels, so a float32
+        # bar against it would measure the grid's error, not K6's
+        want = cuda_lgen.linear_gen_solve_final_plain(XL, XL, iu, ju, 1.0, 0)
+        limit = F64_RTOL if dtype == F64 else NEW_F32
+        r = compare("lgen", dtype, main[(dtype, "linear")][iu, ju], want,
+                    limit, f"{name[dtype]} LinearKernel Gram vs plain K6")
+        print(f"[3] {name[dtype]} LinearKernel Gram vs K6's plain version: "
+              f"rel {r:.2e} (limit {limit:.0e})")
+        want = skt.sig_gram(phase3["rbf_sqr"], XL, XL, sym=True,
                             solver="scan")
         limit = F64_RTOL if dtype == F64 else F32_RTOL_SMALL
-        r = compare("inc", dtype, main[(dtype, "linear")], want, limit,
-                    f"{name[dtype]} LinearKernel Gram vs plain tier")
-        print(f"[3] {name[dtype]} LinearKernel Gram vs plain tier: rel "
+        r = compare("inc", dtype, main[(dtype, "rbf_sqr")], want, limit,
+                    f"{name[dtype]} RBF_SQR_Kernel Gram vs plain tier")
+        print(f"[3] {name[dtype]} RBF_SQR_Kernel Gram vs plain tier: rel "
               f"{r:.2e} (limit {limit:.0e})")
+    r = max_rel(main[(F32, "linear")].double(), main[(F64, "linear")])
+    print(f"[3] float32 LinearKernel Gram vs float64: max abs err / max |K| "
+          f"{r:.2e}")
 
     TU_plain = skt.sig_mmd(rbf, H64, T64, dyadic_order=1, solver="scan")
     err = abs(float(TU) - float(TU_plain))
@@ -563,10 +707,93 @@ def main():
               f"dX max abs err {float((got[1] - XL.grad).abs().max()):.3e}")
         check(max(errs) <= bar, f"[6] {name[dtype]} LinearKernel gradients")
 
+    # phase 7: shapes and dtypes; a 4 x 4 sub-problem against the plain
+    # tier (the triple sweep in torch on the same card)
+    for dtype in (F64, F32):
+        X, Y, G = X64.to(dtype), Y64.to(dtype), G64.to(dtype)
+        for t in deriv[dtype]:
+            check(t.shape == (A, A) and t.dtype == dtype
+                  and bool(torch.isfinite(t).all()), "[7] derivative Gram")
+        want = skt.sig_kernel_and_derivatives_gram(
+            rbf, X[:4], Y[:4], G[:4], dyadic_order=1, solver="scan")
+        got = [t[:4, :4] for t in deriv[dtype]]
+        kbar = F64_RTOL if dtype == F64 else F32_RTOL_LONG
+        dbar = DERIV_F64 if dtype == F64 else DERIV_F32
+        errs = [rel_err(got[0], want[0]), max_rel(got[1], want[1]),
+                max_rel(got[2], want[2])]
+        print(f"[7] {name[dtype]} 4 x 4 sub-problem vs solver='scan': K rel "
+              f"{errs[0]:.2e} (limit {kbar:.0e}), K_diff {errs[1]:.2e}, "
+              f"K_diffdiff {errs[2]:.2e} max err / max ref (limit "
+              f"{dbar:.0e})")
+        check(errs[0] <= kbar and max(errs[1:]) <= dbar,
+              f"[7] {name[dtype]} derivative Gram vs plain tier")
+    errs = [max_rel(a.double(), b) for a, b in zip(deriv[F32], deriv[F64])]
+    print("[7] float32 vs float64 derivative Gram, max abs err / max |ref|: "
+          f"K {errs[0]:.2e}, K_diff {errs[1]:.2e}, K_diffdiff {errs[2]:.2e}")
+    check(errs[0] <= F32_VS_F64, "[7] float32 K vs float64 K")
+
+    # phase 8: a finite scalar; the same statistic on a small input against
+    # the plain tier (CPU tensors)
+    check(chsic.shape == () and bool(torch.isfinite(chsic)), "[8] CHSIC")
+    small = [t[:8, :64] for t in XYZ]
+    got = float(skt.sig_chsic(*small, skt.RBFKernel(1.0), dyadic_order=dy8))
+    want = float(skt.sig_chsic(*(t.cpu() for t in small), skt.RBFKernel(1.0),
+                               dyadic_order=dy8))
+    r = abs(got - want) / abs(want)
+    print(f"[8] sig_chsic 8 x len 64 on the card vs the plain tier: rel "
+          f"{r:.2e} (limit {F64_RTOL:.0e})")
+    check(r <= F64_RTOL, "[8] CHSIC vs plain tier")
+
+    # phase 9: 4 random pairs against K6's plain version; float32 against
+    # float64; then the route K6 replaces, timed in turns with K6
+    for dtype in (F64, F32):
+        X, Y = X64.to(dtype), Y64.to(dtype)
+        K = linear9[dtype][0]
+        check(K.shape == (A, A) and bool(torch.isfinite(K).all()),
+              "[9] Linear Gram")
+        want = cuda_lgen.linear_gen_solve_final_plain(X, Y, ii, jj, 1.0, 1)
+        limit = F64_RTOL if dtype == F64 else NEW_F32
+        r = compare("lgen", dtype, K[ii, jj], want, limit,
+                    f"[9] {name[dtype]} Linear Gram vs plain K6")
+        print(f"[9] {name[dtype]} Linear Gram 4 random pairs vs K6's plain "
+              f"version: rel {r:.2e} (limit {limit:.0e})")
+    K64 = linear9[F64][0]
+    r = max_rel(linear9[F32][0].double(), K64)
+    print(f"[9] float32 K6 Linear Gram vs float64 K6: max abs err / max |K| "
+          f"{r:.2e}; |K| in [{float(K64.abs().min()):.3g}, "
+          f"{float(K64.abs().max()):.3g}]")
+    check(r <= F32_VS_F64, "[9] float32 Linear Gram vs float64")
+
+    class GridLinear(skt.LinearKernel):
+        """Not exactly LinearKernel: takes the inc family, the torch-built
+        increment grid and K2, as LinearKernel did before K6."""
+
+    for dtype in (F64, F32):
+        X, Y = X64.to(dtype), Y64.to(dtype)
+        runs = {"K6": [linear9[dtype][1]], "grid": []}
+        for route in ("grid", "K6", "grid"):
+            kern = GridLinear(1.0) if route == "grid" else skt.LinearKernel(1.0)
+            out, sec = synced(lambda: skt.sig_gram(
+                kern, X, Y, dyadic_order=1,
+                max_batch=GRID_TILE if route == "grid" else 100))
+            runs[route].append(sec)
+            if route == "grid":
+                grid_K = out
+            del out
+        r = max_rel(grid_K.double(), K64)
+        print(f"[9] {name[dtype]} Linear Gram: K6 {runs['K6']} s, grid route "
+              f"(K2, max_batch={GRID_TILE}) {runs['grid']} s, "
+              f"{A * A / min(runs['K6']):.1f} against "
+              f"{A * A / min(runs['grid']):.1f} path-pairs/s; grid route vs "
+              f"float64 K6 max abs err / max |K| {r:.2e} ({card})")
+        del grid_K
+        torch.cuda.empty_cache()
+
     # ---- kernel times beside their plain versions -----------------------
     P = TIMED_PAIRS
     Xt64 = make_paths(gen, P, L, 3, F64)
     Yt64 = make_paths(gen, P, L, 3, F64)
+    Gt64 = make_paths(gen, P, L, 3, F64)
     ar = torch.arange(P, device=dev)
     timing = {}
 
@@ -622,6 +849,19 @@ def main():
               lambda: incvjp.rbf_dd_vjp_plain(Xt, Yt, ar, ar, 1.0, ct)[1],
               compare_max, glimit)
         del ct, inc
+        nlimit = F64_RTOL if dtype == F64 else NEW_F32
+        timed("lgen", dtype,
+              lambda: cuda_lgen.linear_gen_solve_final(Xt, Yt, ar, ar, 1.0, 1),
+              lambda: cuda_lgen.linear_gen_solve_final_plain(Xt, Yt, ar, ar,
+                                                             1.0, 1),
+              compare, nlimit)
+        grids = deriv_grids(rbf, Xt, Yt, Gt64.to(dtype), ar, ar)
+        timed("deriv", dtype,
+              lambda: torch.stack(cuda_deriv.deriv_solve_final(*grids, 1)),
+              lambda: torch.stack(cuda_deriv.deriv_solve_final_plain(*grids,
+                                                                     1)),
+              compare_max, nlimit)
+        del grids
 
     adjoint = "sigkernel_tpu/ops/pallas_adjoint.py"
     replaces = {
@@ -649,12 +889,18 @@ def main():
                                               f"{adjoint}:442"]),
         ("vjp", F32): ("sigkernel_tpu/ops/pallas_incvjp.py:61", []),
         ("vjp", F64): ("sigkernel_tpu/ops/pallas_incvjp.py:61", []),
+        ("deriv", F32): ("sigkernel_tpu/ops/pallas_derivatives.py:45", []),
+        ("deriv", F64): ("sigkernel_tpu/ops/pallas_derivatives.py:270", []),
+        ("lgen", F32): ("sigkernel_tpu/ops/pallas_fused.py:36", []),
+        ("lgen", F64): ("sigkernel_tpu/ops/pallas_fused.py:36", []),
     }
     source = {"gen": "rbf_gen_wavefront.cu",
               "gen_stack": "rbf_gen_wavefront.cu",
               "inc": "inc_wavefront.cu", "inc_stack": "inc_wavefront.cu",
               "adj_gen": "adjoint_collapse.cu",
-              "adj_inc": "adjoint_collapse.cu", "vjp": "rbf_dd_vjp.cu"}
+              "adj_inc": "adjoint_collapse.cu", "vjp": "rbf_dd_vjp.cu",
+              "deriv": "deriv_wavefront.cu",
+              "lgen": "linear_gen_wavefront.cu"}
     kernels = []
     for key, iname in instances.items():
         rep, also = replaces[key]

@@ -1,8 +1,9 @@
 """Build the CUDA kernels at first use and bind them with ``ctypes``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain ``extern "C"`` interface (no PyTorch headers, so the build
-takes seconds). The library lands in
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain ``extern "C"`` interface (no PyTorch headers, so the build takes
+seconds). The library lands in
 ``build/sigkernel_tpu_torch/<hash of the sources>/libsigkernel_cuda.so``
 under the directory that holds the package, so a library built from other
 sources is never loaded. ``nvcc``'s resource report (``-Xptxas -v``) is kept
@@ -24,8 +25,9 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
                / "sigkernel_tpu_torch")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v"]
 
 # Hopper: the most dynamic shared memory one block may opt in to (227 KB).
 SMEM_BYTES = 232448
@@ -63,6 +65,16 @@ _SIGNATURES = {
                           _D, _I, _P],
     "sk_rbf_dd_vjp_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                           _D, _I, _P],
+    # inc, inc_d, inc_dd, out_k, out_d, out_s, P, Mb, Nb, f, device, stream
+    "sk_deriv_wavefront_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                               _P],
+    "sk_deriv_wavefront_f64": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                               _P],
+    # rows, cols, ri, ci, out, P, Lr, Lc, D, f, naive, device, stream
+    "sk_linear_gen_wavefront_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                                    _I, _I, _P],
+    "sk_linear_gen_wavefront_f64": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                                    _I, _I, _P],
 }
 
 _lib = None
@@ -99,15 +111,34 @@ def library_path() -> Path:
 def _build(out: Path) -> None:
     global build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
+    nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    jobs = []  # one nvcc per source, all running at once
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], None
+    for cmd, _, proc in jobs:  # wait for every process, failed or not
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, logs[-1])
+    tmp = out.with_name(f"{out.name}.{tag}")
+    if failed is None:
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = (cmd, proc.returncode, logs[-1])
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (out.parent / "nvcc.log").write_text("".join(logs))
+    if failed is not None:
+        cmd, code, log = failed
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
     build_seconds = time.perf_counter() - t0
 

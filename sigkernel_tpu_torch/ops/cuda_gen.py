@@ -87,7 +87,7 @@ def gen_increments(x, y, sigma) -> torch.Tensor:
     return (G[:, 1:, 1:] + G[:, :-1, :-1]) - (G[:, 1:, :-1] + G[:, :-1, 1:])
 
 
-def _plain_chunk(X, Y, dyadic_order: int, grids: int) -> int:
+def plain_chunk(X, Y, dyadic_order: int, grids: int) -> int:
     """Pairs per chunk of a plain version that holds ``grids`` refined
     grids per pair."""
     f = 2 ** dyadic_order
@@ -103,7 +103,7 @@ def rbf_gen_solve_final_plain(X, Y, ii, jj, sigma, dyadic_order: int = 0,
     """Plain version: per pair the RBF increments (:func:`gen_increments`)
     -> dyadic refinement -> the plain anti-diagonal loop."""
     COUNTS["plain"] += 1
-    chunk = _plain_chunk(X, Y, dyadic_order, 2)
+    chunk = plain_chunk(X, Y, dyadic_order, 2)
     outs = [X.new_empty(0)]
     for s in range(0, ii.shape[0], chunk):
         inc = gen_increments(X[ii[s:s + chunk]], Y[jj[s:s + chunk]], sigma)

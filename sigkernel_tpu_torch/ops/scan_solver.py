@@ -78,6 +78,67 @@ def solve_grid(inc: torch.Tensor, naive: bool = False) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The triple sweep of the derivative Gram: (K, K_diff, K_diffdiff)
+# ---------------------------------------------------------------------------
+
+
+def solve_derivatives_final(inc: torch.Tensor, inc_d: torch.Tensor,
+                            inc_dd: torch.Tensor):
+    """Sweep ``(K, K_diff, K_diffdiff)`` over refined increment grids
+    ``(..., MM, NN)`` of the kernel and its first and second directional
+    derivatives; returns the three corners, each with the batch shape.
+
+    ``K`` takes the order-2 scheme; the derivative states take the
+    product-rule recurrences f1..f4 / g1..g4 of
+    :func:`sigkernel_tpu.ops.scan_solver.solve_derivatives_final`, in its op
+    order (the K5 kernel rounds as this loop does). Boundary ``K = 1``,
+    ``K_diff = K_diffdiff = 0``; a length-1 path gives ``(1, 0, 0)``. Each
+    diagonal is a new tensor (no in-place update), so autograd
+    differentiates the loop.
+    """
+    *batch, MM, NN = inc.shape
+    if MM == 0 or NN == 0:
+        return inc.new_ones(batch), inc.new_zeros(batch), inc.new_zeros(batch)
+    B = math.prod(batch)
+    flat = [t.reshape(B, MM, NN) for t in (inc, inc_d, inc_dd)]
+    one, zero = inc.new_ones(B, MM + 1), inc.new_zeros(B, MM + 1)
+    # diagonals p - 2 and p - 1 of each state, rows 0..MM
+    k2 = k1 = one
+    d2 = d1 = s2 = s1 = zero
+    rows = torch.arange(MM + 1, device=inc.device)
+    for p in range(2, MM + NN + 1):
+        lo, hi = max(1, p - NN), min(MM, p - 1)
+        i = rows[lo:hi + 1]
+        u, ud, us = (g[:, i - 1, p - 1 - i] for g in flat)
+        k00, k01, k10 = k2[:, lo - 1:hi], k1[:, lo - 1:hi], k1[:, lo:hi + 1]
+        d00, d01, d10 = d2[:, lo - 1:hi], d1[:, lo - 1:hi], d1[:, lo:hi + 1]
+        s00, s01, s10 = s2[:, lo - 1:hi], s1[:, lo - 1:hi], s1[:, lo:hi + 1]
+
+        k = _update_order2(k00, k01, k10, u)
+
+        f1 = k00 * ud + d00 * u
+        f2 = k01 * ud + d01 * u
+        f3 = k10 * ud + d10 * u
+        dsum = d01 + d10 - d00
+        f4 = k * ud + (dsum + f1) * u
+        d = dsum + 0.25 * (f1 + f2 + f3 + f4)
+
+        g1 = k00 * us + 2.0 * d00 * ud + s00 * u
+        g2 = k01 * us + 2.0 * d01 * ud + s01 * u
+        g3 = k10 * us + 2.0 * d10 * ud + s10 * u
+        ssum = s01 + s10 - s00
+        g4 = k * us + 2.0 * d * ud + (ssum + g1) * u
+        s = ssum + 0.25 * (g1 + g2 + g3 + g4)
+
+        # rows outside lo..hi: the boundary values (row 0 and row p are
+        # the grid's boundary; the others are never read)
+        k2, k1 = k1, torch.cat([one[:, :lo], k, one[:, hi + 1:]], dim=1)
+        d2, d1 = d1, torch.cat([zero[:, :lo], d, zero[:, hi + 1:]], dim=1)
+        s2, s1 = s1, torch.cat([zero[:, :lo], s, zero[:, hi + 1:]], dim=1)
+    return tuple(t[:, MM].reshape(batch) for t in (k1, d1, s1))
+
+
+# ---------------------------------------------------------------------------
 # The adjoint's plain pieces (the kernels' layout and order, in torch)
 # ---------------------------------------------------------------------------
 #

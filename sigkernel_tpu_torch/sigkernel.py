@@ -2,7 +2,8 @@
 
 Counterpart of :mod:`sigkernel_tpu.sigkernel` with the same signatures:
 ``sig_kernel``, ``sig_gram`` (with the ``sym`` triangle), ``sig_gram_lincomb``,
-``sig_mmd``, ``sig_distance``, the scoring rules and the ``SigKernel``
+``sig_mmd``, ``sig_distance``, the scoring rules, the derivative Gram
+(``sig_kernel_and_derivatives_gram``, ``k_kgrad``) and the ``SigKernel``
 module. Each tile's solver family and gradient dtype come from
 :func:`.ops.routes.resolve`:
 
@@ -11,6 +12,10 @@ module. Each tile's solver family and gradient dtype come from
   through :class:`_RBFGen`, whose backward recomputes each chunk's forward
   stack (K1-stack), runs the adjoint (K3<gen>) and the increment-chain VJP
   (K4) to the paths and ``sigma``.
+- ``lgen``: Linear increments generated in the K6 kernel from the paths'
+  increments and the pair index arrays. Gradients through
+  :class:`_LinearGen`, whose backward recomputes each chunk's increment
+  grid and runs the ``inc`` family's adjoint on it (K2-stack, K3<inc>).
 - ``inc``/``scan``: ``double_difference`` of the static-kernel Gram in torch,
   solved by the K2 kernel or the plain loop (:func:`.ops.solve.solve`, whose
   adjoint backward is K2-stack + K3<inc> or the plain grid route); autograd
@@ -32,9 +37,9 @@ import torch
 from torch import nn
 
 from . import kernels as _kernels
-from .ops import cuda_gen, incvjp, routes
-from .ops.solve import solve, stack_chunk
-from .utils import double_difference, pad_length
+from .ops import cuda_deriv, cuda_gen, cuda_lgen, incvjp, routes, scan_solver
+from .ops.solve import inc_route_bwd, solve, stack_chunk
+from .utils import double_difference, dyadic_refine, pad_length
 
 
 def _prepare(static_kernel, X, Y, length_bucket, grad_solver):
@@ -113,17 +118,66 @@ class _RBFGen(torch.autograd.Function):
         return dX.to(X.dtype), dY.to(Y.dtype), ds.to(sigma), None, None, None
 
 
+class _LinearGen(torch.autograd.Function):
+    """``k_sig(X[ii[p]], Y[jj[p]])`` on the ``lgen`` family: K6 values from
+    the paths, ``scale`` and the pair indices. The backward is JAX's
+    ``_pair_fused_bwd``: per chunk of pairs it recomputes the base increment
+    grid ``double_difference(batch_kernel(x, y))``, runs the increment-grid
+    adjoint on it in the grade's dtype (:func:`.ops.solve.inc_route_bwd`:
+    K2-stack, K3<inc>) and carries the cotangent to ``X``, ``Y`` and
+    ``scale`` by autograd through the grid."""
+
+    @staticmethod
+    def forward(ctx, X, Y, scale, ii, jj, cfg):
+        static_kernel, dyadic_order, naive, solver, grad_solver = cfg
+        if type(static_kernel) is not _kernels.LinearKernel:
+            raise TypeError("the Linear generation route is LinearKernel's; "
+                            f"got {type(static_kernel).__name__}")
+        ctx.save_for_backward(X, Y, scale, ii, jj)
+        ctx.cfg = cfg
+        return cuda_lgen.linear_gen_solve_final(X, Y, ii, jj, scale,
+                                                dyadic_order, naive)
+
+    @staticmethod
+    def backward(ctx, g):
+        X, Y, scale, ii, jj = ctx.saved_tensors
+        static_kernel, dyadic_order, naive, solver, grad_solver = ctx.cfg
+        route = routes.resolve(static_kernel, X.device.type, solver, X.dtype,
+                               grad_solver)
+        Xd, Yd, sd = (t.detach().requires_grad_() for t in (X, Y, scale))
+        dX, dY, ds = (torch.zeros_like(t) for t in (X, Y, scale))
+        P, M, N = ii.shape[0], X.shape[1], Y.shape[1]
+        if P == 0 or M < 2 or N < 2:
+            return dX, dY, ds, None, None, None
+        f = 2 ** dyadic_order
+        itemsize = torch.empty((), dtype=route.bwd_dtype).element_size()
+        chunk = stack_chunk(P, (M - 1) * f, (N - 1) * f, itemsize)
+        kernel = _kernels.LinearKernel(sd)
+        for s in range(0, P, chunk):
+            ic, jc = ii[s:s + chunk], jj[s:s + chunk]
+            with torch.enable_grad():
+                dd = double_difference(kernel.batch_kernel(Xd[ic], Yd[jc]))
+            ct = inc_route_bwd(dd.detach().to(route.bwd_dtype).contiguous(),
+                               g[s:s + chunk], naive, dyadic_order)
+            gx, gy, gs = torch.autograd.grad(dd, (Xd, Yd, sd),
+                                             ct.to(dd.dtype))
+            dX, dY, ds = dX + gx, dY + gy, ds + gs
+        return dX, dY, ds, None, None, None
+
+
 def _pairs(static_kernel, X, Y, ii, jj, dyadic_order, naive, solver,
            grad_solver="auto"):
     """``k_sig(X[ii[p]], Y[jj[p]])`` per pair; ``ii = jj = None`` pairs
     ``X[p]`` with ``Y[p]``."""
     fam = routes.resolve_family(static_kernel, X.device.type, solver)
-    if fam == "gen":
+    if fam in ("gen", "lgen"):
         if ii is None:
             ii = jj = torch.arange(X.shape[0], device=X.device)
-        return _RBFGen.apply(X, Y, static_kernel.sigma.to(X), ii, jj,
-                             (static_kernel, dyadic_order, naive, solver,
-                              grad_solver))
+        cfg = (static_kernel, dyadic_order, naive, solver, grad_solver)
+        if fam == "gen":
+            return _RBFGen.apply(X, Y, static_kernel.sigma.to(X), ii, jj,
+                                 cfg)
+        return _LinearGen.apply(X, Y, static_kernel.scale.to(X), ii, jj, cfg)
     x = X if ii is None else X[ii]
     y = Y if jj is None else Y[jj]
     dd = double_difference(static_kernel.batch_kernel(x, y))
@@ -134,7 +188,8 @@ def _gram_tile(static_kernel, x, y, dyadic_order, naive, solver,
                grad_solver):
     """One ``(a, b)`` Gram tile."""
     a, b = x.shape[0], y.shape[0]
-    if routes.resolve_family(static_kernel, x.device.type, solver) == "gen":
+    if routes.resolve_family(static_kernel, x.device.type,
+                             solver) in ("gen", "lgen"):
         ii = torch.arange(a, device=x.device).repeat_interleave(b)
         jj = torch.arange(b, device=x.device).repeat(a)
         return _pairs(static_kernel, x, y, ii, jj, dyadic_order, naive,
@@ -352,6 +407,76 @@ def sig_gram_lincomb(static_kernel, X, Y, W, dyadic_order=0, sym=False,
     return _lincomb_value(static_kernel, X, Y, ii, jj, w, cfg)
 
 
+def _derivatives_tile(static_kernel, X, Y, gamma, dyadic_order, eps,
+                      route):
+    """``(K, K_diff, K_diffdiff)`` of one ``(bx, by)`` tile: the Gram and
+    its first and second directional derivatives along ``gamma`` (a nested
+    ``torch.func.jvp``, or finite differences of step ``eps``), their
+    increment grids, and the triple sweep (K5 on the ``"cuda"`` route)."""
+    def gram(x):
+        return static_kernel.Gram_matrix(x, Y)
+
+    if eps is None:
+        def first(x):
+            return torch.func.jvp(gram, (x,), (gamma,))
+
+        (G, dG), (_, ddG) = torch.func.jvp(first, (X,), (gamma,))
+    else:
+        G = gram(X)
+        G1 = gram(X + eps * gamma)
+        G2 = gram(X + 2.0 * eps * gamma)
+        dG = (G1 - G) / eps
+        ddG = (G - 2.0 * G1 + G2) / (eps * eps)
+    grids = [double_difference(t) for t in (G, dG, ddG)]
+    del G, dG, ddG
+    if route == "cuda":
+        a, b = grids[0].shape[:2]
+        flat = [t.reshape((a * b,) + t.shape[2:]).contiguous()
+                for t in grids]
+        del grids
+        return tuple(t.reshape(a, b) for t in cuda_deriv.deriv_solve_final(
+            *flat, dyadic_order))
+    return scan_solver.solve_derivatives_final(
+        *(dyadic_refine(t, dyadic_order) for t in grids))
+
+
+def sig_kernel_and_derivatives_gram(static_kernel, X, Y, gamma,
+                                    dyadic_order=0,
+                                    eps: Optional[float] = None,
+                                    solver="auto",
+                                    max_batch: Optional[int] = None):
+    """Kernel + first/second directional derivatives along ``gamma``.
+
+    With ``eps=None`` (default) the static kernel's directional derivatives
+    are exact (nested ``torch.func.jvp``); a float ``eps`` gives the finite-
+    difference parity mode. Returns three ``(bx, by)`` tensors ``(K,
+    K_diff, K_diffdiff)`` in the input dtype. ``max_batch`` tiles the
+    ``(bx, by)`` pair grid, ``max_batch**2`` pairs (three grids each) at a
+    time. The route (:func:`.ops.routes.resolve_derivatives`): K5 for CUDA
+    tensors, forward only (an input that requires a gradient raises there);
+    the plain sweep on the CPU or with ``solver="scan"``, differentiable by
+    autograd.
+    """
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (X, Y, gamma) + _hyper(static_kernel))
+    route = routes.resolve_derivatives(X.device.type, solver, needs_grad)
+    bx, by = X.shape[0], Y.shape[0]
+    mb = max(bx, by, 1) if max_batch is None else max_batch
+    tiles = [[_derivatives_tile(static_kernel, X[a:a + mb], Y[b:b + mb],
+                                gamma[a:a + mb], dyadic_order, eps, route)
+              for b in range(0, by, mb)] for a in range(0, bx, mb)]
+    return tuple(torch.cat([torch.cat([t[k] for t in row], dim=1)
+                            for row in tiles], dim=0) for k in range(3))
+
+
+def k_kgrad(X, Y, gamma, dyadic_order, static_kernel, eps=1e-4):
+    """The reference's argument order and finite-difference default for
+    :func:`sig_kernel_and_derivatives_gram` (pass ``eps=None`` for the exact
+    jvp mode)."""
+    return sig_kernel_and_derivatives_gram(
+        static_kernel, X, Y, gamma, dyadic_order=dyadic_order, eps=eps)
+
+
 def _offdiag_mean(K):
     n = K.shape[0]
     return (torch.sum(K) - torch.sum(torch.diag(K))) / (n * (n - 1.0))
@@ -468,6 +593,12 @@ class SigKernel(nn.Module):
     def compute_Gram(self, X, Y, sym=False, max_batch=100):
         return sig_gram(self.static_kernel, X, Y, sym=sym,
                         **self._kw(max_batch))
+
+    def compute_kernel_and_derivatives_Gram(self, X, Y, gamma, max_batch=100,
+                                            eps=None):
+        return sig_kernel_and_derivatives_gram(
+            self.static_kernel, X, Y, gamma, dyadic_order=self.dyadic_order,
+            eps=eps, solver=self.solver, max_batch=max_batch)
 
     def compute_distance(self, X, Y, max_batch=100):
         return sig_distance(self.static_kernel, X, Y, **self._kw(max_batch))

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 forward kernels K1 and K2, their stack-emitting instances, the adjoint K3
-(gen and inc sources), the increment-chain VJP K4, and gradients through the
-estimators against the plain tier.
+(gen and inc sources), the increment-chain VJP K4, the derivative Gram's
+triple wavefront K5, the Linear generator K6, and values and gradients
+through the estimators against the plain tier.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode); without one
 they skip. On a GPU machine, run them without the JAX-side conftest:
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 import sigkernel_tpu_torch as skt
-from sigkernel_tpu_torch.ops import _build, cuda_gen, cuda_solver, incvjp
+from sigkernel_tpu_torch.ops import (_build, cuda_deriv, cuda_gen, cuda_lgen,
+                                     cuda_solver, incvjp)
 from sigkernel_tpu_torch.utils import double_difference
 
 pytestmark = pytest.mark.requires_cuda
@@ -242,3 +244,84 @@ def test_length_one_gradients_are_zero_without_launches(cuda):
                          ).backward()
     assert not X.grad.any() and not Y.grad.any()
     assert dict(cuda_gen.STACK_COUNTS) == before
+
+
+# ---- K5 (derivative Gram) and K6 (Linear generator) -----------------------
+
+# K_diff and K_diffdiff, max |err| / max |ref|: the port's derivative bars
+DERIV_BAR = {torch.float64: 1e-9, torch.float32: 1e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dyadic", [0, 1, 2])
+@pytest.mark.parametrize("Mb,Nb", [(9, 19), (19, 9), (16, 16), (1, 7)])
+def test_deriv_kernel_matches_plain(cuda, dtype, dyadic, Mb, Nb):
+    gen = torch.Generator().manual_seed(Mb * 100 + Nb + dyadic)
+    grids = [(0.3 * torch.randn(5, Mb, Nb, generator=gen, dtype=torch.float64)
+              ).to(dtype).to(cuda) for _ in range(3)]
+    got = cuda_deriv.deriv_solve_final(*grids, dyadic)
+    want = cuda_deriv.deriv_solve_final_plain(*grids, dyadic)
+    torch.cuda.synchronize()
+    assert all(g.dtype == dtype and g.shape == (5,) for g in got)
+    assert _rel(got[0], want[0]) <= RTOL[dtype]
+    for g, w in zip(got[1:], want[1:]):
+        assert _max_rel(g, w) <= DERIV_BAR[dtype]
+
+
+def test_deriv_kernel_bound_and_refusals(cuda):
+    bound = cuda_deriv.max_rows(8)  # a multiple of 4
+    assert bound >= 4092
+    at = torch.zeros(1, bound // 4, bound // 4 + 1, dtype=torch.float64,
+                     device=cuda)
+    past = torch.zeros(1, bound // 4 + 1, bound // 4 + 1,
+                       dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match=f"{bound} rows"):
+        cuda_deriv.deriv_solve_final(past, past, past, dyadic_order=2)
+    k, d, s = cuda_deriv.deriv_solve_final(at, at, at, dyadic_order=2)
+    assert (float(k), float(d), float(s)) == (1.0, 0.0, 0.0)  # zero grids
+    x = _paths(2, 6, 2, 17, cuda, torch.float64).requires_grad_()
+    with pytest.raises(ValueError, match="forward only"):
+        skt.sig_kernel_and_derivatives_gram(skt.RBFKernel(0.5), x, x, x)
+
+
+@pytest.mark.parametrize("kernel", [skt.RBFKernel(0.5), skt.LinearKernel(0.8),
+                                    skt.RBF_SQR_Kernel(0.7, 1.4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_derivatives_gram_on_card_matches_plain_tier(cuda, kernel, dtype):
+    X = _paths(5, 11, 3, 18, cuda, dtype)
+    Y = _paths(4, 8, 3, 19, cuda, dtype)
+    G = _paths(5, 11, 3, 20, cuda, dtype)
+    before = cuda_deriv.COUNTS[str(dtype).removeprefix("torch.")]
+    got = skt.SigKernel(kernel.to(cuda), dyadic_order=1
+                        ).compute_kernel_and_derivatives_Gram(X, Y, G,
+                                                              max_batch=3)
+    assert cuda_deriv.COUNTS[str(dtype).removeprefix("torch.")] == before + 4
+    want = skt.sig_kernel_and_derivatives_gram(kernel.to(cuda), X, Y, G,
+                                               dyadic_order=1, solver="scan")
+    assert _rel(got[0], want[0]) <= RTOL[dtype]
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == dtype and _max_rel(g, w) <= DERIV_BAR[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("naive", [False, True])
+@pytest.mark.parametrize("dyadic", [0, 1, 2])
+@pytest.mark.parametrize("M,N", [(10, 20), (20, 10), (17, 17), (1, 6)])
+def test_linear_gen_kernel_matches_plain(cuda, dtype, naive, dyadic, M, N):
+    X = _paths(3, M, 3, 21, cuda, dtype)
+    Y = _paths(4, N, 3, 22, cuda, dtype)
+    ii = torch.tensor([0, 2, 1, 2, 0], device=cuda)
+    jj = torch.tensor([3, 0, 1, 2, 2], device=cuda)
+    scale = torch.tensor(0.8, dtype=torch.float64, device=cuda)
+    before = dict(cuda_lgen.COUNTS)
+    got = cuda_lgen.linear_gen_solve_final(X, Y, ii, jj, scale, dyadic,
+                                           naive)
+    launched = cuda_lgen.COUNTS[str(dtype).removeprefix("torch.")] - before[
+        str(dtype).removeprefix("torch.")]
+    assert launched == (0 if M == 1 else 1)
+    assert cuda_lgen.COUNTS["plain"] == before["plain"]
+    want = cuda_lgen.linear_gen_solve_final_plain(X, Y, ii, jj, scale,
+                                                  dyadic, naive)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (5,)
+    assert _rel(got, want) <= RTOL[dtype]

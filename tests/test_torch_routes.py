@@ -19,6 +19,8 @@ _KERNELS = {
     "rbf": skt.RBFKernel(0.5),
     "linear": skt.LinearKernel(1.0),
     "rbf_subclass": _ScaledRBF(0.5),
+    "linear_subclass": skt.Linear_ID_Kernel(),  # must not take K6 either
+    "functional": skt.RBF_SQR_Kernel(0.5, 1.0),
     "grid": None,  # a ready increment grid (ops.solve)
 }
 
@@ -30,7 +32,8 @@ for _k in _KERNELS:
     _EXPECTED[(_k, "cpu", "auto")] = "scan"
     _EXPECTED[(_k, "cpu", "cuda")] = ValueError
     for _solver in ("auto", "cuda"):
-        _EXPECTED[(_k, "cuda", _solver)] = "gen" if _k == "rbf" else "inc"
+        _EXPECTED[(_k, "cuda", _solver)] = {"rbf": "gen",
+                                            "linear": "lgen"}.get(_k, "inc")
 
 
 @pytest.mark.parametrize("kernel,device,solver", sorted(_EXPECTED))
@@ -68,7 +71,8 @@ def test_backward_dtype_matrix(family, dtype, grade):
     in: float32; the plain (scan) family always at the input precision."""
     kernel, device, solver = {
         "gen": (_KERNELS["rbf"], "cuda", "auto"),
-        "inc": (_KERNELS["linear"], "cuda", "auto"),
+        "lgen": (_KERNELS["linear"], "cuda", "auto"),
+        "inc": (_KERNELS["functional"], "cuda", "auto"),
         "scan": (_KERNELS["rbf"], "cpu", "auto")}[family]
     route = routes.resolve(kernel, device, solver, dtype, grade)
     assert route == routes.Route(family, _BWD[(family, dtype, grade)])
@@ -79,11 +83,42 @@ def test_unknown_grad_solver_raises():
         routes.resolve(None, "cuda", "auto", torch.float64, "f64")
 
 
+# the derivative Gram: (device type, solver, an input needs a gradient) ->
+# route, or the error it raises
+_DERIV = {}
+for _dev in ("cpu", "cuda"):
+    for _grad in (False, True):
+        _DERIV[(_dev, "scan", _grad)] = "scan"
+        _DERIV[(_dev, "cuda", _grad)] = (
+            "CUDA tensors" if _dev == "cpu" else
+            "forward only" if _grad else "cuda")
+        _DERIV[(_dev, "auto", _grad)] = (
+            "scan" if _dev == "cpu" else "forward only" if _grad else "cuda")
+
+
+@pytest.mark.parametrize("device,solver,needs_grad", sorted(_DERIV))
+def test_resolve_derivatives_matrix(device, solver, needs_grad):
+    """K5 for CUDA tensors, forward only: an input that needs a gradient
+    raises there rather than come back detached."""
+    want = _DERIV[(device, solver, needs_grad)]
+    if want in routes.DERIV_ROUTES:
+        assert routes.resolve_derivatives(device, solver, needs_grad) == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            routes.resolve_derivatives(device, solver, needs_grad)
+
+
+def test_resolve_derivatives_unknown_solver_lists_the_options():
+    with pytest.raises(ValueError, match="'auto', 'scan', 'cuda'"):
+        routes.resolve_derivatives("cuda", "pallas", False)
+
+
 def test_import_pulls_in_no_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = ("import sys, sigkernel_tpu_torch, sigkernel_tpu_torch.ops.solve, "
             "sigkernel_tpu_torch.ops.cuda_gen, sigkernel_tpu_torch.stats, "
-            "sigkernel_tpu_torch.ops.incvjp, "
+            "sigkernel_tpu_torch.ops.incvjp, sigkernel_tpu_torch.ops.cuda_deriv, "
+            "sigkernel_tpu_torch.ops.cuda_lgen, "
             "sigkernel_tpu_torch.models.mmd_flow\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'sigkernel_tpu'))\n"
