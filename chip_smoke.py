@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU through its CUDA kernels, the
-forward path, the adjoint (training) path, the derivative Gram, CHSIC and
-the Linear generator, and check it.
+forward path, the adjoint (training) path, the derivative Gram, CHSIC, the
+Linear generator and paths too long for one block, and check it.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -20,7 +20,14 @@ Phases (any failure raises and the script exits non-zero):
    grids; at length 1024, dyadic 2 and length 2048, dyadic 1 its shorter
    refined side is 4,092 and 4,094 rows); the adjoint's kernels K1-stack,
    K2-stack, K3 (``adjoint_collapse`` gen and inc) and K4 (``rbf_dd_vjp``)
-   x {order-2, naive} x dyadic {0, 1, 2} (order-2 only at length 1024).
+   x {order-2, naive} x dyadic {0, 1, 2} (order-2 only at length 1024);
+   then, at a forced small stripe height (three stripes, the last one
+   short; 1,500 rows at length 1024, dyadic 2), the long-path kernels: K7
+   (``stripe_wavefront``, forward and flipped), K7-stack and K3<inc,
+   boundary> (``adjoint_collapse_stripe``) stripe by stripe, the stripe
+   chain against K2 and the striped adjoint against K3<inc>; K2-sparse
+   (``inc_wavefront[sparse]``) against its plain version and K8
+   (``adjoint_ckpt``) against K3<inc> (bit for bit) and its plain version.
 2. The forward main path at the north-star size: ``SigKernel(RBFKernel(1.0),
    dyadic_order=1)`` on X, Y of shape (100, 1024, 3), float64 and float32:
    ``compute_Gram(X, X, sym=True)``, ``compute_Gram(X, Y)``,
@@ -45,6 +52,29 @@ Phases (any failure raises and the script exits non-zero):
    dyadic_order=1).compute_Gram(X, Y)``, float64 and float32, one K6 launch
    each; then, uncounted, the route it replaces (K2 on the torch-built
    increment grid, ``max_batch=25``), timed beside it.
+10. Long paths, forward: RBF Grams of paths of length 5,001, dim 5,
+    dyadic 2 (a 20,000 x 20,000 refined grid, past the one-block row bound
+    in both dtypes): ``sig_gram(sym=True)`` of 16 paths and ``sig_mmd`` of
+    8 vs 8 paths, ``max_batch=8``, float64 (3 stripes) and float32 (2),
+    through K7; two pairs against the plain stripes.
+11. Long paths, training: ``sig_mmd(X, Y, max_batch=4, pair_chunk=16)
+    .backward()`` at phase 10's size, 8 vs 8 paths, gradients in X and
+    sigma, in the float64 grade and with ``grad_solver="f32"``: K7 forward,
+    then the striped adjoint (K7 boundaries, K7-stack, K3<inc, boundary>);
+    a sub-problem at a forced small stripe height against the plain tier.
+12. The sparse-checkpoint adjoint: ``sig_scoring_rule(X, y).backward()``
+    at BASELINE config 4's size (len 1,024, dyadic 2, dim 5; X 32 paths, y
+    one: 560 pairs), float64, through K2 and K2-sparse -> K8; float32 paths
+    of length 2,049 (X 8, y 1) on the same route; X 100 paths, whose
+    5,050-pair sym tile at the default ``max_batch`` is built and solved
+    chunk by chunk. Then, uncounted, the same float64 call on the
+    full-stack routes (the gate's pair count patched to 1: the generator,
+    K1-stack -> K3<gen> -> K4, and the increment grid, K2-stack -> K3<inc>)
+    and the sparse route again, with times and peaks; and the gate's
+    crossover (``gate_sweep``): the scoring rule and a 32 x 32 lincomb at
+    lengths where one chunk holds 47 to 128 full stacks, and phase 5's
+    float64-grade lincomb, each on the full generator route and the sparse
+    route in turns.
 
 The launch counters are zeroed before phases 2-4 and before each later
 phase, and read after each: every kernel of the phase must have launched
@@ -52,8 +82,11 @@ and no plain version may have run. The checks of those phases against plain
 versions come after the counters are read, then each kernel is timed beside
 its plain version at 128 pairs, length 1024, dyadic 1, dim 3. The last three
 lines of the output are the card's ``nvidia-smi`` line, one JSON object
-describing the kernels, and the result line ``{"ok": true, "device":
-{...}}``.
+describing the kernels (each with its launches on the main path, its
+largest error against its plain version, its time and its plain version's,
+and its bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over the card's non-tensor peak in its dtype), and the result
+line ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -113,6 +146,37 @@ DERIV_TILE = 16       # phase 7: max_batch of the derivative Gram
 CHSIC = (50, 1024, 5, 2)  # phase 8: m, length, dim, dyadic order
 GRID_TILE = 25        # phase 9: max_batch of the grid route K6 replaces
 TIMED_PAIRS = 128     # kernel times at the north star's length
+# phase 1, the long-path kernels at a forced stripe height: name, pairs, M,
+# N, dim, dyadic orders, stripe height in base rows (three stripes, the last
+# one short; order-2 only at length 1024)
+STRIPE_PROBLEMS = [
+    ("stripes 5 pairs 10x20 d2", 5, 10, 20, 2, (0, 1, 2), 4),
+    ("stripes 5 pairs 20x10 d2", 5, 20, 10, 2, (0, 1, 2), 4),
+    ("stripes 2 pairs 1024x1024 d5", 2, 1024, 1024, 5, (2,), 375),
+]
+CKPT_WINDOWS = (5, None)  # phase 1: K8's window (None: the module's own)
+# phases 10-11: length, dim, dyadic order of the long paths (a 20,000 x
+# 20,000 refined grid); Gram batch, MMD batch, max_batch of phase 10; pairs
+# checked against the plain stripes; phase 11's max_batch and pair_chunk
+LONG_PATHS = (5001, 5, 2)
+LONG_FWD = (16, 8, 8, 2)
+LONG_TRAIN = (4, 16)
+# phase 11's check: 2 x 2 paths of this length at this forced row bound
+LONG_SUB = (257, 300)
+# phase 12: X batch, length, dim, dyadic order (BASELINE config 4's size),
+# then float32 paths: X batch, length
+CKPT = (32, 1024, 5, 2)
+CKPT_F32 = (8, 2049)
+CKPT_WIDE = 100  # phase 12: X batch of one run at the default max_batch
+# phase 12, the ckpt gate's crossover: path length (dyadic 2) and dtype; in
+# double a chunk of 8 GiB holds 47, 64, 96 and 128 full stacks, in float 64
+GATE_SWEEP = ((837, "float64"), (724, "float64"), (592, "float64"),
+              (512, "float64"), (1024, "float32"))
+TIMED_STRIPE_PAIRS = 16  # K7, K7-stack, K3<inc, boundary> at phase 10/11
+# the card's peak rates (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
+# non-tensor-core FLOP/s by dtype
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
 def check(ok, msg):
@@ -174,6 +238,68 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def event_call(fn):
+    """``(result, milliseconds)`` of one call of ``fn``, by CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def work(kind, P, M, N, D, f, s, rows=0, W=2):
+    """``(bytes, operations)`` the least a kernel call must move and do: P
+    pairs of paths of lengths M, N and dim D at refinement f, values of s
+    bytes; each input read once, each output written once; operations from
+    the kernel's arithmetic (10 a refined cell for the order-2 scheme, 2 more
+    for the adjoint's product and collapse; an RBF value from two points
+    costs 6 D + 6 with exp counted as one; the increments are generated once
+    a base cell, however often the kernel regenerates them). ``rows``: the
+    stripe height (K7, K7-stack, K3<inc, boundary>); ``W``: K8's window."""
+    Mb, Nb = M - 1, N - 1
+    R, C = min(Mb, Nb) * f, max(Mb, Nb) * f
+    base, cells, rbf = Mb * Nb, R * C, (6 * D + 6) * M * N
+    paths = (M + N) * D * s + 2 * 8          # two paths and two indices
+    stack = (R + C + 1) * (R + 1) * s
+    band = rows // f * (C // f)              # a stripe's base cells
+    stripe_stack = (rows + C + 1) * (rows + 1) * s
+    sparse = 2 * ((R + C - 2) // W + 1) * (R + 1) * s
+    b, o = {
+        "gen": (paths + s, 10 * cells + 5 * base + rbf),
+        "gen_stack": (paths + s + stack, 10 * cells + 5 * base + rbf),
+        "inc": (base * s + s, 10 * cells + base),
+        "inc_stack": (base * s + s + stack, 10 * cells + base),
+        "inc_sparse": (base * s + s + sparse, 10 * cells + base),
+        "adj_gen": (paths + stack + base * s, 12 * cells + 5 * base + rbf),
+        "adj_inc": (2 * base * s + stack, 12 * cells + base),
+        "adj_ckpt": (2 * base * s + sparse,
+                     12 * cells + 10 * cells * (W - 2) // W + base),
+        "vjp": (paths + base * s + (M + N) * D * s, (10 * D + 13) * M * N),
+        "deriv": (3 * base * s + 3 * s, 45 * cells + 3 * base),
+        "lgen": (paths + s, 10 * cells + 2 * D * base + (M + N) * D),
+        "stripe": (band * s + 2 * (C + 1) * s, 10 * rows * C + band),
+        "stripe_stack": (band * s + 2 * (C + 1) * s + stripe_stack,
+                         10 * rows * C + band),
+        "adj_stripe": (3 * band * s + (C + 1) * s + stripe_stack,
+                       12 * rows * C),
+    }[kind]
+    return P * b, P * o
+
+
+def bound(nbytes, ops, dtype_name):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the card's
+    memory rate and the operations over its non-tensor peak in the dtype."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = ops / PEAK_FLOPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def deriv_grids(kernel, X, Y, gamma, ii, jj):
     """K5's three base increment grids for the pairs ``(X[ii[p]],
     Y[jj[p]])`` along ``gamma[ii[p]]``: the static kernel and its first and
@@ -192,6 +318,76 @@ def deriv_grids(kernel, X, Y, gamma, ii, jj):
     return [double_difference(t).contiguous() for t in (G, dG, ddG)]
 
 
+def gate_sweep(gen, card, X5, Y5):
+    """The ckpt gate's crossover, uncounted: at each ``GATE_SWEEP`` length
+    (dyadic 2, dim 5; one chunk of ``routes.STACK_BYTES`` holds 47 to 128
+    full stacks) the scoring rule (X 32, y 1) and a lincomb fwd+bwd (X, Y
+    32, ``pair_chunk=128``), then phase 5's float64-grade north-star lincomb
+    (``X5``, ``Y5``: 128 full stacks a chunk), each on the full generator
+    route and the sparse route, twice in turns."""
+    import torch
+    import sigkernel_tpu_torch as skt
+    from sigkernel_tpu_torch.ops import routes
+
+    dev = torch.device(DEVICE)
+    saved = routes.CKPT_MIN_PAIRS
+
+    def score(X, Y, s):
+        return skt.sig_scoring_rule(skt.RBFKernel(s), X, Y[:1],
+                                    dyadic_order=2)
+
+    def lincomb(X, Y, s, dyadic_order=2):
+        W = torch.full((X.shape[0], Y.shape[0]), 1.0 / Y.shape[0] ** 2,
+                       dtype=X.dtype, device=dev)
+        return skt.sig_gram_lincomb(skt.RBFKernel(s), X, Y, W,
+                                    dyadic_order=dyadic_order, pair_chunk=128)
+
+    def race(label, fn, X0, Y0, pairs):
+        times, outs = {"full": [], "sparse": []}, {}
+        for rnd in range(2):
+            for route, gate in (("full", 1), ("sparse", 1 << 40)):
+                routes.CKPT_MIN_PAIRS = gate
+                X, Y = leaf(X0, X0.dtype), Y0.detach()
+                s = torch.tensor(1.0, dtype=X.dtype, device=dev,
+                                 requires_grad=True)
+                torch.cuda.reset_peak_memory_stats()
+                _, sec = synced(lambda: fn(X, Y, s).backward())
+                outs[route] = (X.grad, s.grad)
+                times[route].append(sec)
+                print(f"[12] gate: {label}, {route} route, round {rnd}: "
+                      f"{sec:.3f} s, {pairs / sec:.1f} path-pairs/s, peak "
+                      f"{torch.cuda.max_memory_allocated()} bytes ({card})")
+        routes.CKPT_MIN_PAIRS = saved
+        errs = [max_rel(g, w) for g, w in zip(outs["sparse"], outs["full"])]
+        full, sparse = min(times["full"]), min(times["sparse"])
+        print(f"[12] gate: {label}: best full {full:.3f} s, best sparse "
+              f"{sparse:.3f} s, sparse / full {sparse / full:.3f}; dX "
+              f"{errs[0]:.2e}, dsigma {errs[1]:.2e} apart")
+        for t in outs["full"] + outs["sparse"]:
+            check(bool(torch.isfinite(t).all()), f"[12] gate {label}")
+        if X0.dtype == torch.float64:
+            check(max(errs) <= CHAIN_F64, f"[12] gate {label}: gradients")
+
+    for L, dname in GATE_SWEEP:
+        dtype = getattr(torch, dname)
+        X = make_paths(gen, 32, L, 5, dtype)
+        Y = make_paths(gen, 32, L, 5, dtype)
+        R = (L - 1) * 4
+        full = routes.chunk_pairs(1 << 40, routes.tier_bytes(
+            "full", (R, R), torch.empty((), dtype=dtype).element_size()))
+        at = (f"{dname} len {L} (R {R}, {full} full stacks a chunk, the "
+              f"gate takes {'full' if full >= saved else 'sparse'})")
+        race(f"sig_scoring_rule X 32, y 1, {at}", score, X, Y, 560)
+        race(f"sig_gram_lincomb 32 x 32, {at}", lincomb, X, Y, 1024)
+        del X, Y
+        torch.cuda.empty_cache()
+    A = X5.shape[0]
+    race("phase 5's float64-grade lincomb (len 1024, dyadic 1, 128 full "
+         "stacks a chunk)", lambda X, Y, s: lincomb(X, Y, s, 1), X5, Y5,
+         A * A)
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -200,8 +396,10 @@ def main():
         return 1
 
     import sigkernel_tpu_torch as skt
-    from sigkernel_tpu_torch.ops import (_build, cuda_deriv, cuda_gen,
-                                         cuda_lgen, cuda_solver, incvjp)
+    from sigkernel_tpu_torch import stats
+    from sigkernel_tpu_torch.ops import (_build, cuda_blocked, cuda_deriv,
+                                         cuda_gen, cuda_lgen, cuda_solver,
+                                         incvjp, routes)
     from sigkernel_tpu_torch.utils import double_difference
 
     # full-precision float32 matmuls (the plain versions' Grams)
@@ -240,7 +438,14 @@ def main():
         "vjp": ("rbf_dd_vjp", incvjp.COUNTS),
         "deriv": ("deriv_wavefront", cuda_deriv.COUNTS),
         "lgen": ("linear_gen_wavefront", cuda_lgen.COUNTS),
+        "stripe": ("stripe_wavefront", cuda_blocked.COUNTS),
+        "stripe_stack": ("stripe_wavefront[stack]", cuda_blocked.STACK_COUNTS),
+        "adj_stripe": ("adjoint_collapse_stripe", cuda_blocked.ADJOINT_COUNTS),
+        "inc_sparse": ("inc_wavefront[sparse]", cuda_solver.SPARSE_COUNTS),
+        "adj_ckpt": ("adjoint_ckpt", cuda_solver.CKPT_COUNTS),
     }
+    long_kinds = ("stripe", "stripe_stack", "adj_stripe", "inc_sparse",
+                  "adj_ckpt")
     ctype = {F32: "float", F64: "double"}
     instances = {(k, dt): f"{kinds[k][0]}<{ctype[dt]}>"
                  for k in kinds for dt in (F32, F64)}
@@ -271,9 +476,9 @@ def main():
             for k in counts:
                 counts[k] = 0
 
-    def read_counters(phase, expected):
+    def read_counters(phase, expected, absent=()):
         """Add this phase's launches; every ``expected`` instance must have
-        launched and no plain version may have run."""
+        launched, no ``absent`` one, and no plain version may have run."""
         got = {key: kinds[key[0]][1][name[key[1]]] for key in instances}
         plain = sum(c["plain"] for _, c in kinds.values())
         print(f"[{phase}] launches: "
@@ -282,6 +487,9 @@ def main():
         for key in expected:
             check(got[key] > 0, f"{instances[key]} was never launched in "
                                 f"phase {phase}")
+        for key in absent:
+            check(got[key] == 0, f"{instances[key]} launched in phase "
+                                 f"{phase}: the route is not the one meant")
         check(plain == 0, f"a plain version ran in phase {phase}")
         for key, v in got.items():
             launches[key] += v
@@ -407,6 +615,125 @@ def main():
                           f"K3<inc> {ra2:.2e}, max err / max ref, limit "
                           f"{glimit:.0e}")
     print(f"[1] all kernel-vs-plain cases passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    def stripe_kernels(inc, dy, naive, rows, dtype, limit, glimit, label):
+        """K7 (forward and flipped), K7-stack and K3<inc, boundary> against
+        their plain versions stripe by stripe at stripe height ``rows``;
+        the stripe chain against K2 and the striped adjoint against
+        K2-stack -> K3<inc>. Returns the bit-equality flags."""
+        P = inc.shape[0]
+        R, C = cuda_blocked.frame(inc.shape[1], inc.shape[2], dy)
+        S = -(-R // rows)
+        check(S >= 3 and R % rows, f"{label}: {S} stripes, none short")
+        bits = []
+        bd = inc.new_ones(P, C + 1)
+        for row0 in range(0, R, rows):  # the forward chain, last one short
+            h = min(rows, R - row0)
+            got = cuda_blocked.stripe_solve(inc, bd, row0, h, dy, naive)
+            want = cuda_blocked.stripe_solve_plain(inc, bd, row0, h, dy, naive)
+            compare("stripe", dtype, got, want, limit, f"K7 {label} {row0}")
+            bits.append(torch.equal(got, want))
+            bd = got
+        k2 = cuda_solver.inc_solve_final(inc, dy, naive)
+        compare("stripe", dtype, bd[:, C], k2, limit, f"K7 chain {label}")
+        bits.append(torch.equal(bd[:, C], k2))
+        # the striped adjoint's stripes: every one `rows` tall (zero-padded)
+        ones = inc.new_ones(P, C + 1)
+        bd_f, bd_r = [ones], [ones]
+        for k in range(S - 1):
+            for bds, row0, flip in ((bd_f, k * rows, False),
+                                    (bd_r, (S - 1 - k) * rows, True)):
+                got = cuda_blocked.stripe_solve(inc, bds[-1], row0, rows, dy,
+                                                naive, flip)
+                want = cuda_blocked.stripe_solve_plain(inc, bds[-1], row0,
+                                                       rows, dy, naive, flip)
+                compare("stripe", dtype, got, want, limit,
+                        f"K7 {label} {row0} flip {flip}")
+                bits.append(torch.equal(got, want))
+                bds.append(got)
+        ct, pct = torch.zeros_like(inc), torch.zeros_like(inc)
+        for s in range(S):
+            b, stk = cuda_blocked.stripe_solve_stack(inc, bd_f[s], s * rows,
+                                                     rows, dy, naive)
+            pb, pstk = cuda_blocked.stripe_solve_stack_plain(
+                inc, bd_f[s], s * rows, rows, dy, naive)
+            compare("stripe_stack", dtype, b, pb, limit,
+                    f"K7-stack {label} {s} bottom row")
+            compare_max("stripe_stack", dtype, stk, pstk, glimit,
+                        f"K7-stack {label} {s}")
+            bits.append(torch.equal(stk, pstk))
+            cuda_blocked.stripe_adjoint(inc, stk, bd_r[S - 1 - s], ct,
+                                        s * rows, rows, dy, naive)
+            cuda_blocked.stripe_adjoint_plain(inc, stk, bd_r[S - 1 - s], pct,
+                                              s * rows, rows, dy, naive)
+            del stk, pstk
+        compare_max("adj_stripe", dtype, ct, pct, glimit,
+                    f"K3<inc, boundary> {label}")
+        bits.append(torch.equal(ct, pct))
+        _, stk = cuda_solver.inc_solve_stack(inc, dy, naive)
+        k3 = cuda_solver.inc_adjoint(inc, stk, dy, naive)
+        del stk
+        got = cuda_blocked.adjoint(inc, dy, naive, rows)
+        compare_max("adj_stripe", dtype, got, k3, glimit,
+                    f"striped adjoint {label} vs K3<inc>")
+        bits.append(torch.equal(got, k3))
+        return bits, k3
+
+    def ckpt_kernels(inc, dy, naive, dtype, limit, glimit, label, k3):
+        """K2-sparse against its plain version; K8 against K3<inc>'s
+        cotangent ``k3`` (bit for bit: its recompute rounds as the forward
+        did) and against its plain version, at the window
+        ``cuda_solver.CKPT_WINDOW``."""
+        v, sparse = cuda_solver.inc_solve_sparse(inc, dy, naive)
+        pv, psparse = cuda_solver.inc_solve_sparse_plain(inc, dy, naive)
+        compare("inc_sparse", dtype, v, pv, limit, f"K2-sparse {label}")
+        compare_max("inc_sparse", dtype, sparse, psparse, glimit,
+                    f"K2-sparse stack {label}")
+        bits = [torch.equal(sparse, psparse)]
+        ct = cuda_solver.inc_adjoint_ckpt(inc, sparse, dy, naive)
+        pct = cuda_solver.inc_adjoint_ckpt_plain(inc, sparse, dy, naive)
+        compare_max("adj_ckpt", dtype, ct, pct, glimit, f"K8 {label}")
+        bits.append(torch.equal(ct, pct))
+        check(torch.equal(ct, k3), f"K8 {label}: differs from K3<inc>")
+        return bits
+
+    t_phase = time.perf_counter()
+    window = cuda_solver.CKPT_WINDOW
+    for pname, P, M, N, D, orders, hb in STRIPE_PROBLEMS:
+        X64 = make_paths(gen, P, M, D, F64)
+        Y64 = make_paths(gen, P, N, D, F64)
+        ii = torch.arange(P, device=dev)
+        jj = ii.flip(0)
+        long = max(M, N) >= LONG
+        for dtype in (F64, F32):
+            X, Y = X64.to(dtype), Y64.to(dtype)
+            inc = double_difference(
+                skt.RBFKernel(1.0).batch_kernel(X[ii], Y[jj])).contiguous()
+            limit = (F64_RTOL if dtype == F64 else
+                     F32_RTOL_LONG if long else F32_RTOL_SMALL)
+            glimit = GRAD_F64 if dtype == F64 else GRAD_F32
+            for dy in orders:
+                for naive in (False,) if long else (False, True):
+                    label = (f"{pname} {name[dtype]} dyadic {dy} "
+                             f"{'naive' if naive else 'order-2'}")
+                    rows = hb * 2 ** dy
+                    t0 = time.perf_counter()
+                    bits, k3 = stripe_kernels(inc, dy, naive, rows, dtype,
+                                              limit, glimit, label)
+                    for W in CKPT_WINDOWS:
+                        cuda_solver.CKPT_WINDOW = W or window
+                        bits += ckpt_kernels(
+                            inc, dy, naive, dtype, limit, glimit,
+                            f"{label} W {cuda_solver.CKPT_WINDOW}", k3)
+                    cuda_solver.CKPT_WINDOW = window
+                    torch.cuda.synchronize()
+                    print(f"[1] {label}, stripes of {rows} rows: K7, "
+                          f"K7-stack, K3<inc, boundary>, K2-sparse, K8 within "
+                          f"{limit:.0e} / {glimit:.0e}; bit-equal "
+                          f"{sum(bits)} of {len(bits)}; K8 equals K3<inc> "
+                          f"({time.perf_counter() - t0:.1f} s)")
+    print(f"[1] long-path kernel cases passed in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
     # ---- phases 2-4: the forward main path, counted ---------------------
@@ -577,6 +904,9 @@ def main():
     launched = cuda_lgen.COUNTS["float32"] + cuda_lgen.COUNTS["float64"]
     read_counters("9", [("lgen", F32), ("lgen", F64)])
     check(launched == 2, f"[9] {launched} K6 launches, expected one per dtype")
+    # phases 2-9 keep their routes: none reached the long-path tier
+    check(not any(launches[(k, dt)] for k in long_kinds for dt in (F32, F64)),
+          "phases 2-9 launched a long-path kernel")
 
     # ---- checks of phases 2-6 against plain versions --------------------
     pick = torch.Generator(device="cpu").manual_seed(2)
@@ -732,17 +1062,28 @@ def main():
           f"K {errs[0]:.2e}, K_diff {errs[1]:.2e}, K_diffdiff {errs[2]:.2e}")
     check(errs[0] <= F32_VS_F64, "[7] float32 K vs float64 K")
 
-    # phase 8: a finite scalar; the same statistic on a small input against
-    # the plain tier (CPU tensors)
+    # phase 8: a finite scalar; on a small input the statistic and its
+    # Grams against the plain tier on the card (the Grams by
+    # solver="scan"), so both sides share the statistic's linear algebra:
+    # against CPU tensors its Cholesky solve and three-term cancellation
+    # turned the two devices' last-bit differences into 1.8e-13 in one run
+    # and 4.9e-10 in another on the same inputs
     check(chsic.shape == () and bool(torch.isfinite(chsic)), "[8] CHSIC")
     small = [t[:8, :64] for t in XYZ]
-    got = float(skt.sig_chsic(*small, skt.RBFKernel(1.0), dyadic_order=dy8))
-    want = float(skt.sig_chsic(*(t.cpu() for t in small), skt.RBFKernel(1.0),
-                               dyadic_order=dy8))
+    rbf8 = skt.RBFKernel(1.0)
+    gram = stats.sig_gram
+    rg = max(rel_err(gram(rbf8, t, t, dyadic_order=dy8, sym=True),
+                     gram(rbf8, t, t, dyadic_order=dy8, sym=True,
+                          solver="scan")) for t in small)
+    got = float(skt.sig_chsic(*small, rbf8, dyadic_order=dy8))
+    stats.sig_gram = lambda *args, **kw: gram(*args, solver="scan", **kw)
+    want = float(skt.sig_chsic(*small, rbf8, dyadic_order=dy8))
+    stats.sig_gram = gram
     r = abs(got - want) / abs(want)
-    print(f"[8] sig_chsic 8 x len 64 on the card vs the plain tier: rel "
-          f"{r:.2e} (limit {F64_RTOL:.0e})")
-    check(r <= F64_RTOL, "[8] CHSIC vs plain tier")
+    print(f"[8] sig_chsic 8 x len 64 on the card vs the plain tier there: "
+          f"Grams rel {rg:.2e}, statistic rel {r:.2e} (limit "
+          f"{F64_RTOL:.0e})")
+    check(rg <= F64_RTOL and r <= F64_RTOL, "[8] CHSIC vs plain tier")
 
     # phase 9: 4 random pairs against K6's plain version; float32 against
     # float64; then the route K6 replaces, timed in turns with K6
@@ -789,27 +1130,272 @@ def main():
         del grid_K
         torch.cuda.empty_cache()
 
+    # ---- phase 10: long paths, forward, counted -------------------------
+    L10, D10, dy10 = LONG_PATHS
+    side = (L10 - 1) * 2 ** dy10  # the refined grid's side
+    n_gram, n_mmd, mb10, n_check = LONG_FWD
+    XL = make_paths(gen, n_gram, L10, D10, F64)
+    YL = make_paths(gen, n_mmd, L10, D10, F64)
+    not_gen = [(k, dt) for k in ("gen", "gen_stack", "lgen")
+               for dt in (F32, F64)]
+    zero_counters()
+    long_fwd = {}
+    for dtype in (F64, F32):
+        X, Y = XL.to(dtype), YL.to(dtype)
+        calls = [
+            (f"sig_gram(X, X, sym=True), {n_gram} paths",
+             n_gram * (n_gram + 1) // 2,
+             lambda: skt.sig_gram(rbf, X, X, dyadic_order=dy10, sym=True,
+                                  max_batch=mb10)),
+            (f"sig_mmd(X, Y), {n_mmd} vs {n_mmd} paths",
+             n_mmd * (n_mmd + 1) + n_mmd * n_mmd,
+             lambda: skt.sig_mmd(rbf, X[:n_mmd], Y, dyadic_order=dy10,
+                                 max_batch=mb10))]
+        for label, pairs, fn in calls:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out, sec = synced(fn)
+            long_fwd[(dtype, label)] = out
+            print(f"[10] {name[dtype]} {label}, len {L10}, dim {D10}, dyadic "
+                  f"{dy10}, max_batch {mb10}: {sec:.3f} s, "
+                  f"{pairs / sec:.3f} path-pairs/s ({pairs} pairs, stripes "
+                  f"of {cuda_blocked.stripe_rows(dy10, X.element_size())} "
+                  f"rows), peak memory allocated "
+                  f"{torch.cuda.max_memory_allocated()} bytes ({base} before "
+                  "the call)")
+    read_counters("10", [("stripe", F32), ("stripe", F64)], not_gen)
+    gram_label = calls[0][0]
+    pick = torch.tensor([[0, 1], [n_gram - 1, 2]], device=dev)[:, :n_check]
+    for dtype in (F64, F32):
+        G = long_fwd[(dtype, gram_label)]
+        check(G.shape == (n_gram, n_gram) and bool(torch.isfinite(G).all())
+              and torch.equal(G, G.T), f"[10] {name[dtype]} Gram")
+        mmd = long_fwd[(dtype, calls[1][0])]
+        check(mmd.shape == () and bool(torch.isfinite(mmd)), "[10] MMD")
+        X = XL.to(dtype)
+        inc = double_difference(rbf.batch_kernel(X[pick[0]], X[pick[1]]))
+        want = cuda_blocked.solve_final_plain(inc.contiguous(), dy10)
+        del inc
+        limit = F64_RTOL if dtype == F64 else F32_RTOL_LONG
+        r = compare("stripe", dtype, G[pick[0], pick[1]], want, limit,
+                    f"[10] {name[dtype]} {n_check} pairs vs plain stripes")
+        print(f"[10] {name[dtype]} {n_check} Gram pairs vs the plain stripes:"
+              f" rel {r:.2e} (limit {limit:.0e}, bit-equal "
+              f"{torch.equal(G[pick[0], pick[1]], want)}); MMD {float(mmd)}")
+    r = max_rel(long_fwd[(F32, gram_label)].double(),
+                long_fwd[(F64, gram_label)])
+    print(f"[10] float32 vs float64 Gram at a {side:,}^2 grid: max abs err "
+          f"/ max |K| {r:.2e}")
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: long paths, training, counted ------------------------
+    mb11, pc11 = LONG_TRAIN
+    long_grades = [("f64 in, grad_solver='auto'", "auto"),
+                   ("f64 in, grad_solver='f32'", "f32")]
+    zero_counters()
+    long_train = {}
+    for label, grade in long_grades:
+        X, Y = leaf(XL[:n_mmd], F64), leaf(YL, F64)
+        s = torch.tensor(1.0, dtype=F64, device=dev, requires_grad=True)
+
+        def step():
+            v = skt.sig_mmd(skt.RBFKernel(s), X, Y, dyadic_order=dy10,
+                            max_batch=mb11, pair_chunk=pc11,
+                            grad_solver=grade)
+            v.backward()
+            return v.detach()
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        v, sec = synced(step)
+        pairs = n_mmd * (n_mmd + 1) + n_mmd * n_mmd
+        long_train[label] = (v, X.grad, Y.grad, s.grad)
+        rows = cuda_blocked.adjoint_rows(dy10, 8 if grade == "auto" else 4)
+        print(f"[11] {label}: sig_mmd {n_mmd} vs {n_mmd} x len {L10}, "
+              f"max_batch {mb11}, pair_chunk {pc11}, fwd+bwd {sec:.3f} s, "
+              f"{pairs / sec:.3f} path-pairs/s ({pairs} pairs; adjoint "
+              f"stripes of {rows} rows), peak memory allocated "
+              f"{torch.cuda.max_memory_allocated()} bytes ({base} before "
+              f"the call), MMD {float(v)}, dsigma {float(s.grad)}")
+    read_counters("11", [(k, dt) for k in ("stripe", "stripe_stack",
+                                           "adj_stripe")
+                         for dt in (F32, F64)], not_gen)
+    v64 = long_fwd[(F64, calls[1][0])]
+    K_max = float(long_fwd[(F64, gram_label)].abs().max())
+    for label, grade in long_grades:
+        v, gX, gY, gs = long_train[label]
+        for t in (gX, gY, gs):
+            check(t is not None and bool(torch.isfinite(t).all())
+                  and t.dtype == F64, f"[11] {label}: gradient")
+        check(bool(gX.abs().max() > 0) and bool(gs.abs() > 0),
+              f"[11] {label}: zero gradient")
+        err = abs(float(v) - float(v64))
+        check(err <= F64_RTOL * K_max, f"[11] {label}: lincomb MMD {float(v)}"
+                                       f" vs phase 10's {float(v64)}")
+        print(f"[11] {label}: MMD vs phase 10's Gram route abs err {err:.2e}"
+              f" (limit {F64_RTOL:.0e} x max |K|)")
+    a, b = (long_train[label] for label, _ in long_grades)
+    print(f"[11] grad_solver='f32' against the float64 grade at a {side:,}^2 "
+          f"grid (max |diff| / max |f64 grade|): dX {max_rel(b[1], a[1]):.3e},"
+          f" dY {max_rel(b[2], a[2]):.3e}, dsigma {max_rel(b[3], a[3]):.3e} "
+          "(not gated)")
+    del long_fwd, long_train, a, b
+    torch.cuda.empty_cache()
+    # a sub-problem through the same routes at a forced row bound, against
+    # the plain tier on the card
+    L_sub, bound_rows = LONG_SUB
+    saved_rows = _build.max_rows
+    _build.max_rows = lambda itemsize: bound_rows
+    before = cuda_blocked.ADJOINT_COUNTS["float64"]
+    sub = {}
+    for solver, grade in (("scan", "auto"), ("auto", "auto"),
+                          ("auto", "f32")):
+        x, y = leaf(XL[:2, :L_sub], F64), leaf(YL[:2, :L_sub], F64)
+        s = torch.tensor(1.0, dtype=F64, device=dev, requires_grad=True)
+        skt.sig_mmd(skt.RBFKernel(s), x, y, dyadic_order=dy10, max_batch=1,
+                    pair_chunk=2, solver=solver,
+                    grad_solver=grade).backward()
+        sub[(solver, grade)] = (x.grad, y.grad, s.grad)
+    _build.max_rows = saved_rows
+    check(cuda_blocked.ADJOINT_COUNTS["float64"] > before,
+          "[11] the sub-problem did not take the striped adjoint")
+    for grade, bar in (("auto", CHAIN_F64), ("f32", CHAIN_F32)):
+        errs = [max_rel(g, w) for g, w in zip(sub[("auto", grade)],
+                                              sub[("scan", "auto")])]
+        print(f"[11] 2 x 2 pairs, len {L_sub}, dyadic {dy10}, stripes of "
+              f"{bound_rows} rows, grade {grade} vs solver='scan': dX "
+              f"{errs[0]:.3e}, dY {errs[1]:.3e}, dsigma {errs[2]:.3e} "
+              f"(limit {bar:.1e})")
+        check(max(errs) <= bar, f"[11] grade {grade}: sub-problem gradients")
+
+    # ---- phase 12: the sparse-checkpoint adjoint, counted ---------------
+    n12, L12, D12, dy12 = CKPT
+    n12f, L12f = CKPT_F32
+    X12 = make_paths(gen, n12, L12, D12, F64)
+    y12 = make_paths(gen, 1, L12, D12, F64)
+    X12f = make_paths(gen, n12f, L12f, D12, F32)
+    y12f = make_paths(gen, 1, L12f, D12, F32)
+
+    class GridRBF(skt.RBFKernel):
+        """Not exactly RBFKernel: takes the inc family (K2, K2-stack ->
+        K3<inc>) where RBFKernel would take the generator."""
+
+    def score(kern_cls, X, y):
+        x = leaf(X, X.dtype)
+        s = torch.tensor(1.0, dtype=X.dtype, device=dev, requires_grad=True)
+
+        def run():
+            v = skt.sig_scoring_rule(kern_cls(s), x, y, dyadic_order=dy12)
+            v.backward()
+            return v.detach()
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        v, sec = synced(run)
+        peak = torch.cuda.max_memory_allocated()
+        return (v, x.grad, s.grad), sec, peak, base
+
+    def npairs(n):
+        return n * (n + 1) // 2 + n
+
+    pairs12 = npairs(n12)
+    zero_counters()
+    (out12, sec, peak, base) = score(skt.RBFKernel, X12, y12)
+    print(f"[12] float64 sig_scoring_rule X {n12} x len {L12} x dim {D12}, "
+          f"y 1, dyadic {dy12}, fwd+bwd on the sparse route: {sec:.3f} s, "
+          f"{pairs12 / sec:.3f} path-pairs/s ({pairs12} pairs), peak memory "
+          f"allocated {peak} bytes ({base} before the call)")
+    (out12f, secf, peakf, basef) = score(skt.RBFKernel, X12f, y12f)
+    pairs12f = npairs(n12f)
+    print(f"[12] float32 sig_scoring_rule X {n12f} x len {L12f}, y 1, dyadic "
+          f"{dy12}, fwd+bwd on the sparse route: {secf:.3f} s, "
+          f"{pairs12f / secf:.3f} path-pairs/s ({pairs12f} pairs), peak "
+          f"memory allocated {peakf} bytes ({basef} before the call)")
+    # the default max_batch's whole tile: 5,050 pairs in one sym Gram tile
+    X12w = make_paths(gen, CKPT_WIDE, L12, D12, F64)
+    (out12w, secw, peakw, basew) = score(skt.RBFKernel, X12w, y12)
+    print(f"[12] float64 sig_scoring_rule X {CKPT_WIDE} (max_batch 100: one "
+          f"{CKPT_WIDE * (CKPT_WIDE + 1) // 2}-pair tile), fwd+bwd on the "
+          f"sparse route: {secw:.3f} s, {npairs(CKPT_WIDE) / secw:.3f} "
+          f"path-pairs/s ({npairs(CKPT_WIDE)} pairs), peak memory allocated "
+          f"{peakw} bytes ({basew} before the call) ({card})")
+    del X12w
+    read_counters("12", [(k, dt) for k in ("inc", "inc_sparse", "adj_ckpt")
+                         for dt in (F32, F64)],
+                  [(k, dt) for k in ("gen_stack", "inc_stack", "adj_gen",
+                                     "adj_inc") for dt in (F32, F64)])
+    for out, dtype in ((out12, F64), (out12f, F32), (out12w, F64)):
+        for t in out:
+            check(bool(torch.isfinite(t).all()) and t.dtype == dtype,
+                  f"[12] {name[dtype]}: non-finite")
+        check(bool(out[1].abs().max() > 0) and bool(out[2].abs() > 0),
+              f"[12] {name[dtype]}: zero gradient")
+    del out12w
+    # the same float64 call on the full-stack routes (the gate's pair count
+    # set to 1), in turns with the sparse route; uncounted
+    saved_pairs = routes.CKPT_MIN_PAIRS
+    routes12 = {"sparse (K2-sparse -> K8)": (skt.RBFKernel, saved_pairs,
+                                             cuda_solver.CKPT_COUNTS),
+                "full, generator (K1-stack -> K3<gen> -> K4)":
+                    (skt.RBFKernel, 1, cuda_gen.ADJOINT_COUNTS),
+                "full, increment grid (K2-stack -> K3<inc>)":
+                    (GridRBF, 1, cuda_solver.ADJOINT_COUNTS)}
+    order = list(routes12) + [next(iter(routes12))]
+    res12 = {}
+    for route in order:
+        kern_cls, pairs, counts = routes12[route]
+        routes.CKPT_MIN_PAIRS = pairs
+        before = counts["float64"]
+        out, sec, peak, base = score(kern_cls, X12, y12)
+        check(counts["float64"] > before, f"[12] {route}: not taken")
+        res12[route] = out
+        print(f"[12] float64 {route}: {sec:.3f} s, {pairs12 / sec:.3f} "
+              f"path-pairs/s, peak memory allocated {peak} bytes ({base} "
+              f"before the call) ({card})")
+    routes.CKPT_MIN_PAIRS = saved_pairs
+    for route, out in res12.items():
+        errs = [max_rel(g, w) for g, w in zip(out[1:], out12[1:])]
+        print(f"[12] {route} vs the counted sparse run: value rel "
+              f"{abs(float(out[0] - out12[0])) / abs(float(out12[0])):.2e}, "
+              f"dX {errs[0]:.3e}, dsigma {errs[1]:.3e} (limit "
+              f"{CHAIN_F64:.0e})")
+        check(max(errs) <= CHAIN_F64, f"[12] {route}: gradients")
+    del res12, out12, out12f
+    torch.cuda.empty_cache()
+
+    # the ckpt gate's crossover; uncounted
+    gate_sweep(gen, card, X64, Y64)
+
     # ---- kernel times beside their plain versions -----------------------
+    timing = {}
+
+    def timed(kind, dtype, kern, plain, cmp, lim, shape, where):
+        """Time ``plain`` (its one call, whose result the comparison uses)
+        and ``kern`` (5 launches after a warm-up) by CUDA events; ``shape`` =
+        (P, M, N, D, f[, rows[, W]]) for the bound."""
+        got = kern()  # warm-up
+        want, plain_ms = event_call(plain)
+        r = cmp(kind, dtype, got, want, lim,
+                f"{instances[(kind, dtype)]} at {where}")
+        del got, want
+        ms = event_ms(kern, 5)
+        b, o = work(kind, *shape[:5], torch.empty((), dtype=dtype)
+                    .element_size(), *shape[5:])
+        bound_ms, by = bound(b, o, name[dtype])
+        timing[(kind, dtype)] = (ms, plain_ms, bound_ms, by, where)
+        print(f"[t] {instances[(kind, dtype)]}: {where}: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({by}; {b} bytes, {o} operations), err {r:.2e} ({card})")
+        torch.cuda.empty_cache()
+
     P = TIMED_PAIRS
     Xt64 = make_paths(gen, P, L, 3, F64)
     Yt64 = make_paths(gen, P, L, 3, F64)
     Gt64 = make_paths(gen, P, L, 3, F64)
     ar = torch.arange(P, device=dev)
-    timing = {}
-
-    def timed(kind, dtype, kern, plain, cmp, lim):
-        got, want = kern(), plain()  # warm-up, and the comparison
-        r = cmp(kind, dtype, got, want, lim,
-                f"{instances[(kind, dtype)]} at {P} pairs")
-        del got, want
-        ms = event_ms(kern, 5)
-        plain_ms = event_ms(plain, 1)
-        timing[(kind, dtype)] = (ms, plain_ms)
-        print(f"[t] {instances[(kind, dtype)]}: {P} pairs, len {L}, "
-              f"dyadic 1, dim 3: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, err {r:.2e} ({card})")
-        torch.cuda.empty_cache()
-
+    at = f"{P} pairs, len {L}, dyadic 1, dim 3"
+    ns = (P, L, L, 3, 2)
     for dtype in (F32, F64):
         Xt, Yt = Xt64.to(dtype), Yt64.to(dtype)
         inc = double_difference(rbf.batch_kernel(Xt, Yt)).contiguous()
@@ -818,52 +1404,109 @@ def main():
         timed("gen", dtype,
               lambda: cuda_gen.rbf_gen_solve_final(Xt, Yt, ar, ar, 1.0, 1),
               lambda: cuda_gen.rbf_gen_solve_final_plain(Xt, Yt, ar, ar, 1.0,
-                                                         1), compare, limit)
+                                                         1), compare, limit,
+              ns, at)
         timed("inc", dtype, lambda: cuda_solver.inc_solve_final(inc, 1),
               lambda: cuda_solver.inc_solve_final_plain(inc, 1), compare,
-              limit)
+              limit, ns, at)
         timed("gen_stack", dtype,
               lambda: cuda_gen.rbf_gen_solve_stack(Xt, Yt, ar, ar, 1.0, 1)[1],
               lambda: cuda_gen.rbf_gen_solve_stack_plain(Xt, Yt, ar, ar, 1.0,
                                                          1)[1],
-              compare_max, glimit)
+              compare_max, glimit, ns, at)
         timed("inc_stack", dtype,
               lambda: cuda_solver.inc_solve_stack(inc, 1)[1],
               lambda: cuda_solver.inc_solve_stack_plain(inc, 1)[1],
-              compare_max, glimit)
+              compare_max, glimit, ns, at)
         _, stk = cuda_gen.rbf_gen_solve_stack(Xt, Yt, ar, ar, 1.0, 1)
         timed("adj_gen", dtype,
               lambda: cuda_gen.rbf_gen_adjoint(Xt, Yt, ar, ar, 1.0, stk, 1),
               lambda: cuda_gen.rbf_gen_adjoint_plain(Xt, Yt, ar, ar, 1.0,
                                                      stk, 1),
-              compare_max, glimit)
+              compare_max, glimit, ns, at)
         ct = cuda_gen.rbf_gen_adjoint(Xt, Yt, ar, ar, 1.0, stk, 1)
         del stk
         _, stk = cuda_solver.inc_solve_stack(inc, 1)
         timed("adj_inc", dtype, lambda: cuda_solver.inc_adjoint(inc, stk, 1),
               lambda: cuda_solver.inc_adjoint_plain(inc, stk, 1),
-              compare_max, glimit)
+              compare_max, glimit, ns, at)
         del stk
         timed("vjp", dtype,
               lambda: incvjp.rbf_dd_vjp(Xt, Yt, ar, ar, 1.0, ct)[1],
               lambda: incvjp.rbf_dd_vjp_plain(Xt, Yt, ar, ar, 1.0, ct)[1],
-              compare_max, glimit)
-        del ct, inc
+              compare_max, glimit, ns, at)
+        del ct
+        W = cuda_solver.CKPT_WINDOW
+        timed("inc_sparse", dtype,
+              lambda: cuda_solver.inc_solve_sparse(inc, 1)[1],
+              lambda: cuda_solver.inc_solve_sparse_plain(inc, 1)[1],
+              compare_max, glimit, ns + (0, W), at)
+        _, sparse = cuda_solver.inc_solve_sparse(inc, 1)
+        timed("adj_ckpt", dtype,
+              lambda: cuda_solver.inc_adjoint_ckpt(inc, sparse, 1),
+              lambda: cuda_solver.inc_adjoint_ckpt_plain(inc, sparse, 1),
+              compare_max, glimit, ns + (0, W), at)
+        del sparse, inc
         nlimit = F64_RTOL if dtype == F64 else NEW_F32
         timed("lgen", dtype,
               lambda: cuda_lgen.linear_gen_solve_final(Xt, Yt, ar, ar, 1.0, 1),
               lambda: cuda_lgen.linear_gen_solve_final_plain(Xt, Yt, ar, ar,
                                                              1.0, 1),
-              compare, nlimit)
+              compare, nlimit, ns, at)
         grids = deriv_grids(rbf, Xt, Yt, Gt64.to(dtype), ar, ar)
         timed("deriv", dtype,
               lambda: torch.stack(cuda_deriv.deriv_solve_final(*grids, 1)),
               lambda: torch.stack(cuda_deriv.deriv_solve_final_plain(*grids,
                                                                      1)),
-              compare_max, nlimit)
+              compare_max, nlimit, ns, at)
         del grids
+    del Xt64, Yt64, Gt64
+    torch.cuda.empty_cache()
+
+    # the stripe kernels at phase 10's grid: K7 at the forward's stripe
+    # height, K7-stack and K3<inc, boundary> at the adjoint's
+    Ps = TIMED_STRIPE_PAIRS
+    ring = torch.arange(Ps, device=dev) % n_gram
+    for dtype in (F32, F64):
+        X = XL.to(dtype)
+        inc = double_difference(rbf.batch_kernel(
+            X[ring], X[(ring + 1) % n_gram])).contiguous()
+        del X
+        f, size = 2 ** dy10, inc.element_size()
+        C = inc.shape[-1] * f
+        ones = inc.new_ones(Ps, C + 1)
+        limit = F64_RTOL if dtype == F64 else F32_RTOL_LONG
+        glimit = GRAD_F64 if dtype == F64 else GRAD_F32
+        rows = cuda_blocked.stripe_rows(dy10, size)
+        shape = (Ps, L10, L10, D10, f)
+        timed("stripe", dtype,
+              lambda: cuda_blocked.stripe_solve(inc, ones, 0, rows, dy10),
+              lambda: cuda_blocked.stripe_solve_plain(inc, ones, 0, rows,
+                                                      dy10),
+              compare, limit, shape + (rows,),
+              f"{Ps} pairs, len {L10}, dyadic {dy10}, one stripe of {rows} "
+              "rows")
+        rows = cuda_blocked.adjoint_rows(dy10, size)
+        where = (f"{Ps} pairs, len {L10}, dyadic {dy10}, one stripe of "
+                 f"{rows} rows")
+        timed("stripe_stack", dtype,
+              lambda: cuda_blocked.stripe_solve_stack(inc, ones, 0, rows,
+                                                      dy10)[1],
+              lambda: cuda_blocked.stripe_solve_stack_plain(inc, ones, 0,
+                                                            rows, dy10)[1],
+              compare_max, glimit, shape + (rows,), where)
+        _, stk = cuda_blocked.stripe_solve_stack(inc, ones, 0, rows, dy10)
+        timed("adj_stripe", dtype,
+              lambda: cuda_blocked.stripe_adjoint(
+                  inc, stk, ones, torch.zeros_like(inc), 0, rows, dy10),
+              lambda: cuda_blocked.stripe_adjoint_plain(
+                  inc, stk, ones, torch.zeros_like(inc), 0, rows, dy10),
+              compare_max, glimit, shape + (rows,), where)
+        del stk, inc, ones
+        torch.cuda.empty_cache()
 
     adjoint = "sigkernel_tpu/ops/pallas_adjoint.py"
+    blocked = "sigkernel_tpu/ops/pallas_blocked.py"
     replaces = {
         ("gen", F32): ("sigkernel_tpu/ops/pallas_gen32.py:143",
                        ["sigkernel_tpu/ops/pallas_fused.py:193",
@@ -881,36 +1524,57 @@ def main():
                              ["sigkernel_tpu/ops/pallas_solver.py:764"]),
         ("inc_stack", F64): ("sigkernel_tpu/ops/pallas_df64.py:298",
                              ["sigkernel_tpu/ops/pallas_df64.py:607"]),
+        ("inc_sparse", F32): ("sigkernel_tpu/ops/pallas_df64.py:298",
+                              ["sigkernel_tpu/ops/pallas_df64.py:1844"]),
+        ("inc_sparse", F64): ("sigkernel_tpu/ops/pallas_df64.py:298",
+                              ["sigkernel_tpu/ops/pallas_df64.py:1844"]),
         ("adj_gen", F32): (f"{adjoint}:1552", [f"{adjoint}:781"]),
         ("adj_gen", F64): (f"{adjoint}:1127", [f"{adjoint}:781"]),
         ("adj_inc", F32): (f"{adjoint}:215", [f"{adjoint}:64",
                                               f"{adjoint}:442"]),
         ("adj_inc", F64): (f"{adjoint}:215", [f"{adjoint}:64",
                                               f"{adjoint}:442"]),
+        ("adj_ckpt", F32): (f"{adjoint}:1882", []),
+        ("adj_ckpt", F64): (f"{adjoint}:1882", []),
         ("vjp", F32): ("sigkernel_tpu/ops/pallas_incvjp.py:61", []),
         ("vjp", F64): ("sigkernel_tpu/ops/pallas_incvjp.py:61", []),
         ("deriv", F32): ("sigkernel_tpu/ops/pallas_derivatives.py:45", []),
         ("deriv", F64): ("sigkernel_tpu/ops/pallas_derivatives.py:270", []),
         ("lgen", F32): ("sigkernel_tpu/ops/pallas_fused.py:36", []),
         ("lgen", F64): ("sigkernel_tpu/ops/pallas_fused.py:36", []),
+        ("stripe", F32): (f"{blocked}:76", []),
+        ("stripe", F64): (f"{blocked}:415", []),
+        ("stripe_stack", F32): (f"{blocked}:200", []),
+        ("stripe_stack", F64): (f"{blocked}:555", []),
+        # the reverse stripe's grid kernel, and the product and collapse
+        # that adjoint_blocked / adjoint_blocked_df run in XLA
+        ("adj_stripe", F32): (f"{blocked}:200", [f"{blocked}:346"]),
+        ("adj_stripe", F64): (f"{blocked}:555", [f"{blocked}:700"]),
     }
     source = {"gen": "rbf_gen_wavefront.cu",
               "gen_stack": "rbf_gen_wavefront.cu",
               "inc": "inc_wavefront.cu", "inc_stack": "inc_wavefront.cu",
+              "inc_sparse": "inc_wavefront.cu",
               "adj_gen": "adjoint_collapse.cu",
-              "adj_inc": "adjoint_collapse.cu", "vjp": "rbf_dd_vjp.cu",
+              "adj_inc": "adjoint_collapse.cu",
+              "adj_stripe": "adjoint_collapse.cu",
+              "adj_ckpt": "adjoint_ckpt.cu", "vjp": "rbf_dd_vjp.cu",
               "deriv": "deriv_wavefront.cu",
-              "lgen": "linear_gen_wavefront.cu"}
+              "lgen": "linear_gen_wavefront.cu",
+              "stripe": "stripe_wavefront.cu",
+              "stripe_stack": "stripe_wavefront.cu"}
     kernels = []
     for key, iname in instances.items():
         rep, also = replaces[key]
-        ms, plain_ms = timing[key]
+        ms, plain_ms, bound_ms, by, where = timing[key]
+        # no single PyTorch call computes a wavefront sweep or its adjoint
         kernels.append({"name": iname, "route": "cuda",
                         "source": f"sigkernel_tpu_torch/csrc/{source[key[0]]}",
                         "replaces": rep, "also_replaces": also,
                         "launches": launches[key],
                         "max_abs_err": max_abs[key], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": by, "library_ms": None, "at": where})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

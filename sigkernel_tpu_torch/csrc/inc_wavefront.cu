@@ -25,14 +25,21 @@
 //   sigkernel_tpu/ops/pallas_df64.py::_wavefront_df_planes_kernel
 // The stack's stores are coalesced along each diagonal; they, not the
 // increment reads, are the larger share of its device-memory bytes.
+//
+// K2-sparse (kStack = kSparseStack) writes only the sparse stack, two of
+// every W diagonals (layout in wavefront.cuh): the forward of the
+// sparse-checkpoint adjoint (adjoint_ckpt.cu), replacing the ckpt output of
+//   sigkernel_tpu/ops/pallas_df64.py::_wavefront_df_kernel (ckpt=True)
+// Its stack bytes, the larger share of K2-stack's traffic, shrink W / 2
+// fold; the sweep is K2's.
 #include "wavefront.cuh"
 
 namespace sigkernel {
 
-template <typename T, bool kStack>
+template <typename T, int kStack>
 __global__ void inc_wavefront(const T* __restrict__ inc, T* __restrict__ out,
                               T* __restrict__ stack, int Mb, int Nb, int f,
-                              int transpose, int naive) {
+                              int W, int transpose, int naive) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
   const int64_t pair = blockIdx.x;
@@ -40,14 +47,19 @@ __global__ void inc_wavefront(const T* __restrict__ inc, T* __restrict__ out,
                         transpose, T(1) / T(f * f)};
   const int R = (transpose ? Nb : Mb) * f;
   const int C = (transpose ? Mb : Nb) * f;
-  T* pair_stack = kStack ? stack + pair * stack_elems(R, C) : nullptr;
-  const T v = sweep<T, kStack>(ring, R, C, naive != 0, grid, pair_stack);
+  T* pair_stack = nullptr;
+  if constexpr (kStack == kFullStack) {
+    pair_stack = stack + pair * stack_elems(R, C);
+  } else if constexpr (kStack == kSparseStack) {
+    pair_stack = stack + pair * sparse_elems(R, C, W);
+  }
+  const T v = sweep<T, kStack>(ring, R, C, naive != 0, grid, pair_stack, W);
   if (threadIdx.x == 0) out[pair] = v;
 }
 
-template <typename T, bool kStack>
+template <typename T, int kStack>
 int launch_inc(const void* inc, void* out, void* stack, int64_t P, int Mb,
-               int Nb, int f, int naive, int device, void* stream) {
+               int Nb, int f, int W, int naive, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const int transpose = Mb > Nb;
@@ -58,7 +70,7 @@ int launch_inc(const void* inc, void* out, void* stack, int64_t P, int Mb,
   inc_wavefront<T, kStack><<<static_cast<unsigned>(P), threads_for(R), smem,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(inc), static_cast<T*>(out),
-      static_cast<T*>(stack), Mb, Nb, f, transpose, naive);
+      static_cast<T*>(stack), Mb, Nb, f, W, transpose, naive);
   return cudaGetLastError();
 }
 
@@ -68,29 +80,44 @@ extern "C" {
 
 int sk_inc_wavefront_f32(const void* inc, void* out, int64_t P, int Mb,
                          int Nb, int f, int naive, int device, void* stream) {
-  return sigkernel::launch_inc<float, false>(inc, out, nullptr, P, Mb, Nb, f,
-                                             naive, device, stream);
+  return sigkernel::launch_inc<float, sigkernel::kNoStack>(
+      inc, out, nullptr, P, Mb, Nb, f, 0, naive, device, stream);
 }
 
 int sk_inc_wavefront_f64(const void* inc, void* out, int64_t P, int Mb,
                          int Nb, int f, int naive, int device, void* stream) {
-  return sigkernel::launch_inc<double, false>(inc, out, nullptr, P, Mb, Nb, f,
-                                              naive, device, stream);
+  return sigkernel::launch_inc<double, sigkernel::kNoStack>(
+      inc, out, nullptr, P, Mb, Nb, f, 0, naive, device, stream);
 }
 
 // stack: (P, R + C + 1, R + 1) with R = min(Mb, Nb) f, C = max(Mb, Nb) f
 int sk_inc_stack_f32(const void* inc, void* out, void* stack, int64_t P,
                      int Mb, int Nb, int f, int naive, int device,
                      void* stream) {
-  return sigkernel::launch_inc<float, true>(inc, out, stack, P, Mb, Nb, f,
-                                            naive, device, stream);
+  return sigkernel::launch_inc<float, sigkernel::kFullStack>(
+      inc, out, stack, P, Mb, Nb, f, 0, naive, device, stream);
 }
 
 int sk_inc_stack_f64(const void* inc, void* out, void* stack, int64_t P,
                      int Mb, int Nb, int f, int naive, int device,
                      void* stream) {
-  return sigkernel::launch_inc<double, true>(inc, out, stack, P, Mb, Nb, f,
-                                             naive, device, stream);
+  return sigkernel::launch_inc<double, sigkernel::kFullStack>(
+      inc, out, stack, P, Mb, Nb, f, 0, naive, device, stream);
+}
+
+// sparse: (P, 2 ckpt_pairs(R, C, W), R + 1), W >= 2
+int sk_inc_sparse_f32(const void* inc, void* out, void* sparse, int64_t P,
+                      int Mb, int Nb, int f, int W, int naive, int device,
+                      void* stream) {
+  return sigkernel::launch_inc<float, sigkernel::kSparseStack>(
+      inc, out, sparse, P, Mb, Nb, f, W, naive, device, stream);
+}
+
+int sk_inc_sparse_f64(const void* inc, void* out, void* sparse, int64_t P,
+                      int Mb, int Nb, int f, int W, int naive, int device,
+                      void* stream) {
+  return sigkernel::launch_inc<double, sigkernel::kSparseStack>(
+      inc, out, sparse, P, Mb, Nb, f, W, naive, device, stream);
 }
 
 const char* sk_error_string(int code) {

@@ -13,8 +13,8 @@
 // Only rows max(1, p - C) <= i <= min(R, p - 1) are written, so row 0 and
 // the not-yet-reached row p keep the boundary value 1 they were set to.
 //
-// The stack. With kStack the sweep also writes the whole solution, in the
-// solve's frame and diagonal-major: stack[p * (R + 1) + i] = K[i, p - i]
+// The stack. With kFullStack the sweep also writes the whole solution, in
+// the solve's frame and diagonal-major: stack[p * (R + 1) + i] = K[i, p - i]
 // for 0 <= p <= R + C, 0 <= i <= R, with the boundary cells (value 1)
 // included and 0 where p - i lies outside [0, C]. That is (R + C + 1) x
 // (R + 1) values, about twice the (R + 1) x (C + 1) cells of a row-major
@@ -23,6 +23,21 @@
 // diagonals in reverse, reads them the same way. A row-major grid would be
 // exact in size but strided by C + 1 between neighbouring threads on both
 // sides.
+//
+// The sparse stack (kSparseStack, window W >= 2) keeps only the rows of the
+// full stack whose diagonal p has p % W < 2: pair w holds diagonals (w W,
+// w W + 1) at rows 2 w and 2 w + 1, for the ckpt_pairs(R, C, W) windows the
+// adjoint reads. Each pair anchors the recompute of its window's W - 2
+// other diagonals (adjoint_ckpt.cu), so the stack is about W / 2 times
+// smaller.
+//
+// A stripe (kStripe). The rows of a grid too tall for one block are cut
+// into stripes, each swept by this loop with the stripe's height as R: row
+// 0 is then not the constant 1 but the north boundary bd[0 .. C], the
+// bottom row of the stripe above (bd[0] = 1, the west corner), written into
+// row 0 of each diagonal's ring slot before that diagonal's barrier; and
+// the thread that computes row R writes it out as bottom[0 .. C], the next
+// stripe's boundary. Stack rows then hold bd in row 0.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -68,21 +83,49 @@ __device__ __forceinline__ T edge(int i, int p, int C) {
   return (i >= p - C && i <= p) ? T(1) : T(0);
 }
 
+enum StackMode : int { kNoStack = 0, kFullStack = 1, kSparseStack = 2 };
+
+// Row pairs of the sparse stack of an R x C grid at window W: one per
+// window that the adjoint's diagonals 0 .. R + C - 2 touch.
+__host__ __device__ inline int ckpt_pairs(int R, int C, int W) {
+  return (R + C - 2) / W + 1;
+}
+
 // Sweep an R x C refined grid (R >= 1); inc(r, c) is the refined increment
 // of cell (r + 1, c + 1) in the solve's frame. Returns K[R, C] to every
-// thread. kStack: also write the diagonal-major stack (see above) to
-// `stack`; the value-only instance compiles to the loop it always was.
-template <typename T, bool kStack = false, typename Inc>
+// thread. kStack: also write the full or the sparse stack (see above,
+// window W for the sparse one) to `stack`; kStripe: take row 0 from `bd`
+// and write row R to `bottom`. The value-only instance compiles to the
+// loop it always was.
+template <typename T, int kStack = kNoStack, bool kStripe = false,
+          typename Inc>
 __device__ T sweep(T* ring, int R, int C, bool naive, const Inc& inc,
-                   T* __restrict__ stack = nullptr) {
+                   T* __restrict__ stack = nullptr, int W = 0,
+                   const T* __restrict__ bd = nullptr,
+                   T* __restrict__ bottom = nullptr) {
   const int stride = R + 1;
-  for (int k = threadIdx.x; k < 3 * stride; k += blockDim.x) ring[k] = T(1);
-  if constexpr (kStack) {
+  // the value of a cell the sweep does not compute on diagonal p
+  auto fixed = [&](int i, int p) -> T {
+    if constexpr (kStripe) {
+      if (i == 0) return p <= C ? bd[p] : T(0);
+    }
+    return edge<T>(i, p, C);
+  };
+  for (int k = threadIdx.x; k < 3 * stride; k += blockDim.x) {
+    ring[k] = kStripe && k == 0 ? fixed(0, 0)
+              : kStripe && k == stride ? fixed(0, 1) : T(1);
+  }
+  if constexpr (kStack != kNoStack) {
+    // diagonals 0 and 1 sit in rows 0 and 1 of both stacks
     for (int i = threadIdx.x; i <= R; i += blockDim.x) {
-      stack[i] = edge<T>(i, 0, C);
-      stack[stride + i] = edge<T>(i, 1, C);
+      stack[i] = fixed(i, 0);
+      stack[stride + i] = fixed(i, 1);
     }
   }
+  if constexpr (kStripe) {
+    if (threadIdx.x == 0) bottom[0] = T(1);  // K[R, 0], the west boundary
+  }
+  const int last_pair = kStack == kSparseStack ? ckpt_pairs(R, C, W) - 1 : 0;
   __syncthreads();
   for (int p = 2; p <= R + C; ++p) {
     T* cur = ring + (p % 3) * stride;
@@ -90,23 +133,40 @@ __device__ T sweep(T* ring, int R, int C, bool naive, const Inc& inc,
     const T* m2 = ring + ((p - 2) % 3) * stride;
     const int lo = p - C > 1 ? p - C : 1;
     const int hi = p - 1 < R ? p - 1 : R;
-    if constexpr (kStack) {
-      T* row = stack + static_cast<int64_t>(p) * stride;
+    if constexpr (kStripe) {
+      if (threadIdx.x == 0 && p <= C) cur[0] = bd[p];
+    }
+    T* row = nullptr;  // this diagonal's stack row, if it keeps one
+    if constexpr (kStack == kFullStack) {
+      row = stack + static_cast<int64_t>(p) * stride;
+    } else if constexpr (kStack == kSparseStack) {
+      if (p % W < 2 && p / W <= last_pair) {
+        row = stack + static_cast<int64_t>(2 * (p / W) + p % W) * stride;
+      }
+    }
+    if (kStack != kNoStack && row != nullptr) {  // uniform over the block
       for (int i = threadIdx.x; i <= R; i += blockDim.x) {
         T v;
         if (i >= lo && i <= hi) {
           v = scheme(m2[i - 1], m1[i - 1], m1[i], inc(i - 1, p - i - 1),
                      naive);
           cur[i] = v;
+          if constexpr (kStripe) {
+            if (i == R) bottom[p - R] = v;
+          }
         } else {
-          v = edge<T>(i, p, C);
+          v = fixed(i, p);
         }
         row[i] = v;
       }
     } else {
       for (int i = lo + threadIdx.x; i <= hi; i += blockDim.x) {
-        cur[i] = scheme(m2[i - 1], m1[i - 1], m1[i], inc(i - 1, p - i - 1),
-                        naive);
+        const T v = scheme(m2[i - 1], m1[i - 1], m1[i],
+                           inc(i - 1, p - i - 1), naive);
+        cur[i] = v;
+        if constexpr (kStripe) {
+          if (i == R) bottom[p - R] = v;
+        }
       }
     }
     __syncthreads();
@@ -128,9 +188,33 @@ struct IncGrid {
   }
 };
 
+// One stripe of an IncGrid's solve: refined rows row0 .. row0 + rows - 1
+// of the frame, read as zero at and past the frame's R rows (the zero-row
+// padding of the striped adjoint, which copies rows exactly), and with
+// flip the stripe's increments reversed along both axes (the reverse
+// problem's stripe; K7, K3<inc, boundary>).
+template <typename T>
+struct StripeGrid {
+  IncGrid<T> grid;
+  int row0, rows, R, C, flip;
+  __device__ __forceinline__ T operator()(int r, int c) const {
+    if (flip) {
+      r = rows - 1 - r;
+      c = C - 1 - c;
+    }
+    r += row0;
+    return r < R ? grid(r, c) : T(0);
+  }
+};
+
 // Elements of one pair's stack: (R + C + 1) x (R + 1).
 __host__ __device__ inline int64_t stack_elems(int R, int C) {
   return static_cast<int64_t>(R + C + 1) * (R + 1);
+}
+
+// Elements of one pair's sparse stack at window W: 2 ckpt_pairs x (R + 1).
+__host__ __device__ inline int64_t sparse_elems(int R, int C, int W) {
+  return static_cast<int64_t>(2 * ckpt_pairs(R, C, W)) * (R + 1);
 }
 
 // Opt in to dynamic shared memory above the default 48 KB.

@@ -45,6 +45,18 @@ _SIGNATURES = {
     # inc, out, stack, P, Mb, Nb, f, naive, device, stream
     "sk_inc_stack_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
     "sk_inc_stack_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
+    # inc, out, sparse, P, Mb, Nb, f, W, naive, device, stream
+    "sk_inc_sparse_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
+    "sk_inc_sparse_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
+    # inc, bd, bottom, P, Mb, Nb, f, row0, rows, flip, naive, device, stream
+    "sk_stripe_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sk_stripe_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # inc, bd, bottom, stack, P, Mb, Nb, f, row0, rows, flip, naive, device,
+    # stream
+    "sk_stripe_stack_f32": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P],
+    "sk_stripe_stack_f64": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P],
     # rows, cols, ri, ci, out, stack, P, Lr, Lc, D, f, sigma, naive, device,
     # stream
     "sk_rbf_gen_stack_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
@@ -54,6 +66,16 @@ _SIGNATURES = {
     # inc, stack, ct, P, Mb, Nb, f, naive, device, stream
     "sk_adjoint_inc_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
     "sk_adjoint_inc_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
+    # inc, stack, bd, ct, P, Mb, Nb, f, row0, rows, naive, device, stream
+    "sk_adjoint_stripe_f32": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
+    "sk_adjoint_stripe_f64": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
+    # inc, sparse, scratch, ct, P, Mb, Nb, f, W, naive, device, stream
+    "sk_adjoint_ckpt_f32": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                            _P],
+    "sk_adjoint_ckpt_f64": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                            _P],
     # rows, cols, ri, ci, stack, ct, P, Lr, Lc, D, f, sigma, transpose,
     # naive, device, stream
     "sk_adjoint_gen_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _D,
@@ -161,15 +183,22 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def max_rows(itemsize: int) -> int:
+    """The one size bound of the wavefront kernels: the most rows whose ring
+    of three diagonals fits one block's shared memory (9,684 in double,
+    19,369 in float). Past it the grid takes stripes (``cuda_blocked``)."""
+    return SMEM_BYTES // (3 * itemsize) - 1
+
+
 def check_rows(rows: int, itemsize: int, what: str) -> None:
-    """The one size bound of the wavefront kernels: a ring of three
-    diagonals of the shorter refined side in one block's shared memory."""
-    if 3 * (rows + 1) * itemsize > SMEM_BYTES:
+    """Raise unless ``rows`` (the shorter refined side, or a stripe's
+    height) is within :func:`max_rows`."""
+    if rows > max_rows(itemsize):
         raise ValueError(
             f"{what}: the shorter refined side has {rows} rows; the kernel "
             f"keeps 3 x (rows + 1) values of {itemsize} bytes in shared "
             f"memory, at most {SMEM_BYTES} bytes "
-            f"({SMEM_BYTES // (3 * itemsize) - 1} rows)")
+            f"({max_rows(itemsize)} rows)")
 
 
 def dtype_key(t) -> str:

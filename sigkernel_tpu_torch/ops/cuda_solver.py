@@ -19,10 +19,19 @@ replaces ``pallas_adjoint.py``'s ``_product_kernel``,
 reverse sweep, its product with the stack, and the dyadic collapse, giving
 the base-resolution gradient of each corner in its increments.
 
+K2-sparse (:func:`inc_solve_sparse`) writes only the sparse stack, two of
+every :data:`CKPT_WINDOW` diagonals (the ckpt output of
+``pallas_df64.py``'s ``_wavefront_df_kernel``), and K8
+(:func:`inc_adjoint_ckpt`, ``csrc/adjoint_ckpt.cu``) replaces
+``pallas_adjoint.py``'s ``_product_ckpt_kernel``: K3<inc> with the skipped
+forward diagonals recomputed in-kernel, window by window, bit for bit as
+the forward computed them. The pair serves the backward when full stacks
+would not fill the card (``routes.resolve_inc_tier``).
+
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version (``*_plain``) only for CPU tensors. ``COUNTS``, ``STACK_COUNTS`` and
-``ADJOINT_COUNTS`` hold the kernel launches per dtype and the calls of the
-plain versions.
+version (``*_plain``) only for CPU tensors. ``COUNTS``, ``STACK_COUNTS``,
+``ADJOINT_COUNTS``, ``SPARSE_COUNTS`` and ``CKPT_COUNTS`` hold the kernel
+launches per dtype and the calls of the plain versions.
 """
 from __future__ import annotations
 
@@ -34,6 +43,14 @@ from ..utils import dyadic_refine
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 STACK_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 ADJOINT_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
+SPARSE_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
+CKPT_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
+
+# K8's window: diagonals between stored pairs, at least 2. The sparse stack
+# is W / 2 times smaller than the full one; K8's per-block scratch of W
+# diagonals stays in L2 for one wave (csrc/adjoint_ckpt.cu). Read at call
+# time.
+CKPT_WINDOW = 8
 
 _FNS = {torch.float32: "sk_inc_wavefront_f32",
         torch.float64: "sk_inc_wavefront_f64"}
@@ -41,6 +58,10 @@ _STACK_FNS = {torch.float32: "sk_inc_stack_f32",
               torch.float64: "sk_inc_stack_f64"}
 _ADJOINT_FNS = {torch.float32: "sk_adjoint_inc_f32",
                 torch.float64: "sk_adjoint_inc_f64"}
+_SPARSE_FNS = {torch.float32: "sk_inc_sparse_f32",
+               torch.float64: "sk_inc_sparse_f64"}
+_CKPT_FNS = {torch.float32: "sk_adjoint_ckpt_f32",
+             torch.float64: "sk_adjoint_ckpt_f64"}
 
 
 def stack_shape(P: int, MM: int, NN: int):
@@ -48,6 +69,24 @@ def stack_shape(P: int, MM: int, NN: int):
     R + 1)`` with ``R`` the shorter side (``csrc/wavefront.cuh``)."""
     R, C = min(MM, NN), max(MM, NN)
     return (P, R + C + 1, R + 1)
+
+
+def window() -> int:
+    """:data:`CKPT_WINDOW`, checked. Any grid with both sides at least 1
+    has a sparse stack at any window of 2 or more diagonals: JAX's ``f in
+    (2, 4)`` and first-window conditions (``ckpt_supported``) came from its
+    residue algebra on lane windows; this layout needs neither."""
+    if CKPT_WINDOW < 2:
+        raise ValueError("the sparse stack's window must hold at least 2 "
+                         f"diagonals; CKPT_WINDOW is {CKPT_WINDOW}")
+    return CKPT_WINDOW
+
+
+def sparse_shape(P: int, MM: int, NN: int):
+    """The sparse stack of ``P`` refined ``MM x NN`` grids:
+    ``(P, 2 ckpt_pairs, R + 1)`` (``csrc/wavefront.cuh``)."""
+    R, C = min(MM, NN), max(MM, NN)
+    return (P, 2 * scan_solver.ckpt_pairs(R, C, window()), R + 1)
 
 
 def inc_solve_final_plain(inc: torch.Tensor, dyadic_order: int = 0,
@@ -73,6 +112,29 @@ def inc_adjoint_plain(inc: torch.Tensor, stack: torch.Tensor,
     ADJOINT_COUNTS["plain"] += 1
     return scan_solver.adjoint_from_stack(dyadic_refine(inc, dyadic_order),
                                           stack, 2 ** dyadic_order, naive)
+
+
+def inc_solve_sparse_plain(inc: torch.Tensor, dyadic_order: int = 0,
+                           naive: bool = False):
+    """Plain version of K2-sparse: the plain grid's stack, checkpoint rows
+    only (:func:`.scan_solver.stack_to_sparse`)."""
+    SPARSE_COUNTS["plain"] += 1
+    grid = scan_solver.solve_grid(dyadic_refine(inc, dyadic_order), naive)
+    return (grid[..., -1, -1].clone(),
+            scan_solver.stack_to_sparse(scan_solver.grid_to_stack(grid),
+                                        window()))
+
+
+def inc_adjoint_ckpt_plain(inc: torch.Tensor, sparse: torch.Tensor,
+                           dyadic_order: int = 0,
+                           naive: bool = False) -> torch.Tensor:
+    """Plain version of K8: the full stack rebuilt window by window
+    (:func:`.scan_solver.sparse_to_stack`), then the plain adjoint."""
+    CKPT_COUNTS["plain"] += 1
+    ref = dyadic_refine(inc, dyadic_order)
+    stack = scan_solver.sparse_to_stack(sparse, ref, window(), naive)
+    return scan_solver.adjoint_from_stack(ref, stack, 2 ** dyadic_order,
+                                          naive)
 
 
 def _check(inc: torch.Tensor, what: str) -> None:
@@ -154,4 +216,59 @@ def inc_adjoint(inc: torch.Tensor, stack: torch.Tensor,
     _build.launch("adjoint_collapse_inc", _ADJOINT_FNS, ADJOINT_COUNTS, inc,
                   inc.data_ptr(), stack.data_ptr(), ct.data_ptr(), P, Mb, Nb,
                   f, int(naive))
+    return ct / (f * f)
+
+
+def inc_solve_sparse(inc: torch.Tensor, dyadic_order: int = 0,
+                     naive: bool = False):
+    """K2-sparse: ``(values (P,), sparse stack)`` of a ``(P, Mb, Nb)`` base
+    grid at the window :data:`CKPT_WINDOW`; the sparse stack's shape is
+    :func:`sparse_shape`. Needs ``Mb, Nb >= 1`` on the card."""
+    if inc.device.type == "cpu":
+        return inc_solve_sparse_plain(inc, dyadic_order, naive)
+    _check(inc, "inc_solve_sparse")
+    W = window()
+    P, Mb, Nb = inc.shape
+    if Mb == 0 or Nb == 0:
+        raise ValueError("inc_solve_sparse: a length-1 path has no stack")
+    f = 2 ** dyadic_order
+    _build.check_rows(min(Mb, Nb) * f, inc.element_size(), "inc_solve_sparse")
+    out = torch.empty(P, dtype=inc.dtype, device=inc.device)
+    sparse = torch.empty(sparse_shape(P, Mb * f, Nb * f), dtype=inc.dtype,
+                         device=inc.device)
+    if P:
+        _build.launch("inc_sparse", _SPARSE_FNS, SPARSE_COUNTS, inc,
+                      inc.data_ptr(), out.data_ptr(), sparse.data_ptr(), P,
+                      Mb, Nb, f, W, int(naive))
+    return out, sparse
+
+
+def inc_adjoint_ckpt(inc: torch.Tensor, sparse: torch.Tensor,
+                     dyadic_order: int = 0,
+                     naive: bool = False) -> torch.Tensor:
+    """K8: the gradient ``(P, Mb, Nb)`` of each pair's corner in its base
+    increments from the sparse stack of :func:`inc_solve_sparse` (at the
+    same :data:`CKPT_WINDOW`); equal to :func:`inc_adjoint` on the full
+    stack, bit for bit."""
+    if inc.device.type == "cpu":
+        return inc_adjoint_ckpt_plain(inc, sparse, dyadic_order, naive)
+    _check(inc, "inc_adjoint_ckpt")
+    W = window()
+    P, Mb, Nb = inc.shape
+    f = 2 ** dyadic_order
+    if Mb == 0 or Nb == 0 or P == 0:
+        return torch.zeros_like(inc)
+    R = min(Mb, Nb) * f
+    _build.check_rows(R, inc.element_size(), "inc_adjoint_ckpt")
+    want = sparse_shape(P, Mb * f, Nb * f)
+    if (sparse.shape != want or sparse.dtype != inc.dtype
+            or sparse.device != inc.device or not sparse.is_contiguous()):
+        raise ValueError(f"inc_adjoint_ckpt: the sparse stack must be a "
+                         f"contiguous {want} tensor of the grid's dtype and "
+                         "device")
+    ct = torch.zeros_like(inc)
+    scratch = torch.empty(P, W, R + 1, dtype=inc.dtype, device=inc.device)
+    _build.launch("adjoint_ckpt", _CKPT_FNS, CKPT_COUNTS, inc, inc.data_ptr(),
+                  sparse.data_ptr(), scratch.data_ptr(), ct.data_ptr(), P,
+                  Mb, Nb, f, W, int(naive))
     return ct / (f * f)

@@ -22,6 +22,32 @@ family    computation                            kernels (forward; adjoint)
 ``scan``  the same increments, plain loop        none (``scan_solver``)
 ========  =====================================  ==========================
 
+The generators (``gen``, ``lgen``) hold only while the shorter refined side
+fits one block (:func:`._build.max_rows`) and, when a gradient is wanted,
+while the full stacks of one backward chunk fill the card (the ckpt gate,
+:func:`resolve_inc_tier`); otherwise the tile takes ``inc``, as JAX's RBF
+route leaves the generator past its gates (``sigkernel.py:290-316``). With
+a gradient, the ``inc`` family builds each chunk's increment grid and drops
+it, and the backward builds it again (``sigkernel._GridPairs``), so memory
+is one chunk's grids and stacks at any tile size. The ``inc`` family picks
+its tier by shape (:func:`resolve_inc_tier`):
+
+=============  =========================  ===================================
+tier           when                       kernels
+=============  =========================  ===================================
+``single``     R within the row bound     K2 (forward)
+``stripes``    R past it                  K7 per stripe (forward)
+``full``       R within, ckpt gate holds  K2-stack, K3<inc> (backward)
+``ckpt``       R within, gate fails       K2-sparse, K8 (backward)
+``striped``    R past the row bound       K7, K7-stack, K3<inc, boundary>
+=============  =========================  ===================================
+
+Every decision is made from shapes before any launch; nothing catches a
+kernel's failure to try another route. The memory policy is here too:
+:data:`STACK_BYTES` bounds what one chunk of pairs keeps alive
+(:func:`tier_bytes` a pair, :func:`chunk_pairs` pairs a chunk), and
+:data:`CKPT_MIN_PAIRS` is the ckpt gate.
+
 The derivative Gram (:func:`resolve_derivatives`) has its own two routes:
 ``cuda``, K5 ``cuda_deriv`` (forward only), and ``scan``, the plain triple
 sweep, which autograd differentiates.
@@ -34,16 +60,34 @@ the input precision, as the JAX scan tier's are.
 """
 from __future__ import annotations
 
+import math
+import warnings
 from typing import NamedTuple
 
 import torch
 
+from . import _build, cuda_blocked, cuda_solver
 from .. import kernels as _kernels
 
 SOLVERS = ("auto", "scan", "cuda")
 FAMILIES = ("gen", "lgen", "inc", "scan")
+INC_TIERS = ("single", "stripes")
+INC_BWD_TIERS = ("full", "ckpt", "striped")
 DERIV_ROUTES = ("cuda", "scan")
 GRAD_SOLVERS = ("auto", "f32", "df64")
+
+# what one chunk of pairs keeps alive: its forward stacks, and separately
+# the increment grids it builds
+STACK_BYTES = 8 << 30
+# the ckpt gate: full stacks while a chunk holds at least this many pairs'
+# (one block a pair on the H100's 132 SMs); the sparse stack (K2-sparse, K8)
+# otherwise. The north star in double holds 128 (67 MB a pair), where the
+# full route's lincomb was 1.2x faster; at 47-128 pairs and dyadic 2 the
+# sparse route was 1.7-4.6x faster (chip_smoke.py phase 12, PERF.md).
+CKPT_MIN_PAIRS = 128
+# base grids a pair that building one increment grid keeps alive: the
+# kernel's exponent and its exp (saved for autograd), the double difference
+GRID_COPIES = 3
 
 
 class Route(NamedTuple):
@@ -73,23 +117,118 @@ def _plain_tier(device_type: str, solver: str) -> bool:
     return False
 
 
-def resolve_family(static_kernel, device_type: str, solver: str) -> str:
+def _bwd_dtype(dtype: torch.dtype, grad_solver: str) -> torch.dtype:
+    return torch.float32 if grad_solver == "f32" else dtype
+
+
+def tier_bytes(tier: str, shape, itemsize: int) -> int:
+    """Bytes one pair keeps alive on an ``inc`` tier for a refined ``(MM,
+    NN)`` grid: the full stack (``full``), the sparse stack and K8's
+    scratch (``ckpt``), one stripe's stack (``striped``; the stripe height
+    at most :data:`.cuda_blocked.ADJ_ROWS`); nothing on the forward tiers."""
+    R, C = min(shape), max(shape)
+    if tier == "full":
+        n = math.prod(cuda_solver.stack_shape(1, R, C))
+    elif tier == "ckpt":
+        n = (math.prod(cuda_solver.sparse_shape(1, R, C))
+             + cuda_solver.CKPT_WINDOW * (R + 1))
+    elif tier == "striped":
+        n = math.prod(cuda_solver.stack_shape(
+            1, min(cuda_blocked.ADJ_ROWS, R), C))
+    else:
+        n = 0
+    return n * itemsize
+
+
+def grid_bytes(Mb: int, Nb: int, itemsize: int) -> int:
+    """Bytes one pair keeps alive while its base increment grid ``(Mb, Nb)``
+    is built (:data:`GRID_COPIES` grids)."""
+    return GRID_COPIES * Mb * Nb * itemsize
+
+
+def chunk_pairs(P: int, per_pair: int) -> int:
+    """Pairs of one chunk that keep ``per_pair`` bytes each within
+    :data:`STACK_BYTES` (at least one; all ``P`` when a pair keeps
+    nothing)."""
+    if per_pair <= 0:
+        return max(P, 1)
+    return max(1, min(P, STACK_BYTES // per_pair))
+
+
+def resolve_inc_tier(shape, itemsize: int, backward: bool = False) -> str:
+    """The ``inc`` family's tier for a refined ``(MM, NN)`` grid of
+    ``itemsize``-byte values: forward ``"single"`` (K2) or ``"stripes"``
+    (K7); backward ``"full"`` (K2-stack, K3<inc>), ``"ckpt"`` (K2-sparse,
+    K8) or ``"striped"``.
+
+    The ckpt gate is capacity only, as JAX's is (``ops/solve.py:386-395``):
+    the full stack is taken while :data:`STACK_BYTES` holds at least
+    :data:`CKPT_MIN_PAIRS` pairs' full stacks, or for a length-1 path,
+    which stores nothing.
+    """
+    if min(shape) > _build.max_rows(itemsize):
+        return "striped" if backward else "stripes"
+    if not backward:
+        return "single"
+    if (min(shape) == 0 or STACK_BYTES // tier_bytes("full", shape, itemsize)
+            >= CKPT_MIN_PAIRS):
+        return "full"
+    return "ckpt"
+
+
+def _warn_f32_long(shape, dtype, grad_solver, need_grad) -> None:
+    """float32 sweeps past the float32 row bound drift far from float64:
+    say so (PERF.md: measured on an H100 at a 20,000^2 grid)."""
+    f32 = dtype == torch.float32 or (need_grad and grad_solver == "f32")
+    if f32 and min(shape) > _build.max_rows(4):
+        warnings.warn(
+            f"float32 sweeps of a {shape[0]} x {shape[1]} refined grid: past "
+            f"{_build.max_rows(4)} rows the float32 values and the "
+            "grad_solver='f32' gradients drift far from float64 (measured "
+            "on an H100 at a 20,000 x 20,000 grid: 1.1e-1 of max |K|, 0.86 "
+            "of max |dX|); "
+            "float64 paths with the default grade hold", RuntimeWarning,
+            stacklevel=3)
+
+
+def resolve_family(static_kernel, device_type: str, solver: str,
+                   shape=None, dtype: torch.dtype = torch.float64,
+                   grad_solver: str = "auto", need_grad: bool = False) -> str:
     """Which solver family serves this tile?
 
     - ``solver="scan"``: the plain tier, on any device (an explicit choice).
     - CUDA tensors (``"auto"`` or ``"cuda"``): ``"gen"`` for exactly
       ``RBFKernel``, ``"lgen"`` for exactly ``LinearKernel``, ``"inc"`` for
       any other static kernel (subclasses included), or for a ready
-      increment grid (``static_kernel=None``).
+      increment grid (``static_kernel=None``). Given the tile's refined
+      ``shape`` ``(MM, NN)``, a generator holds only while the shorter side
+      is within the row bound in ``dtype`` and, with ``need_grad``, while
+      the backward (in the grade's dtype) takes the ``"full"`` tier;
+      otherwise the tile takes ``"inc"``.
     - Other devices: ``"auto"`` takes the plain tier; ``"cuda"`` raises.
+
+    A CUDA tile whose float32 sweeps (``dtype``, or the ``"f32"`` grade
+    with ``need_grad``) pass the float32 row bound warns: their error there
+    is large (PERF.md).
     """
     if _plain_tier(device_type, solver):
         return "scan"
+    if shape is not None:
+        _warn_f32_long(shape, dtype, grad_solver, need_grad)
     if type(static_kernel) is _kernels.RBFKernel:
-        return "gen"
-    if type(static_kernel) is _kernels.LinearKernel:
-        return "lgen"
-    return "inc"
+        family = "gen"
+    elif type(static_kernel) is _kernels.LinearKernel:
+        family = "lgen"
+    else:
+        return "inc"
+    if shape is None:
+        return family
+    if resolve_inc_tier(shape, dtype.itemsize) != "single" or (
+            need_grad and resolve_inc_tier(
+                shape, _bwd_dtype(dtype, grad_solver).itemsize,
+                backward=True) != "full"):
+        return "inc"
+    return family
 
 
 def resolve_derivatives(device_type: str, solver: str,
@@ -109,11 +248,14 @@ def resolve_derivatives(device_type: str, solver: str,
 
 
 def resolve(static_kernel, device_type: str, solver: str,
-            dtype: torch.dtype, grad_solver: str) -> Route:
+            dtype: torch.dtype, grad_solver: str, shape=None,
+            need_grad: bool = False) -> Route:
     """The family (:func:`resolve_family`) and the dtype its backward runs
     in, for inputs of ``dtype``."""
     check_grad_solver(grad_solver)
-    family = resolve_family(static_kernel, device_type, solver)
-    if family != "scan" and grad_solver == "f32":
-        return Route(family, torch.float32)
+    family = resolve_family(static_kernel, device_type, solver, shape=shape,
+                            dtype=dtype, grad_solver=grad_solver,
+                            need_grad=need_grad)
+    if family != "scan":
+        return Route(family, _bwd_dtype(dtype, grad_solver))
     return Route(family, dtype)

@@ -37,20 +37,34 @@ def get_scheme(naive: bool):
     return _update_naive if naive else _update_order2
 
 
-def _sweep(inc: torch.Tensor, naive: bool, return_grid: bool):
-    """Sweep ``inc`` (``(..., MM, NN)``); returns ``(final, grid_or_None)``."""
+def _sweep(inc: torch.Tensor, naive: bool, return_grid: bool, bd=None):
+    """Sweep ``inc`` (``(..., MM, NN)``); returns ``(final, grid_or_None,
+    bottom_or_None)``. With ``bd`` (``(..., NN+1)``) row 0 is that north
+    boundary instead of 1, and the bottom row ``K[MM, :]`` comes back too."""
     *batch, MM, NN = inc.shape
     if MM == 0 or NN == 0:
         # degenerate (length-1) path: the solution is the boundary, K == 1
         grid = (inc.new_ones(*batch, MM + 1, NN + 1) if return_grid
                 else None)
-        return inc.new_ones(batch), grid
+        if bd is not None and grid is not None:
+            grid[..., 0, :] = bd
+        bottom = None if bd is None else (
+            bd.clone() if MM == 0 else inc.new_ones(*batch, 1))
+        final = inc.new_ones(batch) if bottom is None else bottom[..., -1]
+        return final, grid, bottom
 
     scheme = get_scheme(naive)
-    flat = inc.reshape(math.prod(batch), MM, NN)
-    ring = inc.new_ones(3, flat.shape[0], MM + 1)
-    grid = (inc.new_ones(flat.shape[0], MM + 1, NN + 1) if return_grid
-            else None)
+    B = math.prod(batch)
+    flat = inc.reshape(B, MM, NN)
+    ring = inc.new_ones(3, B, MM + 1)
+    grid = inc.new_ones(B, MM + 1, NN + 1) if return_grid else None
+    bottom = None
+    if bd is not None:
+        bd = bd.reshape(B, NN + 1)
+        ring[0][:, 0], ring[1][:, 0] = bd[:, 0], bd[:, 1]
+        bottom = inc.new_ones(B, NN + 1)
+        if grid is not None:
+            grid[:, 0, :] = bd
     rows = torch.arange(MM + 1, device=inc.device)
     for p in range(2, MM + NN + 1):
         lo, hi = max(1, p - NN), min(MM, p - 1)
@@ -59,12 +73,19 @@ def _sweep(inc: torch.Tensor, naive: bool, return_grid: bool):
         v = scheme(m2[:, lo - 1:hi], m1[:, lo - 1:hi], m1[:, lo:hi + 1],
                    flat[:, i - 1, p - 1 - i])
         ring[p % 3][:, lo:hi + 1] = v
+        if bd is not None:
+            if p <= NN:
+                ring[p % 3][:, 0] = bd[:, p]
+            if hi == MM:
+                bottom[:, p - MM] = v[:, -1]
         if grid is not None:
             grid[:, i, p - i] = v
     final = ring[(MM + NN) % 3][:, MM].reshape(batch)
     if grid is not None:
         grid = grid.reshape(*batch, MM + 1, NN + 1)
-    return final, grid
+    if bottom is not None:
+        bottom = bottom.reshape(*batch, NN + 1)
+    return final, grid, bottom
 
 
 def solve_final(inc: torch.Tensor, naive: bool = False) -> torch.Tensor:
@@ -75,6 +96,28 @@ def solve_final(inc: torch.Tensor, naive: bool = False) -> torch.Tensor:
 def solve_grid(inc: torch.Tensor, naive: bool = False) -> torch.Tensor:
     """Solve the Goursat PDE; return the full ``(..., MM+1, NN+1)`` grid."""
     return _sweep(inc, naive, return_grid=True)[1]
+
+
+def solve_stripe(inc: torch.Tensor, bd: torch.Tensor,
+                 naive: bool = False) -> torch.Tensor:
+    """Sweep one horizontal stripe from a general north boundary
+    (:func:`sigkernel_tpu.ops.scan_solver.solve_stripe`).
+
+    ``inc``: ``(..., MMs, NN)`` stripe increments; ``bd``: ``(..., NN+1)``
+    the north boundary row ``K[0_local, :]``, the bottom row of the stripe
+    above (``bd[..., 0] == 1``, the west corner). Returns the stripe's
+    bottom row ``K[MMs, :]`` as ``(..., NN+1)``; the last stripe's entry
+    ``[..., NN]`` is the solve's corner. The plain version of K7.
+    """
+    return _sweep(inc, naive, return_grid=False, bd=bd)[2]
+
+
+def solve_stripe_grid(inc: torch.Tensor, bd: torch.Tensor,
+                      naive: bool = False) -> torch.Tensor:
+    """The stripe's full ``(..., MMs+1, NN+1)`` grid, row 0 = ``bd`` (the
+    plain counterpart of JAX ``pallas_blocked._stripe_grid``, and of
+    K7-stack through :func:`grid_to_stack`)."""
+    return _sweep(inc, naive, return_grid=True, bd=bd)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -219,3 +262,61 @@ def adjoint_from_stack(inc_refined: torch.Tensor, stack: torch.Tensor,
     MM, NN = inc_refined.shape[-2:]
     grid = stack_to_grid(stack, MM, NN)
     return product_collapse(grid, solve_grid(flip2(inc_refined), naive), f)
+
+
+# ---------------------------------------------------------------------------
+# The sparse stack of the checkpoint adjoint (K2-sparse, K8)
+# ---------------------------------------------------------------------------
+#
+# At window W >= 2 the sparse stack keeps the full stack's rows whose
+# diagonal p has p % W < 2: pair w is diagonals (w W, w W + 1) at rows
+# (2 w, 2 w + 1), for the ckpt_pairs windows that the adjoint's diagonals
+# 0 .. R + C - 2 touch (``csrc/wavefront.cuh``).
+
+
+def ckpt_pairs(R: int, C: int, W: int) -> int:
+    """Stored diagonal pairs of the sparse stack of an ``R x C`` frame."""
+    return (R + C - 2) // W + 1
+
+
+def sparse_rows(R: int, C: int, W: int) -> list:
+    """The full stack's rows that the sparse stack keeps, in its order."""
+    return [w * W + k for w in range(ckpt_pairs(R, C, W)) for k in (0, 1)]
+
+
+def stack_to_sparse(stack: torch.Tensor, W: int) -> torch.Tensor:
+    """The sparse stack: the checkpoint rows of a full ``(..., R + C + 1,
+    R + 1)`` stack."""
+    R = stack.shape[-1] - 1
+    C = stack.shape[-2] - 1 - R
+    return stack[..., sparse_rows(R, C, W), :]
+
+
+def sparse_to_stack(sparse: torch.Tensor, inc_refined: torch.Tensor, W: int,
+                    naive: bool = False) -> torch.Tensor:
+    """The full stack rebuilt from the sparse one: the diagonals between
+    the stored pairs are swept again from the nearest pair below, in the
+    forward's op order, from the refined increments ``(..., MM, NN)``. The
+    plain version of K8's in-kernel recompute."""
+    MM, NN = inc_refined.shape[-2:]
+    u = _frame(inc_refined, MM > NN)
+    R, C = u.shape[-2:]
+    scheme = get_scheme(naive)
+    stack = u.new_zeros(*u.shape[:-2], R + C + 1, R + 1)
+    rows = torch.arange(R + 1, device=u.device)
+    last = ckpt_pairs(R, C, W) - 1
+    for d in range(R + C + 1):
+        w, k = divmod(d, W)
+        if k < 2 and w <= last:
+            stack[..., d, :] = sparse[..., 2 * w + k, :]
+            continue
+        lo, hi = max(1, d - C), min(R, d - 1)
+        i = rows[lo:hi + 1]
+        m1, m2 = stack[..., d - 1, :], stack[..., d - 2, :]
+        row = ((rows >= d - C) & (rows <= d)).to(u.dtype).expand_as(m1)
+        row = row.clone()
+        row[..., lo:hi + 1] = scheme(m2[..., lo - 1:hi], m1[..., lo - 1:hi],
+                                     m1[..., lo:hi + 1], u[..., i - 1,
+                                                            d - 1 - i])
+        stack[..., d, :] = row
+    return stack

@@ -11,10 +11,14 @@ second sweep over the increments flipped along both axes, whose product with
 the forward solution, collapsed to the base grid, is the gradient
 (:func:`.scan_solver.product_collapse`). Never autograd through the loop:
 that would be the derivative of the discrete scheme, another number. The
-route (:func:`.routes.resolve`) picks, for both halves of :class:`_Solve`:
+route (:func:`.routes.resolve`, then :func:`.routes.resolve_inc_tier` by
+shape) picks, for both halves of :class:`_Solve`:
 
-- ``inc`` (CUDA): K2 forward; backward K2-stack + K3<inc>, in chunks of
-  pairs whose stack fits :data:`STACK_BYTES`, in the grade's dtype;
+- ``inc`` (CUDA): forward K2, or K7 stripes (:mod:`.cuda_blocked`) past the
+  row bound; backward, in chunks of pairs whose stacks fit
+  :data:`.routes.STACK_BYTES`, in the grade's dtype: K2-stack + K3<inc>
+  while a chunk holds at least :data:`.routes.CKPT_MIN_PAIRS` full stacks,
+  else K2-sparse + K8, and the striped adjoint past the row bound;
 - ``scan``: the plain loop; backward :func:`grid_route_bwd`, one plain grid
   sweep over ``[inc; flip2(inc)]``.
 """
@@ -24,18 +28,8 @@ import math
 
 import torch
 
-from . import cuda_solver, routes, scan_solver
+from . import cuda_blocked, cuda_solver, routes, scan_solver
 from ..utils import dyadic_refine
-
-# the pairs of one backward chunk keep their forward stacks below this
-STACK_BYTES = 8 << 30
-
-
-def stack_chunk(P: int, MM: int, NN: int, itemsize: int) -> int:
-    """Pairs per backward chunk whose stacks stay within
-    :data:`STACK_BYTES` (at least one)."""
-    per_pair = math.prod(cuda_solver.stack_shape(1, MM, NN)) * itemsize
-    return max(1, min(P, STACK_BYTES // per_pair))
 
 
 def grid_route_bwd(inc: torch.Tensor, g: torch.Tensor, naive: bool,
@@ -53,21 +47,42 @@ def grid_route_bwd(inc: torch.Tensor, g: torch.Tensor, naive: bool,
 
 def inc_route_bwd(inc: torch.Tensor, g: torch.Tensor, naive: bool,
                   dyadic_order: int) -> torch.Tensor:
-    """The CUDA adjoint: per chunk of pairs K2-stack then K3<inc>, times
-    ``g`` -> ``(B, Mb, Nb)`` in ``inc``'s dtype."""
+    """The CUDA adjoint, times ``g`` -> ``(B, Mb, Nb)`` in ``inc``'s dtype,
+    chunk by chunk on the tier :func:`.routes.resolve_inc_tier` gives:
+    K2-stack then K3<inc> (``full``), K2-sparse then K8 (``ckpt``), or the
+    striped adjoint (:func:`.cuda_blocked.adjoint`)."""
     P, Mb, Nb = inc.shape
     out = torch.zeros_like(inc)
     if Mb == 0 or Nb == 0:
         return out
     f = 2 ** dyadic_order
-    chunk = stack_chunk(P, Mb * f, Nb * f, inc.element_size())
+    MM, NN, size = Mb * f, Nb * f, inc.element_size()
+    tier = routes.resolve_inc_tier((MM, NN), size, backward=True)
+    chunk = routes.chunk_pairs(P, routes.tier_bytes(tier, (MM, NN), size))
     for s in range(0, P, chunk):
         c = inc[s:s + chunk].contiguous()
-        _, stack = cuda_solver.inc_solve_stack(c, dyadic_order, naive)
-        ct = cuda_solver.inc_adjoint(c, stack, dyadic_order, naive)
-        del stack
+        if tier == "full":
+            _, stack = cuda_solver.inc_solve_stack(c, dyadic_order, naive)
+            ct = cuda_solver.inc_adjoint(c, stack, dyadic_order, naive)
+            del stack
+        elif tier == "ckpt":
+            _, sparse = cuda_solver.inc_solve_sparse(c, dyadic_order, naive)
+            ct = cuda_solver.inc_adjoint_ckpt(c, sparse, dyadic_order, naive)
+            del sparse
+        else:
+            ct = cuda_blocked.adjoint(c, dyadic_order, naive)
         out[s:s + chunk] = ct * g[s:s + chunk, None, None].to(ct.dtype)
     return out
+
+
+def inc_route_fwd(inc: torch.Tensor, naive: bool,
+                  dyadic_order: int) -> torch.Tensor:
+    """The CUDA forward: K2 within the row bound, K7 stripes past it."""
+    f = 2 ** dyadic_order
+    shape = (inc.shape[-2] * f, inc.shape[-1] * f)
+    if routes.resolve_inc_tier(shape, inc.element_size()) == "stripes":
+        return cuda_blocked.solve_final(inc, dyadic_order, naive)
+    return cuda_solver.inc_solve_final(inc, dyadic_order, naive)
 
 
 class _Solve(torch.autograd.Function):
@@ -80,8 +95,7 @@ class _Solve(torch.autograd.Function):
         ctx.save_for_backward(inc)
         ctx.cfg = (naive, solver, dyadic_order, grad_solver)
         if route.family == "inc":
-            return cuda_solver.inc_solve_final(inc.contiguous(), dyadic_order,
-                                               naive)
+            return inc_route_fwd(inc.contiguous(), naive, dyadic_order)
         return scan_solver.solve_final(dyadic_refine(inc, dyadic_order),
                                        naive)
 

@@ -17,10 +17,13 @@ module. Each tile's solver family and gradient dtype come from
   :class:`_LinearGen`, whose backward recomputes each chunk's increment
   grid and runs the ``inc`` family's adjoint on it (K2-stack, K3<inc>).
 - ``inc``/``scan``: ``double_difference`` of the static-kernel Gram in torch,
-  solved by the K2 kernel or the plain loop (:func:`.ops.solve.solve`, whose
-  adjoint backward is K2-stack + K3<inc> or the plain grid route); autograd
-  carries the gradient through the Gram to the paths and the kernel's
-  hyper-parameter.
+  solved by the K2 kernel (K7 stripes past the row bound) or the plain loop
+  (:func:`.ops.solve.solve`, whose adjoint backward is the ``inc`` tier's or
+  the plain grid route); autograd carries the gradient through the Gram to
+  the paths and the kernel's hyper-parameters. On the ``inc`` family a
+  gradient goes through :class:`_GridPairs` instead, which builds each
+  chunk's grid in the forward and again in the backward, so no tile keeps
+  its grids alive.
 
 Every estimator is differentiable in ``X``, ``Y``, ``W`` and the static
 kernel's hyper-parameter (``RBFKernel.sigma`` or ``LinearKernel.scale``, a
@@ -38,7 +41,7 @@ from torch import nn
 
 from . import kernels as _kernels
 from .ops import cuda_deriv, cuda_gen, cuda_lgen, incvjp, routes, scan_solver
-from .ops.solve import inc_route_bwd, solve, stack_chunk
+from .ops.solve import inc_route_bwd, inc_route_fwd, solve
 from .utils import double_difference, dyadic_refine, pad_length
 
 
@@ -53,6 +56,29 @@ def _prepare(static_kernel, X, Y, length_bucket, grad_solver):
 def _hyper(static_kernel):
     """The static kernel's hyper-parameter tensors (its pytree leaves)."""
     return tuple(static_kernel.parameters()) + tuple(static_kernel.buffers())
+
+
+def _refined(X, Y, dyadic_order):
+    """The refined grid ``(MM, NN)`` of the pairs of ``X`` and ``Y``: the
+    shape the route gates read."""
+    f = 2 ** dyadic_order
+    return max(X.shape[1] - 1, 0) * f, max(Y.shape[1] - 1, 0) * f
+
+
+def _need_grad(static_kernel, X, Y):
+    """Will autograd ask for a gradient of the pairs of ``X`` and ``Y``?"""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (X, Y) + _hyper(static_kernel))
+
+
+def _family(static_kernel, X, Y, dyadic_order, solver, grad_solver,
+            need_grad):
+    """The family of the pairs of ``X`` and ``Y``, from their refined shape
+    and whether autograd will ask for a gradient."""
+    return routes.resolve_family(
+        static_kernel, X.device.type, solver,
+        shape=_refined(X, Y, dyadic_order), dtype=X.dtype,
+        grad_solver=grad_solver, need_grad=need_grad)
 
 
 def _require_rbf(static_kernel):
@@ -75,8 +101,9 @@ def _gen_backward(X, Y, ii, jj, sigma, g, bwd_dtype, dyadic_order, naive,
     if M < 2 or N < 2 or P == 0:
         return ds, dX, dY
     f = 2 ** dyadic_order
-    chunk = P if stack is not None else stack_chunk(
-        P, (M - 1) * f, (N - 1) * f, Xb.element_size())
+    chunk = P if stack is not None else routes.chunk_pairs(
+        P, routes.tier_bytes("full", ((M - 1) * f, (N - 1) * f),
+                             Xb.element_size()))
     for s in range(0, P, chunk):
         ic, jc = ii[s:s + chunk], jj[s:s + chunk]
         stk = stack
@@ -112,72 +139,118 @@ class _RBFGen(torch.autograd.Function):
         X, Y, sigma, ii, jj = ctx.saved_tensors
         static_kernel, dyadic_order, naive, solver, grad_solver = ctx.cfg
         route = routes.resolve(static_kernel, X.device.type, solver, X.dtype,
-                               grad_solver)
+                               grad_solver, _refined(X, Y, dyadic_order),
+                               need_grad=True)
         ds, dX, dY = _gen_backward(X, Y, ii, jj, sigma, g, route.bwd_dtype,
                                    dyadic_order, naive)
         return dX.to(X.dtype), dY.to(Y.dtype), ds.to(sigma), None, None, None
 
 
-class _LinearGen(torch.autograd.Function):
-    """``k_sig(X[ii[p]], Y[jj[p]])`` on the ``lgen`` family: K6 values from
-    the paths, ``scale`` and the pair indices. The backward is JAX's
-    ``_pair_fused_bwd``: per chunk of pairs it recomputes the base increment
-    grid ``double_difference(batch_kernel(x, y))``, runs the increment-grid
-    adjoint on it in the grade's dtype (:func:`.ops.solve.inc_route_bwd`:
-    K2-stack, K3<inc>) and carries the cotangent to ``X``, ``Y`` and
-    ``scale`` by autograd through the grid."""
+def _grid_chunk(X, Y, P):
+    """Pairs of one chunk whose base increment grids, built in ``X``'s
+    dtype, fit :data:`.ops.routes.STACK_BYTES`."""
+    return routes.chunk_pairs(P, routes.grid_bytes(
+        max(X.shape[1] - 1, 0), max(Y.shape[1] - 1, 0), X.element_size()))
+
+
+class _GridPairs(torch.autograd.Function):
+    """``k_sig(X[ii[p]], Y[jj[p]])`` on the ``inc`` family when a gradient
+    is wanted: per chunk of pairs whose grids fit
+    :data:`.ops.routes.STACK_BYTES`, the base increment grid
+    ``double_difference(batch_kernel(x, y))`` is built, solved (K2, or K7
+    stripes past the row bound) and dropped. The backward is JAX's
+    ``_pair_fused_bwd``: per chunk it builds the grid again under autograd,
+    runs the increment-grid adjoint on it in the grade's dtype
+    (:func:`.ops.solve.inc_route_bwd`: K2-stack + K3<inc>, K2-sparse + K8 or
+    the striped adjoint) and carries the cotangent to ``X``, ``Y`` and the
+    static kernel's hyper-parameters (``hyper``, its own tensors) by
+    autograd through the grid. Memory is one chunk's grids and stacks at
+    any pair count, where autograd through a tile's Gram would keep three
+    grids a pair of the whole tile alive."""
 
     @staticmethod
-    def forward(ctx, X, Y, scale, ii, jj, cfg):
-        static_kernel, dyadic_order, naive, solver, grad_solver = cfg
-        if type(static_kernel) is not _kernels.LinearKernel:
-            raise TypeError("the Linear generation route is LinearKernel's; "
-                            f"got {type(static_kernel).__name__}")
-        ctx.save_for_backward(X, Y, scale, ii, jj)
+    def forward(ctx, X, Y, ii, jj, cfg, *hyper):
+        static_kernel, dyadic_order, naive, _, _ = cfg
+        ctx.save_for_backward(X, Y, ii, jj)
         ctx.cfg = cfg
-        return cuda_lgen.linear_gen_solve_final(X, Y, ii, jj, scale,
-                                                dyadic_order, naive)
+        P = ii.shape[0]
+        chunk = _grid_chunk(X, Y, P)
+        vals = [X.new_empty(0)]
+        for s in range(0, P, chunk):
+            dd = double_difference(static_kernel.batch_kernel(
+                X[ii[s:s + chunk]], Y[jj[s:s + chunk]]))
+            vals.append(inc_route_fwd(dd.contiguous(), naive, dyadic_order))
+        return torch.cat(vals)
 
     @staticmethod
     def backward(ctx, g):
-        X, Y, scale, ii, jj = ctx.saved_tensors
+        X, Y, ii, jj = ctx.saved_tensors
         static_kernel, dyadic_order, naive, solver, grad_solver = ctx.cfg
         route = routes.resolve(static_kernel, X.device.type, solver, X.dtype,
-                               grad_solver)
-        Xd, Yd, sd = (t.detach().requires_grad_() for t in (X, Y, scale))
-        dX, dY, ds = (torch.zeros_like(t) for t in (X, Y, scale))
-        P, M, N = ii.shape[0], X.shape[1], Y.shape[1]
-        if P == 0 or M < 2 or N < 2:
-            return dX, dY, ds, None, None, None
-        f = 2 ** dyadic_order
-        itemsize = torch.empty((), dtype=route.bwd_dtype).element_size()
-        chunk = stack_chunk(P, (M - 1) * f, (N - 1) * f, itemsize)
-        kernel = _kernels.LinearKernel(sd)
-        for s in range(0, P, chunk):
-            ic, jc = ii[s:s + chunk], jj[s:s + chunk]
-            with torch.enable_grad():
-                dd = double_difference(kernel.batch_kernel(Xd[ic], Yd[jc]))
-            ct = inc_route_bwd(dd.detach().to(route.bwd_dtype).contiguous(),
-                               g[s:s + chunk], naive, dyadic_order)
-            gx, gy, gs = torch.autograd.grad(dd, (Xd, Yd, sd),
-                                             ct.to(dd.dtype))
-            dX, dY, ds = dX + gx, dY + gy, ds + gs
-        return dX, dY, ds, None, None, None
+                               grad_solver, _refined(X, Y, dyadic_order),
+                               need_grad=True)
+        needs = ctx.needs_input_grad[5:]
+        want = [h for h, n in zip(_hyper(static_kernel), needs) if n]
+        Xd, Yd = X.detach().requires_grad_(), Y.detach().requires_grad_()
+        acc = [torch.zeros_like(t) for t in [X, Y] + want]
+        P = ii.shape[0]
+        if P and X.shape[1] >= 2 and Y.shape[1] >= 2:
+            chunk = _grid_chunk(X, Y, P)
+            for s in range(0, P, chunk):
+                ic, jc = ii[s:s + chunk], jj[s:s + chunk]
+                with torch.enable_grad():
+                    dd = double_difference(
+                        static_kernel.batch_kernel(Xd[ic], Yd[jc]))
+                ct = inc_route_bwd(
+                    dd.detach().to(route.bwd_dtype).contiguous(),
+                    g[s:s + chunk], naive, dyadic_order)
+                grads = torch.autograd.grad(dd, [Xd, Yd] + want,
+                                            ct.to(dd.dtype), allow_unused=True)
+                for a, d in zip(acc, grads):
+                    if d is not None:
+                        a += d
+        dX, dY, *dh = acc
+        dh = iter(dh)
+        return (dX, dY, None, None, None,
+                *[next(dh) if n else None for n in needs])
+
+
+class _LinearGen(_GridPairs):
+    """``k_sig(X[ii[p]], Y[jj[p]])`` on the ``lgen`` family: K6 values from
+    the paths, ``scale`` and the pair indices. The backward is
+    :class:`_GridPairs`' (JAX's ``_pair_fused_bwd``): each chunk's grid
+    ``double_difference(batch_kernel(x, y))`` built again, the
+    increment-grid adjoint on it (K2-stack, K3<inc>), and autograd through
+    the grid to ``X``, ``Y`` and ``scale``."""
+
+    @staticmethod
+    def forward(ctx, X, Y, ii, jj, cfg, *hyper):
+        static_kernel, dyadic_order, naive, _, _ = cfg
+        if type(static_kernel) is not _kernels.LinearKernel:
+            raise TypeError("the Linear generation route is LinearKernel's; "
+                            f"got {type(static_kernel).__name__}")
+        ctx.save_for_backward(X, Y, ii, jj)
+        ctx.cfg = cfg
+        return cuda_lgen.linear_gen_solve_final(
+            X, Y, ii, jj, static_kernel.scale.to(X), dyadic_order, naive)
 
 
 def _pairs(static_kernel, X, Y, ii, jj, dyadic_order, naive, solver,
            grad_solver="auto"):
     """``k_sig(X[ii[p]], Y[jj[p]])`` per pair; ``ii = jj = None`` pairs
     ``X[p]`` with ``Y[p]``."""
-    fam = routes.resolve_family(static_kernel, X.device.type, solver)
-    if fam in ("gen", "lgen"):
+    need_grad = _need_grad(static_kernel, X, Y)
+    fam = _family(static_kernel, X, Y, dyadic_order, solver, grad_solver,
+                  need_grad)
+    if fam in ("gen", "lgen") or (fam == "inc" and need_grad):
         if ii is None:
             ii = jj = torch.arange(X.shape[0], device=X.device)
         cfg = (static_kernel, dyadic_order, naive, solver, grad_solver)
         if fam == "gen":
             return _RBFGen.apply(X, Y, static_kernel.sigma.to(X), ii, jj,
                                  cfg)
-        return _LinearGen.apply(X, Y, static_kernel.scale.to(X), ii, jj, cfg)
+        fn = _LinearGen if fam == "lgen" else _GridPairs
+        return fn.apply(X, Y, ii, jj, cfg, *_hyper(static_kernel))
     x = X if ii is None else X[ii]
     y = Y if jj is None else Y[jj]
     dd = double_difference(static_kernel.batch_kernel(x, y))
@@ -188,8 +261,10 @@ def _gram_tile(static_kernel, x, y, dyadic_order, naive, solver,
                grad_solver):
     """One ``(a, b)`` Gram tile."""
     a, b = x.shape[0], y.shape[0]
-    if routes.resolve_family(static_kernel, x.device.type,
-                             solver) in ("gen", "lgen"):
+    need_grad = _need_grad(static_kernel, x, y)
+    fam = _family(static_kernel, x, y, dyadic_order, solver, grad_solver,
+                  need_grad)
+    if fam in ("gen", "lgen") or (fam == "inc" and need_grad):
         ii = torch.arange(a, device=x.device).repeat_interleave(b)
         jj = torch.arange(b, device=x.device).repeat(a)
         return _pairs(static_kernel, x, y, ii, jj, dyadic_order, naive,
@@ -283,10 +358,11 @@ def _lincomb_value(static_kernel, X, Y, ii, jj, w, cfg):
 
 
 def _chunk_grads_gen(static_kernel, X, Y, ic, jc, wc, route, cfg):
-    """One lincomb chunk on the ``gen`` family, kernels called directly:
-    values and stack from one forward sweep (K1-stack; for a float32 grade
-    on float64 paths, K1 values plus a float32 K1-stack), then K3<gen>
-    weighted by ``wc`` and K4. Returns ``(values, dX, dY, (d sigma,))``."""
+    """One lincomb chunk on the ``gen`` family, kernels called directly, in
+    sub-chunks whose stacks stay within ``routes.STACK_BYTES``: values and
+    stack from one forward sweep (K1-stack; for a float32 grade on float64
+    paths, K1 values plus a float32 K1-stack), then K3<gen> weighted by
+    ``wc`` and K4. Returns ``(values, dX, dY, (d sigma,))``."""
     dyadic_order, naive, _, _, _ = cfg
     _require_rbf(static_kernel)
     sigma = static_kernel.sigma
@@ -297,17 +373,26 @@ def _chunk_grads_gen(static_kernel, X, Y, ic, jc, wc, route, cfg):
         return v, torch.zeros_like(X), torch.zeros_like(Y), (
             torch.zeros_like(sigma),)
     Xb, Yb = X.to(bdt), Y.to(bdt)
-    if bdt == X.dtype:
-        v, stack = cuda_gen.rbf_gen_solve_stack(X, Y, ic, jc, sigma,
-                                                dyadic_order, naive)
-    else:
-        v = cuda_gen.rbf_gen_solve_final(X, Y, ic, jc, sigma, dyadic_order,
-                                         naive)
-        _, stack = cuda_gen.rbf_gen_solve_stack(Xb, Yb, ic, jc, sigma,
-                                                dyadic_order, naive)
-    ds, dX, dY = _gen_backward(Xb, Yb, ic, jc, sigma, wc, bdt, dyadic_order,
-                               naive, stack=stack)
-    return v, dX, dY, (ds,)
+    sub = routes.chunk_pairs(ic.shape[0], routes.tier_bytes(
+        "full", _refined(X, Y, dyadic_order), Xb.element_size()))
+    ds, dX, dY = Xb.new_zeros(()), torch.zeros_like(Xb), torch.zeros_like(Yb)
+    vals = [X.new_empty(0)]
+    for s in range(0, ic.shape[0], sub):
+        i, j = ic[s:s + sub], jc[s:s + sub]
+        if bdt == X.dtype:
+            v, stack = cuda_gen.rbf_gen_solve_stack(X, Y, i, j, sigma,
+                                                    dyadic_order, naive)
+        else:
+            v = cuda_gen.rbf_gen_solve_final(X, Y, i, j, sigma,
+                                             dyadic_order, naive)
+            _, stack = cuda_gen.rbf_gen_solve_stack(Xb, Yb, i, j, sigma,
+                                                    dyadic_order, naive)
+        e, dx, dy = _gen_backward(Xb, Yb, i, j, sigma, wc[s:s + sub], bdt,
+                                  dyadic_order, naive, stack=stack)
+        del stack
+        vals.append(v)
+        ds, dX, dY = ds + e, dX + dx, dY + dy
+    return torch.cat(vals), dX, dY, (ds,)
 
 
 def _chunk_grads_autograd(static_kernel, X, Y, ic, jc, wc, hyper, cfg):
@@ -344,7 +429,8 @@ class _GramLincomb(torch.autograd.Function):
         acc_dtype = torch.promote_types(W.dtype, X.dtype)
         w = w.to(acc_dtype)
         route = routes.resolve(static_kernel, X.device.type, solver, X.dtype,
-                               grad_solver)
+                               grad_solver, _refined(X, Y, dyadic_order),
+                               need_grad=True)
         S = torch.zeros((), dtype=acc_dtype, device=X.device)
         gX, gY = torch.zeros_like(X), torch.zeros_like(Y)
         gh = [torch.zeros_like(h) for h in hyper]

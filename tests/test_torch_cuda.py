@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 forward kernels K1 and K2, their stack-emitting instances, the adjoint K3
 (gen and inc sources), the increment-chain VJP K4, the derivative Gram's
-triple wavefront K5, the Linear generator K6, and values and gradients
-through the estimators against the plain tier.
+triple wavefront K5, the Linear generator K6, the stripe kernels K7,
+K7-stack and K3<inc, boundary>, the sparse-checkpoint pair K2-sparse and
+K8, and values and gradients through the estimators against the plain
+tier.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode); without one
 they skip. On a GPU machine, run them without the JAX-side conftest:
@@ -17,8 +19,9 @@ import pytest
 import torch
 
 import sigkernel_tpu_torch as skt
-from sigkernel_tpu_torch.ops import (_build, cuda_deriv, cuda_gen, cuda_lgen,
-                                     cuda_solver, incvjp)
+from sigkernel_tpu_torch.ops import (_build, cuda_blocked, cuda_deriv,
+                                     cuda_gen, cuda_lgen, cuda_solver, incvjp,
+                                     routes)
 from sigkernel_tpu_torch.utils import double_difference
 
 pytestmark = pytest.mark.requires_cuda
@@ -325,3 +328,124 @@ def test_linear_gen_kernel_matches_plain(cuda, dtype, naive, dyadic, M, N):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (5,)
     assert _rel(got, want) <= RTOL[dtype]
+
+
+# ---- long paths: K7, K7-stack, K3<inc, boundary>, K2-sparse, K8 -----------
+
+def _grid(Mb, Nb, seed, device, dtype, P=3):
+    gen = torch.Generator().manual_seed(seed)
+    return (0.3 * torch.randn(P, Mb, Nb, generator=gen, dtype=torch.float64)
+            ).to(dtype).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("naive", [False, True])
+@pytest.mark.parametrize("dyadic", [0, 1, 2])
+@pytest.mark.parametrize("Mb,Nb", [(9, 14), (14, 9)])
+def test_stripe_kernels_match_plain(cuda, dtype, naive, dyadic, Mb, Nb):
+    """K7, K7-stack and K3<inc, boundary> against their plain versions,
+    stripe by stripe (three stripes of 4 base rows, the last one short),
+    and the whole stripe chain and striped adjoint against K2 and
+    K2-stack -> K3<inc>, bit for bit."""
+    inc = _grid(Mb, Nb, 30 + Mb + dyadic, cuda, dtype)
+    f = 2 ** dyadic
+    R, C = cuda_blocked.frame(Mb, Nb, dyadic)
+    rows = 4 * f
+    bd = torch.ones(3, C + 1, dtype=dtype, device=cuda)
+    for row0 in range(0, R, rows):
+        h = min(rows, R - row0)
+        for flip in (False, True):
+            got = cuda_blocked.stripe_solve(inc, bd, row0, h, dyadic, naive,
+                                            flip)
+            want = cuda_blocked.stripe_solve_plain(inc, bd, row0, h, dyadic,
+                                                   naive, flip)
+            assert torch.equal(got, want)
+        b, stk = cuda_blocked.stripe_solve_stack(inc, bd, row0, h, dyadic,
+                                                 naive)
+        pb, pstk = cuda_blocked.stripe_solve_stack_plain(inc, bd, row0, h,
+                                                         dyadic, naive)
+        assert torch.equal(b, pb) and torch.equal(stk, pstk)
+        ct = cuda_blocked.stripe_adjoint(inc, stk, bd, torch.zeros_like(inc),
+                                         row0, h, dyadic, naive)
+        pct = cuda_blocked.stripe_adjoint_plain(inc, stk, bd,
+                                                torch.zeros_like(inc), row0,
+                                                h, dyadic, naive)
+        assert torch.equal(ct, pct)
+        bd = b
+    assert torch.equal(cuda_blocked.solve_final(inc, dyadic, naive, rows),
+                       cuda_solver.inc_solve_final(inc, dyadic, naive))
+    _, stack = cuda_solver.inc_solve_stack(inc, dyadic, naive)
+    assert torch.equal(cuda_blocked.adjoint(inc, dyadic, naive, rows),
+                       cuda_solver.inc_adjoint(inc, stack, dyadic, naive))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("naive", [False, True])
+@pytest.mark.parametrize("dyadic", [0, 1, 2])
+@pytest.mark.parametrize("W", [2, 5, cuda_solver.CKPT_WINDOW])
+@pytest.mark.parametrize("Mb,Nb", [(9, 14), (14, 9), (1, 4)])
+def test_ckpt_kernels_match_plain(cuda, monkeypatch, dtype, naive, dyadic, W,
+                                  Mb, Nb):
+    """K2-sparse against its plain version; K8 against K3<inc> on the full
+    stack (the recompute rounds as the forward did) and its plain
+    version, bit for bit."""
+    monkeypatch.setattr(cuda_solver, "CKPT_WINDOW", W)
+    inc = _grid(Mb, Nb, 40 + Nb + dyadic, cuda, dtype)
+    v, sparse = cuda_solver.inc_solve_sparse(inc, dyadic, naive)
+    pv, psparse = cuda_solver.inc_solve_sparse_plain(inc, dyadic, naive)
+    assert torch.equal(v, pv) and torch.equal(sparse, psparse)
+    assert torch.equal(v, cuda_solver.inc_solve_final(inc, dyadic, naive))
+    ct = cuda_solver.inc_adjoint_ckpt(inc, sparse, dyadic, naive)
+    _, stack = cuda_solver.inc_solve_stack(inc, dyadic, naive)
+    assert torch.equal(ct, cuda_solver.inc_adjoint(inc, stack, dyadic, naive))
+    assert torch.equal(ct, cuda_solver.inc_adjoint_ckpt_plain(
+        inc, sparse, dyadic, naive))
+
+
+@pytest.mark.parametrize("tier", ["stripes", "ckpt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_long_path_routes_on_card_match_plain_tier(cuda, monkeypatch, tier,
+                                                   dtype):
+    """Values and gradients of the estimators on the stripe routes (the row
+    bound patched down to 12 rows) and on the sparse-checkpoint route (the
+    gate's pair count patched up) against solver='scan'."""
+    if tier == "stripes":
+        monkeypatch.setattr(_build, "max_rows", lambda itemsize: 12)
+        counts = [cuda_blocked.COUNTS, cuda_blocked.STACK_COUNTS,
+                  cuda_blocked.ADJOINT_COUNTS]
+    else:
+        monkeypatch.setattr(routes, "CKPT_MIN_PAIRS", 1 << 40)
+        counts = [cuda_solver.SPARSE_COUNTS, cuda_solver.CKPT_COUNTS]
+    key = str(dtype).removeprefix("torch.")
+    before = [c[key] for c in counts]
+    X0 = _paths(4, 12, 3, 23, cuda, dtype)
+    Y0 = _paths(3, 9, 3, 24, cuda, dtype)
+    grads, vals = {}, {}
+    for solver in ("auto", "scan"):
+        X, Y = X0.clone().requires_grad_(), Y0.clone().requires_grad_()
+        s = torch.tensor(0.6, dtype=dtype, device=cuda, requires_grad=True)
+        k = skt.RBFKernel(s)
+        vals[solver] = skt.sig_gram(k, X, Y, dyadic_order=1,
+                                    solver=solver).detach()
+        S = (skt.sig_mmd(k, X, Y, dyadic_order=1, solver=solver)
+             + skt.sig_mmd(k, X, Y, dyadic_order=1, solver=solver,
+                           max_batch=2, pair_chunk=5))
+        S.backward()
+        grads[solver] = (X.grad, Y.grad, s.grad)
+    assert all(c[key] > b for c, b in zip(counts, before))
+    assert _rel(vals["auto"], vals["scan"]) <= RTOL[dtype]
+    for g, w in zip(grads["auto"], grads["scan"]):
+        assert g.dtype == dtype and _max_rel(g, w) <= GRAD_BAR[dtype]
+
+
+def test_long_path_routes_resolve_by_shape(cuda):
+    """The row bound and the ckpt gate in both dtypes, as the card's
+    routes read them."""
+    past = 2 * _build.max_rows(4)
+    assert routes.resolve_inc_tier((past, past), 8) == "stripes"
+    assert routes.resolve_inc_tier((past, past), 8, backward=True) == (
+        "striped")
+    assert routes.resolve_inc_tier((4092, 4092), 8, backward=True) == "ckpt"
+    assert routes.resolve_inc_tier((2046, 2046), 8, backward=True) == "full"
+    assert routes.resolve_family(skt.RBFKernel(1.0), "cuda", "auto",
+                                 shape=(past, past)) == "inc"

@@ -37,10 +37,10 @@ def lgen_on_cpu(monkeypatch):
     """Steer exactly-``LinearKernel`` tiles on CPU tensors onto ``lgen``."""
     orig = routes.resolve_family
 
-    def steered(static_kernel, device_type, solver):
+    def steered(static_kernel, device_type, solver, **gates):
         if type(static_kernel) is skt.LinearKernel and solver != "scan":
             return "lgen"
-        return orig(static_kernel, device_type, solver)
+        return orig(static_kernel, device_type, solver, **gates)
 
     monkeypatch.setattr(routes, "resolve_family", steered)
     before = cuda_lgen.COUNTS["plain"]
@@ -157,7 +157,7 @@ def test_lgen_length_one_path(rng, lgen_on_cpu):
 
 
 def test_lgen_refuses_other_kernels(rng, monkeypatch):
-    monkeypatch.setattr(routes, "resolve_family", lambda k, d, s: "lgen")
+    monkeypatch.setattr(routes, "resolve_family", lambda k, d, s, **gates: "lgen")
     X = torch.tensor(make_paths(rng, 2, 5, 2))
     with pytest.raises(TypeError, match="LinearKernel"):
         skt.sig_gram(skt.Linear_ID_Kernel(), X, X)

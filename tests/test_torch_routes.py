@@ -113,12 +113,131 @@ def test_resolve_derivatives_unknown_solver_lists_the_options():
         routes.resolve_derivatives("cuda", "pallas", False)
 
 
+# the inc family's tier on the card, by refined shape and the backward's
+# itemsize: (MM, NN, itemsize, backward) -> tier. The row bound is 9,684
+# rows in double and 19,369 in float; the ckpt gate takes the sparse stack
+# when STACK_BYTES (8 GiB) holds fewer than 128 pairs' full stacks.
+_TIERS = {
+    (2046, 2046, 8, False): "single",     # the north star
+    (2046, 2046, 8, True): "full",        # 67 MB a pair: 128 a chunk
+    (2046, 2046, 4, True): "full",
+    (4092, 4092, 8, False): "single",     # BASELINE config 4
+    (4092, 4092, 8, True): "ckpt",        # 268 MB a pair: 32 a chunk
+    (4092, 4092, 4, True): "ckpt",        # 134 MB: 64 a chunk
+    (8192, 8192, 4, True): "ckpt",        # length 2,049, dyadic 2
+    (9684, 20000, 8, False): "single",    # at the row bound
+    (9685, 20000, 8, False): "stripes",
+    (9685, 20000, 8, True): "striped",
+    (20000, 20000, 8, False): "stripes",  # length 5,001, dyadic 2
+    (20000, 20000, 4, False): "stripes",
+    (20000, 20000, 4, True): "striped",
+    (19369, 19369, 4, False): "single",
+    (0, 20000, 8, True): "full",          # a length-1 path: nothing stored
+}
+
+
+@pytest.mark.parametrize("MM,NN,itemsize,backward", sorted(_TIERS))
+def test_resolve_inc_tier_matrix(MM, NN, itemsize, backward):
+    want = _TIERS[(MM, NN, itemsize, backward)]
+    assert routes.resolve_inc_tier((MM, NN), itemsize, backward) == want
+    assert routes.resolve_inc_tier((NN, MM), itemsize, backward) == want
+    assert want in (routes.INC_BWD_TIERS if backward else routes.INC_TIERS)
+
+
+# the generators on the card, by refined shape, input dtype, grade and
+# whether a gradient is wanted: (kernel, MM, NN, dtype, grade, need_grad)
+# -> family. Every shape that chip_smoke.py's phases 2-9 run keeps the
+# family it had before the long-path tier (first block).
+_F = {"f64": torch.float64, "f32": torch.float32}
+_GATED = {
+    # phases 2, 4, 5 (north star, dyadic 1; with and without gradients)
+    ("rbf", 2046, 2046, "f64", "auto", False): "gen",
+    ("rbf", 2046, 2046, "f32", "auto", False): "gen",
+    ("rbf", 2046, 2046, "f64", "auto", True): "gen",
+    ("rbf", 2046, 2046, "f64", "f32", True): "gen",
+    ("rbf", 2046, 2046, "f32", "auto", True): "gen",
+    # phases 3, 6 (LinearKernel 50 x len 100, dyadic 0) and 4, 6 (batch
+    # 32, len 200, dyadic 1)
+    ("linear", 99, 99, "f64", "auto", False): "lgen",
+    ("linear", 99, 99, "f32", "auto", True): "lgen",
+    ("linear", 99, 99, "f64", "auto", True): "lgen",
+    ("rbf", 398, 398, "f64", "auto", True): "gen",
+    ("functional", 99, 99, "f64", "auto", False): "inc",
+    # phase 8 (CHSIC, len 1024, dyadic 2, forward) and phase 9 (Linear at
+    # the north star)
+    ("rbf", 4092, 4092, "f64", "auto", False): "gen",
+    ("linear", 2046, 2046, "f64", "auto", False): "lgen",
+    ("linear", 2046, 2046, "f32", "auto", False): "lgen",
+    # the long-path tier: the ckpt gate (phase 12) and the row bound
+    ("rbf", 4092, 4092, "f64", "auto", True): "inc",
+    ("rbf", 4092, 4092, "f64", "f32", True): "inc",
+    ("rbf", 4092, 4092, "f32", "auto", True): "inc",
+    ("rbf", 2044, 2044, "f64", "auto", True): "gen",    # 128 a chunk
+    ("rbf", 2364, 2364, "f64", "auto", True): "inc",    # 96 a chunk
+    ("rbf", 8192, 8192, "f32", "auto", True): "inc",
+    ("linear", 4092, 4092, "f64", "auto", True): "inc",
+    ("rbf", 20000, 20000, "f64", "auto", False): "inc",
+    ("rbf", 20000, 20000, "f32", "auto", False): "inc",
+    ("rbf", 20000, 20000, "f64", "f32", True): "inc",
+    ("linear", 20000, 20000, "f64", "auto", False): "inc",
+    ("rbf", 9685, 30000, "f64", "auto", False): "inc",
+    ("rbf", 9685, 30000, "f32", "auto", False): "gen",
+}
+
+
+@pytest.mark.parametrize("kernel,MM,NN,dtype,grade,need_grad",
+                         sorted(_GATED))
+def test_resolve_family_gates_matrix(kernel, MM, NN, dtype, grade,
+                                     need_grad):
+    want = _GATED[(kernel, MM, NN, dtype, grade, need_grad)]
+    for solver in ("auto", "cuda"):
+        got = routes.resolve_family(
+            _KERNELS[kernel], "cuda", solver, shape=(MM, NN),
+            dtype=_F[dtype], grad_solver=grade, need_grad=need_grad)
+        assert got == want
+    # the plain tier ignores the shape
+    assert routes.resolve_family(_KERNELS[kernel], "cpu", "auto",
+                                 shape=(MM, NN), dtype=_F[dtype],
+                                 need_grad=need_grad) == "scan"
+
+
+# float32 sweeps past the float32 row bound warn on the card's routes:
+# (MM, NN, dtype, grade, need_grad) -> warns
+_F32_WARN = {
+    (20000, 20000, "f32", "auto", False): True,    # phase 10, float32
+    (20000, 20000, "f64", "f32", True): True,      # phase 11, f32 grade
+    (20000, 20000, "f64", "f32", False): False,    # values in float64
+    (20000, 20000, "f64", "auto", True): False,
+    (19369, 30000, "f32", "auto", True): False,    # within the bound
+    (2046, 2046, "f32", "f32", True): False,
+}
+
+
+@pytest.mark.parametrize("MM,NN,dtype,grade,need_grad", sorted(_F32_WARN))
+def test_float32_long_grid_warns(MM, NN, dtype, grade, need_grad):
+    import warnings
+
+    for device in ("cuda", "cpu"):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            routes.resolve_family(_KERNELS["rbf"], device, "auto",
+                                  shape=(MM, NN), dtype=_F[dtype],
+                                  grad_solver=grade, need_grad=need_grad)
+        warned = any(issubclass(w.category, RuntimeWarning)
+                     and "drift far from float64" in str(w.message)
+                     for w in seen)
+        # the plain tier (CPU) never warns
+        assert warned == (device == "cuda"
+                          and _F32_WARN[(MM, NN, dtype, grade, need_grad)])
+
+
 def test_import_pulls_in_no_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = ("import sys, sigkernel_tpu_torch, sigkernel_tpu_torch.ops.solve, "
             "sigkernel_tpu_torch.ops.cuda_gen, sigkernel_tpu_torch.stats, "
             "sigkernel_tpu_torch.ops.incvjp, sigkernel_tpu_torch.ops.cuda_deriv, "
             "sigkernel_tpu_torch.ops.cuda_lgen, "
+            "sigkernel_tpu_torch.ops.cuda_blocked, "
             "sigkernel_tpu_torch.models.mmd_flow\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'sigkernel_tpu'))\n"
