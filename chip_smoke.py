@@ -27,7 +27,10 @@ Phases (any failure raises and the script exits non-zero):
    boundary> (``adjoint_collapse_stripe``) stripe by stripe, the stripe
    chain against K2 and the striped adjoint against K3<inc>; K2-sparse
    (``inc_wavefront[sparse]``) against its plain version and K8
-   (``adjoint_ckpt``) against K3<inc> (bit for bit) and its plain version.
+   (``adjoint_ckpt``) against K3<inc> (bit for bit) and its plain version;
+   then K7's band decomposition at its edges (``BAND_CASES``: ragged rows
+   and columns, a zero-padded last adjoint stripe, one pair shorter than a
+   band, 5,000 blocks), K7 and K7-stack bit for bit.
 2. The forward main path at the north-star size: ``SigKernel(RBFKernel(1.0),
    dyadic_order=1)`` on X, Y of shape (100, 1024, 3), float64 and float32:
    ``compute_Gram(X, X, sym=True)``, ``compute_Gram(X, Y)``,
@@ -45,7 +48,9 @@ Phases (any failure raises and the script exits non-zero):
    50, length 100 with ``.backward()`` (K6 values; K2-stack and K3<inc>).
 7. The derivative Gram at the north-star size: ``compute_kernel_and_
    derivatives_Gram(X, Y, gamma, max_batch=16)`` of ``SigKernel(RBFKernel
-   (1.0), dyadic_order=1)``, float64 and float32 (K5).
+   (1.0), dyadic_order=1)``, float64 and float32 (K5); and one float64
+   pair of length 1024 at dyadic 3, past K5's row bound, which ``"auto"``
+   sends to the plain sweep (no K5 launch, equal to ``solver="scan"``).
 8. ``sig_chsic`` at the long-path stress configuration: m = 50 paths of
    length 1024, dim 5, dyadic 2, float64 (three ``sym`` Grams through K1).
 9. The Linear Gram at the north-star size: ``SigKernel(LinearKernel(1.0),
@@ -80,7 +85,9 @@ The launch counters are zeroed before phases 2-4 and before each later
 phase, and read after each: every kernel of the phase must have launched
 and no plain version may have run. The checks of those phases against plain
 versions come after the counters are read, then each kernel is timed beside
-its plain version at 128 pairs, length 1024, dyadic 1, dim 3. The last three
+its plain version at 128 pairs, length 1024, dyadic 1, dim 3 (the stripe
+kernels at phase 10's grid; K7 at both the forward's and the adjoint's
+stripe height, two entries). The last three
 lines of the output are the card's ``nvidia-smi`` line, one JSON object
 describing the kernels (each with its launches on the main path, its
 largest error against its plain version, its time and its plain version's,
@@ -155,6 +162,24 @@ STRIPE_PROBLEMS = [
     ("stripes 2 pairs 1024x1024 d5", 2, 1024, 1024, 5, (2,), 375),
 ]
 CKPT_WINDOWS = (5, None)  # phase 1: K8's window (None: the module's own)
+# phase 1, K7's band decomposition (bands of 128 rows, one block each;
+# hand-offs in chunks of 32 columns): name, pairs, M, N, dim, dyadic order,
+# row0, rows, flip, naive. Ragged rows and C (R 212, C 280: a short last band
+# and chunk), the striped adjoint's zero-padded last stripe (bands wholly
+# past the frame), one pair with rows < 128, and more blocks than the card
+# holds at once (2,500 pairs x 2 bands = 5,000 blocks of 128 threads)
+BAND_CASES = [
+    ("ragged rows and C", 3, 71, 54, 3, 2, 0, 200, True, True),
+    ("ragged rows and C", 3, 71, 54, 3, 2, 0, 200, False, False),
+    ("zero-padded last stripe", 3, 71, 54, 3, 2, 208, 280, True, False),
+    ("zero-padded last stripe", 3, 71, 54, 3, 2, 208, 280, False, True),
+    ("one pair, rows < 128", 1, 41, 60, 2, 0, 0, 40, True, True),
+    ("5,000 blocks: 2,500 pairs of length 64", 2500, 64, 64, 3, 2, 0, 252,
+     False, False),
+]
+# phase 7: one pair past K5's row bound under solver="auto" (float64: 8,184
+# refined rows against 4,840), which takes the plain sweep as JAX does
+DERIV_LONG = (1024, 3)
 # phases 10-11: length, dim, dyadic order of the long paths (a 20,000 x
 # 20,000 refined grid); Gram batch, MMD batch, max_batch of phase 10; pairs
 # checked against the plain stripes; phase 11's max_batch and pair_chunk
@@ -391,6 +416,7 @@ def gate_sweep(gen, card, X5, Y5):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -633,7 +659,8 @@ def main():
             got = cuda_blocked.stripe_solve(inc, bd, row0, h, dy, naive)
             want = cuda_blocked.stripe_solve_plain(inc, bd, row0, h, dy, naive)
             compare("stripe", dtype, got, want, limit, f"K7 {label} {row0}")
-            bits.append(torch.equal(got, want))
+            check(torch.equal(got, want), f"K7 {label} {row0}: not bit-equal")
+            bits.append(True)
             bd = got
         k2 = cuda_solver.inc_solve_final(inc, dy, naive)
         compare("stripe", dtype, bd[:, C], k2, limit, f"K7 chain {label}")
@@ -650,7 +677,9 @@ def main():
                                                        rows, dy, naive, flip)
                 compare("stripe", dtype, got, want, limit,
                         f"K7 {label} {row0} flip {flip}")
-                bits.append(torch.equal(got, want))
+                check(torch.equal(got, want),
+                      f"K7 {label} {row0} flip {flip}: not bit-equal")
+                bits.append(True)
                 bds.append(got)
         ct, pct = torch.zeros_like(inc), torch.zeros_like(inc)
         for s in range(S):
@@ -662,7 +691,9 @@ def main():
                     f"K7-stack {label} {s} bottom row")
             compare_max("stripe_stack", dtype, stk, pstk, glimit,
                         f"K7-stack {label} {s}")
-            bits.append(torch.equal(stk, pstk))
+            check(torch.equal(b, pb) and torch.equal(stk, pstk),
+                  f"K7-stack {label} {s}: not bit-equal")
+            bits.append(True)
             cuda_blocked.stripe_adjoint(inc, stk, bd_r[S - 1 - s], ct,
                                         s * rows, rows, dy, naive)
             cuda_blocked.stripe_adjoint_plain(inc, stk, bd_r[S - 1 - s], pct,
@@ -734,6 +765,43 @@ def main():
                           f"{sum(bits)} of {len(bits)}; K8 equals K3<inc> "
                           f"({time.perf_counter() - t0:.1f} s)")
     print(f"[1] long-path kernel cases passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # K7's band decomposition at its edges: K7 and K7-stack bit for bit
+    t_phase = time.perf_counter()
+    for bname, P, M, N, D, dy, row0, rows, flip, naive in BAND_CASES:
+        X64 = make_paths(gen, P, M, D, F64)
+        Y64 = make_paths(gen, P, N, D, F64)
+        for dtype in (F64, F32):
+            inc = double_difference(skt.RBFKernel(1.0).batch_kernel(
+                X64.to(dtype), Y64.to(dtype))).contiguous()
+            R, C = cuda_blocked.frame(inc.shape[1], inc.shape[2], dy)
+            bd = inc.new_ones(P, C + 1)
+            bd[:, 1:] += 1e-2 * torch.rand(P, C, generator=gen, device=dev,
+                                           dtype=F64).to(dtype)
+            label = (f"K7 {bname} {name[dtype]} (R {R}, C {C}, rows {row0} +"
+                     f" {rows}, {-(-rows // cuda_blocked.BAND_ROWS)} bands a "
+                     f"pair, flip {flip}, {'naive' if naive else 'order-2'})")
+            limit = F64_RTOL if dtype == F64 else F32_RTOL_SMALL
+            glimit = GRAD_F64 if dtype == F64 else GRAD_F32
+            got, t7 = synced(lambda: cuda_blocked.stripe_solve(
+                inc, bd, row0, rows, dy, naive, flip))
+            want = cuda_blocked.stripe_solve_plain(inc, bd, row0, rows, dy,
+                                                   naive, flip)
+            compare("stripe", dtype, got, want, limit, label)
+            check(torch.equal(got, want), f"{label}: not bit-equal")
+            (b, stk), ts = synced(lambda: cuda_blocked.stripe_solve_stack(
+                inc, bd, row0, rows, dy, naive, flip))
+            pb, pstk = cuda_blocked.stripe_solve_stack_plain(
+                inc, bd, row0, rows, dy, naive, flip)
+            compare_max("stripe_stack", dtype, stk, pstk, glimit,
+                        f"{label} stack")
+            check(torch.equal(b, pb) and torch.equal(stk, pstk),
+                  f"{label}: K7-stack not bit-equal")
+            del stk, pstk, inc
+            print(f"[1] {label}: K7 and K7-stack bit-equal to their plain "
+                  f"versions ({t7 * 1e3:.1f} / {ts * 1e3:.1f} ms)")
+    print(f"[1] K7 band cases passed in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
     # ---- phases 2-4: the forward main path, counted ---------------------
@@ -869,6 +937,17 @@ def main():
               f"{A * A / sec:.1f} path-pairs/s ({A * A} pairs), peak memory "
               f"allocated {torch.cuda.max_memory_allocated()} bytes ({base} "
               "before the call)")
+    # one pair past K5's bound under "auto": the plain sweep, no K5 launch
+    L7, dy7 = DERIV_LONG
+    X7, Y7, G7 = (make_paths(gen, 1, L7, 3, F64) for _ in range(3))
+    k5 = cuda_deriv.COUNTS["float64"]
+    deriv_long, sec = synced(lambda: skt.sig_kernel_and_derivatives_gram(
+        rbf, X7, Y7, G7, dyadic_order=dy7))
+    check(cuda_deriv.COUNTS["float64"] == k5,
+          "[7] K5 launched past its row bound")
+    print(f"[7] float64 one pair, len {L7}, dyadic {dy7} ({(L7 - 1) * 2 ** dy7}"
+          f" refined rows, K5's bound {cuda_deriv.max_rows(8)}), solver='auto':"
+          f" {sec:.3f} s, no K5 launch")
     read_counters("7", [("deriv", F32), ("deriv", F64)])
 
     # ---- phase 8: CHSIC at the long-path stress size, counted -----------
@@ -1057,6 +1136,16 @@ def main():
               f"{dbar:.0e})")
         check(errs[0] <= kbar and max(errs[1:]) <= dbar,
               f"[7] {name[dtype]} derivative Gram vs plain tier")
+    want = skt.sig_kernel_and_derivatives_gram(rbf, X7, Y7, G7,
+                                               dyadic_order=dy7, solver="scan")
+    for got, w in zip(deriv_long, want):
+        check(got.shape == (1, 1) and bool(torch.isfinite(got).all())
+              and torch.equal(got, w),
+              "[7] the pair past K5's bound differs from solver='scan'")
+    print(f"[7] the pair past K5's bound equals solver='scan': K "
+          f"{float(deriv_long[0])}, K_diff {float(deriv_long[1])}, "
+          f"K_diffdiff {float(deriv_long[2])}")
+    del X7, Y7, G7, deriv_long, want
     errs = [max_rel(a.double(), b) for a, b in zip(deriv[F32], deriv[F64])]
     print("[7] float32 vs float64 derivative Gram, max abs err / max |ref|: "
           f"K {errs[0]:.2e}, K_diff {errs[1]:.2e}, K_diffdiff {errs[2]:.2e}")
@@ -1370,10 +1459,11 @@ def main():
     # ---- kernel times beside their plain versions -----------------------
     timing = {}
 
-    def timed(kind, dtype, kern, plain, cmp, lim, shape, where):
+    def timed(kind, dtype, kern, plain, cmp, lim, shape, where, tag=None):
         """Time ``plain`` (its one call, whose result the comparison uses)
         and ``kern`` (5 launches after a warm-up) by CUDA events; ``shape`` =
-        (P, M, N, D, f[, rows[, W]]) for the bound."""
+        (P, M, N, D, f[, rows[, W]]) for the bound; ``tag``: a second shape
+        of the same kernel, kept beside the first."""
         got = kern()  # warm-up
         want, plain_ms = event_call(plain)
         r = cmp(kind, dtype, got, want, lim,
@@ -1383,7 +1473,8 @@ def main():
         b, o = work(kind, *shape[:5], torch.empty((), dtype=dtype)
                     .element_size(), *shape[5:])
         bound_ms, by = bound(b, o, name[dtype])
-        timing[(kind, dtype)] = (ms, plain_ms, bound_ms, by, where)
+        timing[(kind, dtype) + ((tag,) if tag else ())] = (
+            ms, plain_ms, bound_ms, by, where)
         print(f"[t] {instances[(kind, dtype)]}: {where}: kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
               f"({by}; {b} bytes, {o} operations), err {r:.2e} ({card})")
@@ -1489,6 +1580,12 @@ def main():
         rows = cuda_blocked.adjoint_rows(dy10, size)
         where = (f"{Ps} pairs, len {L10}, dyadic {dy10}, one stripe of "
                  f"{rows} rows")
+        # K7 at the striped adjoint's height, where most of its launches run
+        timed("stripe", dtype,
+              lambda: cuda_blocked.stripe_solve(inc, ones, 0, rows, dy10),
+              lambda: cuda_blocked.stripe_solve_plain(inc, ones, 0, rows,
+                                                      dy10),
+              compare, limit, shape + (rows,), where, tag="adjoint")
         timed("stripe_stack", dtype,
               lambda: cuda_blocked.stripe_solve_stack(inc, ones, 0, rows,
                                                       dy10)[1],
@@ -1563,10 +1660,12 @@ def main():
               "lgen": "linear_gen_wavefront.cu",
               "stripe": "stripe_wavefront.cu",
               "stripe_stack": "stripe_wavefront.cu"}
+    check(set(instances) <= {k[:2] for k in timing}, "a kernel was not timed")
     kernels = []
-    for key, iname in instances.items():
-        rep, also = replaces[key]
-        ms, plain_ms, bound_ms, by, where = timing[key]
+    for tkey in timing:
+        key = tkey[:2]
+        iname, (rep, also) = instances[key], replaces[key]
+        ms, plain_ms, bound_ms, by, where = timing[tkey]
         # no single PyTorch call computes a wavefront sweep or its adjoint
         kernels.append({"name": iname, "route": "cuda",
                         "source": f"sigkernel_tpu_torch/csrc/{source[key[0]]}",
@@ -1575,6 +1674,7 @@ def main():
                         "max_abs_err": max_abs[key], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": by, "library_ms": None, "at": where})
+    print(f"[t] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -48,15 +48,18 @@ _SIGNATURES = {
     # inc, out, sparse, P, Mb, Nb, f, W, naive, device, stream
     "sk_inc_sparse_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
     "sk_inc_sparse_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
-    # inc, bd, bottom, P, Mb, Nb, f, row0, rows, flip, naive, device, stream
-    "sk_stripe_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "sk_stripe_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # inc, bd, bottom, stack, P, Mb, Nb, f, row0, rows, flip, naive, device,
-    # stream
-    "sk_stripe_stack_f32": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _P],
-    "sk_stripe_stack_f64": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _P],
+    # inc, bd, bottom, scratch, counters, P, Mb, Nb, f, row0, rows, nbands,
+    # flip, naive, device, stream
+    "sk_stripe_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _P],
+    "sk_stripe_f64": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _P],
+    # inc, bd, bottom, stack, scratch, counters, P, Mb, Nb, f, row0, rows,
+    # nbands, flip, naive, device, stream
+    "sk_stripe_stack_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _P],
+    "sk_stripe_stack_f64": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _P],
     # rows, cols, ri, ci, out, stack, P, Lr, Lc, D, f, sigma, naive, device,
     # stream
     "sk_rbf_gen_stack_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
@@ -191,8 +194,8 @@ def max_rows(itemsize: int) -> int:
 
 
 def check_rows(rows: int, itemsize: int, what: str) -> None:
-    """Raise unless ``rows`` (the shorter refined side, or a stripe's
-    height) is within :func:`max_rows`."""
+    """Raise unless ``rows`` (the shorter refined side of a one-block
+    wavefront) is within :func:`max_rows`."""
     if rows > max_rows(itemsize):
         raise ValueError(
             f"{what}: the shorter refined side has {rows} rows; the kernel "

@@ -1,17 +1,21 @@
-"""K7: grids too tall for one block, in stripes (``csrc/stripe_wavefront.cu``),
-and the striped adjoint on K7-stack and K3<inc, boundary>
-(``csrc/adjoint_collapse.cu``).
+"""K7: grids too tall for one block, in stripes (``csrc/stripe_wavefront.cu``,
+the band-pipelined wavefront of ``csrc/band_sweep.cuh``), and the striped
+adjoint on K7-stack and K3<inc, boundary> (``csrc/adjoint_collapse.cu``).
 
-Counterpart of :mod:`sigkernel_tpu.ops.pallas_blocked`. The wavefront
-kernels keep a ring of three diagonals of the shorter refined side R in one
-block's shared memory, so R is bounded (:func:`._build.max_rows`: 9,684 rows
-in double, 19,369 in float). Past it the frame's rows are cut into stripes
-of at most that many rows, a multiple of ``f`` so no base row straddles two
-stripes. Each stripe is K2's sweep whose row 0 is the bottom row of the
-stripe above (the north boundary) instead of 1; the first stripe's boundary
-is the global 1s, and the last stripe's bottom-right value is the corner.
-Stripes run one launch after another on the current stream (the data
-dependence is real); pairs give the parallelism.
+Counterpart of :mod:`sigkernel_tpu.ops.pallas_blocked`. The one-block
+wavefront kernels keep a ring of three diagonals of the shorter refined side
+R in one block's shared memory, so R is bounded (:func:`._build.max_rows`:
+9,684 rows in double, 19,369 in float). Past it the frame's rows are cut
+into stripes of at most that many rows, a multiple of ``f`` so no base row
+straddles two stripes. Each stripe is K2's recurrence whose row 0 is the
+bottom row of the stripe above (the north boundary) instead of 1; the first
+stripe's boundary is the global 1s, and the last stripe's bottom-right value
+is the corner. Stripes run one launch after another on the current stream
+(the data dependence is real). Inside a stripe K7 runs one block per band of
+:data:`BAND_ROWS` rows of each pair, the bands handing their bottom rows on
+in chunks of :data:`CHUNK` columns through a global scratch row with a
+progress counter each (:func:`stripe_solve_banded_plain` emulates that
+decomposition on any device, for the tests).
 
 - :func:`solve_final` (forward): ``ceil(R / Rs)`` K7 launches, the last
   stripe short (JAX ``pallas_blocked.solve_final``/``solve_final_df``).
@@ -54,6 +58,10 @@ ADJOINT_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 
 # the striped adjoint's stripe height (refined rows), before rounding to f
 ADJ_ROWS = 2048
+# K7's band (rows a block) and hand-off chunk (columns), as in
+# csrc/band_sweep.cuh (kBandRows, kChunk)
+BAND_ROWS = 128
+CHUNK = 32
 
 _FNS = {torch.float32: "sk_stripe_f32", torch.float64: "sk_stripe_f64"}
 _STACK_FNS = {torch.float32: "sk_stripe_stack_f32",
@@ -117,6 +125,86 @@ def stripe_solve_stack_plain(inc, bd, row0, rows, dyadic_order=0,
     return grid[..., -1, :].clone(), scan_solver.grid_to_stack(grid)
 
 
+def _band_increments(inc, f, row0, rows, flip):
+    """The stripe's refined increments ``(P, rows, C)`` by K7's own index
+    arithmetic (``band_stripe``'s ``base``): row ``i`` reads frame row
+    ``row0 + (rows - i if flip else i - 1)`` (zero at and past R), column
+    ``c`` base column ``q = (c - 1) // f``, reversed with ``flip``, through
+    the transpose when ``Mb > Nb``; scaled by the exact ``1 / f^2``."""
+    P, Mb, Nb = inc.shape
+    transpose = Mb > Nb
+    R, C = min(Mb, Nb) * f, max(Mb, Nb) * f
+    dev = inc.device
+    i = torch.arange(1, rows + 1, device=dev)
+    r = (rows - i if flip else i - 1) + row0
+    has = r < R
+    ra = torch.where(has, r // f, 0)[:, None]
+    q = (torch.arange(1, C + 1, device=dev) - 1) // f
+    cb = (C // f - 1 - q if flip else q)[None, :]
+    at = cb * Nb + ra if transpose else ra * Nb + cb
+    u = inc.reshape(P, Mb * Nb)[:, at] * (1.0 / (f * f))
+    return torch.where(has[:, None], u, torch.zeros_like(u))
+
+
+def _sweep_tile(north, west, u, scheme):
+    """One band's chunk: the ``(P, h + 1, w + 1)`` tile whose row 0 is
+    ``north`` (columns ``c0 - 1 .. c0 + w - 1``, the corner first) and whose
+    column 0 below it is ``west``, swept by anti-diagonals in the plain
+    sweep's operand order."""
+    P, h, w = u.shape
+    tile = u.new_empty(P, h + 1, w + 1)
+    tile[:, 0, :] = north
+    tile[:, 1:, 0] = west
+    for p in range(2, h + w + 1):
+        i = torch.arange(max(1, p - w), min(h, p - 1) + 1, device=u.device)
+        tile[:, i, p - i] = scheme(tile[:, i - 1, p - i - 1],
+                                   tile[:, i - 1, p - i],
+                                   tile[:, i, p - i - 1], u[:, i - 1, p - i - 1])
+    return tile
+
+
+def stripe_solve_banded_plain(inc, bd, row0, rows, dyadic_order=0,
+                              naive=False, flip=False, H=BAND_ROWS, Wc=CHUNK,
+                              stack=False):
+    """K7's decomposition in plain PyTorch, for the tests: bands of ``H``
+    rows swept one after another, each in chunks of ``Wc`` columns, a chunk
+    taking its north row from the band above's hand-off row (``bd`` for
+    band 0) and its west column from the chunk before; the increments by
+    K7's index arithmetic. Returns the bottom row ``(P, C + 1)``, with
+    ``stack`` also K7-stack's stack written as the kernel writes it. Bit for
+    bit :func:`stripe_solve_plain` / :func:`stripe_solve_stack_plain`; no
+    route runs it."""
+    P = inc.shape[0]
+    f = 2 ** dyadic_order
+    C = max(inc.shape[1], inc.shape[2]) * f
+    scheme = scan_solver.get_scheme(naive)
+    u = _band_increments(inc, f, row0, rows, flip)
+    stk = None
+    if stack:
+        stk = inc.new_zeros(P, rows + C + 1, rows + 1)
+        stk[:, :C + 1, 0] = bd
+        diag = torch.arange(1, rows + 1, device=inc.device)
+        stk[:, diag, diag] = 1
+    above = bd
+    for i0 in range(1, rows + 1, H):  # band by band
+        h = min(H, rows - i0 + 1)
+        below = inc.new_ones(P, C + 1)  # the band's hand-off row
+        west = inc.new_ones(P, h)
+        for c0 in range(1, C + 1, Wc):  # chunk by chunk
+            w = min(Wc, C - c0 + 1)
+            tile = _sweep_tile(above[:, c0 - 1:c0 + w], west,
+                               u[:, i0 - 1:i0 - 1 + h, c0 - 1:c0 - 1 + w],
+                               scheme)
+            west = tile[:, 1:, -1]
+            below[:, c0:c0 + w] = tile[:, -1, 1:]
+            if stk is not None:
+                i = torch.arange(i0, i0 + h, device=inc.device)[:, None]
+                c = torch.arange(c0, c0 + w, device=inc.device)[None, :]
+                stk[:, i + c, i.expand(h, w)] = tile[:, 1:, 1:]
+        above = below
+    return (above, stk) if stack else above
+
+
 def stripe_adjoint_plain(inc, stack, bd, ct, row0, rows, dyadic_order=0,
                          naive=False) -> torch.Tensor:
     """Plain version of K3<inc, boundary>: forward stripe ``s`` from its
@@ -156,8 +244,28 @@ def _check(inc, bd, row0, rows, dyadic_order, what):
     if rows > C:
         raise ValueError(f"{what}: a stripe of {rows} rows is taller than "
                          f"the frame's {C} columns")
-    _build.check_rows(rows, inc.element_size(), what)
+    bound = _build.max_rows(inc.element_size())
+    if rows > bound:
+        # K7 holds nothing of a stripe in shared memory, but K3<inc,
+        # boundary> does, and the routes cut no stripe taller (stripe_rows)
+        raise ValueError(f"{what}: a stripe of {rows} rows is taller than "
+                         f"the {bound} rows the routes cut it to, which "
+                         "K3<inc, boundary>'s ring of three diagonals in "
+                         "shared memory holds")
     return P, Mb, Nb, f, C
+
+
+def _band_scratch(inc, rows, C):
+    """``(nbands, scratch, counters)`` of one K7 launch: the bands' hand-off
+    rows ``(P, nbands - 1, C + 1)`` and the zeroed progress counters and
+    ticket (``P * nbands + 1`` ints), on the current stream."""
+    P = inc.shape[0]
+    nbands = -(-rows // BAND_ROWS)
+    scratch = torch.empty(P * (nbands - 1) * (C + 1), dtype=inc.dtype,
+                          device=inc.device)
+    counters = torch.zeros(P * nbands + 1, dtype=torch.int32,
+                           device=inc.device)
+    return nbands, scratch, counters
 
 
 def stripe_solve(inc, bd, row0, rows, dyadic_order=0, naive=False,
@@ -174,9 +282,11 @@ def stripe_solve(inc, bd, row0, rows, dyadic_order=0, naive=False,
                              "stripe_solve")
     bottom = torch.empty_like(bd)
     if P:
+        nbands, scratch, counters = _band_scratch(inc, rows, C)
         _build.launch("stripe_wavefront", _FNS, COUNTS, inc, inc.data_ptr(),
-                      bd.data_ptr(), bottom.data_ptr(), P, Mb, Nb, f, row0,
-                      rows, int(flip), int(naive))
+                      bd.data_ptr(), bottom.data_ptr(), scratch.data_ptr(),
+                      counters.data_ptr(), P, Mb, Nb, f, row0, rows, nbands,
+                      int(flip), int(naive))
     return bottom
 
 
@@ -193,10 +303,12 @@ def stripe_solve_stack(inc, bd, row0, rows, dyadic_order=0, naive=False,
     stack = torch.empty(cuda_solver.stack_shape(P, rows, C), dtype=inc.dtype,
                         device=inc.device)
     if P:
+        nbands, scratch, counters = _band_scratch(inc, rows, C)
         _build.launch("stripe_wavefront[stack]", _STACK_FNS, STACK_COUNTS,
                       inc, inc.data_ptr(), bd.data_ptr(), bottom.data_ptr(),
-                      stack.data_ptr(), P, Mb, Nb, f, row0, rows, int(flip),
-                      int(naive))
+                      stack.data_ptr(), scratch.data_ptr(),
+                      counters.data_ptr(), P, Mb, Nb, f, row0, rows, nbands,
+                      int(flip), int(naive))
     return bottom, stack
 
 

@@ -49,8 +49,10 @@ kernel's failure to try another route. The memory policy is here too:
 :data:`CKPT_MIN_PAIRS` is the ckpt gate.
 
 The derivative Gram (:func:`resolve_derivatives`) has its own two routes:
-``cuda``, K5 ``cuda_deriv`` (forward only), and ``scan``, the plain triple
-sweep, which autograd differentiates.
+``cuda``, K5 ``cuda_deriv`` (forward only, within its shared-memory row
+bound), and ``scan``, the plain triple sweep, which autograd
+differentiates and which ``"auto"`` takes past K5's bound, as JAX's
+``sig_kernel_and_derivatives_gram`` leaves Pallas for its scan tier.
 
 The backward's dtype (``grad_solver``): ``"auto"`` and ``"df64"`` give
 gradients at the input precision (on Hopper, ``df64`` is native double);
@@ -66,7 +68,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, cuda_blocked, cuda_solver
+from . import _build, cuda_blocked, cuda_deriv, cuda_solver
 from .. import kernels as _kernels
 
 SOLVERS = ("auto", "scan", "cuda")
@@ -231,13 +233,26 @@ def resolve_family(static_kernel, device_type: str, solver: str,
     return family
 
 
-def resolve_derivatives(device_type: str, solver: str,
-                        needs_grad: bool) -> str:
-    """The derivative Gram's route: ``"cuda"`` (K5) for CUDA tensors,
-    ``"scan"`` on the CPU or when asked. K5 is forward only, as the JAX
-    package's Pallas tier is: ``needs_grad`` (an input requires a gradient)
-    on the ``"cuda"`` route raises rather than return a detached value."""
+def resolve_derivatives(device_type: str, solver: str, needs_grad: bool,
+                        shape, itemsize: int) -> str:
+    """The derivative Gram's route for a refined ``(MM, NN)`` grid of
+    ``itemsize``-byte values: ``"cuda"`` (K5) for CUDA tensors while the
+    shorter side is within :func:`.cuda_deriv.max_rows`, ``"scan"`` on the
+    CPU, when asked, or under ``"auto"`` past K5's bound (JAX takes its scan
+    tier there, ``sigkernel.py:935-939``); ``solver="cuda"`` past the bound
+    raises. K5 is forward only, as the JAX package's Pallas tier is:
+    ``needs_grad`` (an input requires a gradient) on the ``"cuda"`` route
+    raises rather than return a detached value."""
     if _plain_tier(device_type, solver):
+        return "scan"
+    bound = cuda_deriv.max_rows(itemsize)
+    if min(shape) > bound:
+        if solver == "cuda":
+            raise ValueError(
+                f"solver='cuda': the derivative Gram's refined grid {shape[0]}"
+                f" x {shape[1]} has a shorter side past K5's bound of {bound} "
+                f"rows ({itemsize}-byte values); solver='auto' takes the "
+                "plain sweep there")
         return "scan"
     if needs_grad:
         raise ValueError("the derivative Gram's CUDA route (K5) is forward "

@@ -539,13 +539,17 @@ def sig_kernel_and_derivatives_gram(static_kernel, X, Y, gamma,
     K_diff, K_diffdiff)`` in the input dtype. ``max_batch`` tiles the
     ``(bx, by)`` pair grid, ``max_batch**2`` pairs (three grids each) at a
     time. The route (:func:`.ops.routes.resolve_derivatives`): K5 for CUDA
-    tensors, forward only (an input that requires a gradient raises there);
-    the plain sweep on the CPU or with ``solver="scan"``, differentiable by
-    autograd.
+    tensors within its row bound, forward only (an input that requires a
+    gradient raises there); the plain sweep on the CPU, with
+    ``solver="scan"`` or, under ``"auto"``, past K5's bound, differentiable
+    by autograd.
     """
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (X, Y, gamma) + _hyper(static_kernel))
-    route = routes.resolve_derivatives(X.device.type, solver, needs_grad)
+    f = 2 ** dyadic_order
+    shape = ((X.shape[1] - 1) * f, (Y.shape[1] - 1) * f)
+    route = routes.resolve_derivatives(X.device.type, solver, needs_grad,
+                                       shape, X.dtype.itemsize)
     bx, by = X.shape[0], Y.shape[0]
     mb = max(bx, by, 1) if max_batch is None else max_batch
     tiles = [[_derivatives_tile(static_kernel, X[a:a + mb], Y[b:b + mb],

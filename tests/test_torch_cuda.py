@@ -380,6 +380,36 @@ def test_stripe_kernels_match_plain(cuda, dtype, naive, dyadic, Mb, Nb):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("P,Mb,Nb,dyadic,row0,rows", [
+    (3, 70, 53, 2, 0, 200),     # ragged: two bands, a short last chunk
+    (3, 70, 53, 2, 208, 280),   # zero-padded: bands wholly past the frame
+    (1, 40, 59, 0, 0, 40),      # one pair, rows < 128
+    (2, 150, 140, 0, 0, 140),   # a second band of 12 rows
+    (2, 100, 90, 2, 4, 352),    # three bands, the ring lapped (C = 400)
+])
+def test_band_decomposition_matches_plain(cuda, dtype, flip, P, Mb, Nb,
+                                          dyadic, row0, rows):
+    """K7 and K7-stack at the edges of the band decomposition, bit for bit
+    their plain versions and the CPU emulation of the decomposition."""
+    inc = _grid(Mb, Nb, 50 + rows, cuda, dtype, P)
+    C = max(Mb, Nb) * 2 ** dyadic
+    bd = torch.ones(P, C + 1, dtype=dtype, device=cuda)
+    bd[:, 1:] += 0.01 * torch.arange(C, dtype=dtype, device=cuda) / C
+    got = cuda_blocked.stripe_solve(inc, bd, row0, rows, dyadic, False, flip)
+    want = cuda_blocked.stripe_solve_plain(inc, bd, row0, rows, dyadic,
+                                           False, flip)
+    assert torch.equal(got, want)
+    assert torch.equal(got, cuda_blocked.stripe_solve_banded_plain(
+        inc, bd, row0, rows, dyadic, False, flip))
+    b, stk = cuda_blocked.stripe_solve_stack(inc, bd, row0, rows, dyadic,
+                                             False, flip)
+    pb, pstk = cuda_blocked.stripe_solve_stack_plain(inc, bd, row0, rows,
+                                                     dyadic, False, flip)
+    assert torch.equal(b, pb) and torch.equal(stk, pstk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("naive", [False, True])
 @pytest.mark.parametrize("dyadic", [0, 1, 2])
 @pytest.mark.parametrize("W", [2, 5, cuda_solver.CKPT_WINDOW])

@@ -171,8 +171,8 @@ def test_cuda_route_refuses_inputs_that_need_a_gradient(rng, monkeypatch):
     requires a gradient raises, unless gradients are off."""
     resolve = routes.resolve_derivatives
     monkeypatch.setattr(routes, "resolve_derivatives",
-                        lambda dev, solver, grad: resolve("cuda", solver,
-                                                          grad))
+                        lambda dev, solver, grad, shape, itemsize: resolve(
+                            "cuda", solver, grad, shape, itemsize))
     X, Y, G = (torch.tensor(a) for a in _inputs(rng, 3))
     before = cuda_deriv.COUNTS["plain"]
     got = skt.sig_kernel_and_derivatives_gram(skt.RBFKernel(0.6), X, Y, G,
@@ -190,6 +190,50 @@ def test_cuda_route_refuses_inputs_that_need_a_gradient(rng, monkeypatch):
             skt.sig_kernel_and_derivatives_gram(k, *args, dyadic_order=1)
         with torch.no_grad():
             skt.sig_kernel_and_derivatives_gram(k, *args, dyadic_order=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dyadic", [0, 2])
+def test_estimator_passes_the_refined_shape_and_itemsize(rng, monkeypatch,
+                                                         dtype, dyadic):
+    """``sig_kernel_and_derivatives_gram`` asks the resolver with the
+    refined shape ``((Lx - 1) 2^d, (Ly - 1) 2^d)`` and the inputs'
+    itemsize; routed as if on CUDA past K5's bound (the bound patched to 3
+    rows) under "auto", it takes the plain sweep, launches nothing of K5 and
+    returns the scan tier's value, with a gradient too; "cuda" raises."""
+    seen = []
+    resolve = routes.resolve_derivatives
+
+    def spy(dev, solver, grad, shape, itemsize):
+        seen.append((shape, itemsize))
+        return resolve("cuda", solver, grad, shape, itemsize)
+
+    monkeypatch.setattr(routes, "resolve_derivatives", spy)
+    monkeypatch.setattr(cuda_deriv, "max_rows", lambda itemsize: 3)
+    X, Y, G = (torch.tensor(a, dtype=dtype) for a in _inputs(rng, 3))
+    X = X[:, :5]
+    G = G[:, :5]
+    before = dict(cuda_deriv.COUNTS)
+    x = X.clone().requires_grad_()
+    got = skt.sig_kernel_and_derivatives_gram(skt.RBFKernel(0.6), x, Y, G,
+                                              dyadic_order=dyadic)
+    f = 2 ** dyadic
+    assert seen == [((4 * f, (Y.shape[1] - 1) * f), dtype.itemsize)]
+    assert cuda_deriv.COUNTS == before
+    sum(t.sum() for t in got).backward()
+    assert torch.isfinite(x.grad).all()
+    monkeypatch.undo()
+    want = skt.sig_kernel_and_derivatives_gram(skt.RBFKernel(0.6), X, Y, G,
+                                               dyadic_order=dyadic,
+                                               solver="scan")
+    for g, w in zip(got, want):
+        assert torch.equal(g.detach(), w)
+    monkeypatch.setattr(routes, "resolve_derivatives", spy)
+    monkeypatch.setattr(cuda_deriv, "max_rows", lambda itemsize: 3)
+    with pytest.raises(ValueError, match="K5's bound of 3 rows"):
+        skt.sig_kernel_and_derivatives_gram(skt.RBFKernel(0.6), X, Y, G,
+                                            dyadic_order=dyadic,
+                                            solver="cuda")
 
 
 def test_shared_memory_bound_is_named():

@@ -83,34 +83,67 @@ def test_unknown_grad_solver_raises():
         routes.resolve(None, "cuda", "auto", torch.float64, "f64")
 
 
-# the derivative Gram: (device type, solver, an input needs a gradient) ->
-# route, or the error it raises
+# the derivative Gram: (device type, solver, an input needs a gradient,
+# refined shape, itemsize) -> route, or the error it raises. K5's bound is
+# 4,840 rows in double and 9,683 in float (cuda_deriv.max_rows); past it
+# "auto" takes the plain sweep, as JAX leaves Pallas for its scan tier.
+_K5_ROWS = {8: 4840, 4: 9683}
+_SHAPES = [(_shape, _size) for _size, _b in _K5_ROWS.items()
+           for _shape in ((2046, 2046), (_b, _b + 7), (_b + 7, _b),
+                          (_b + 1, _b + 1), (_b + 1, 30000))]
 _DERIV = {}
-for _dev in ("cpu", "cuda"):
-    for _grad in (False, True):
-        _DERIV[(_dev, "scan", _grad)] = "scan"
-        _DERIV[(_dev, "cuda", _grad)] = (
-            "CUDA tensors" if _dev == "cpu" else
-            "forward only" if _grad else "cuda")
-        _DERIV[(_dev, "auto", _grad)] = (
-            "scan" if _dev == "cpu" else "forward only" if _grad else "cuda")
+for _shape, _size in _SHAPES:
+    _past = min(_shape) > _K5_ROWS[_size]
+    for _dev in ("cpu", "cuda"):
+        for _grad in (False, True):
+            _DERIV[(_dev, "scan", _grad, _shape, _size)] = "scan"
+            _DERIV[(_dev, "cuda", _grad, _shape, _size)] = (
+                "CUDA tensors" if _dev == "cpu" else
+                "K5's bound" if _past else
+                "forward only" if _grad else "cuda")
+            _DERIV[(_dev, "auto", _grad, _shape, _size)] = (
+                "scan" if _dev == "cpu" or _past else
+                "forward only" if _grad else "cuda")
 
 
-@pytest.mark.parametrize("device,solver,needs_grad", sorted(_DERIV))
+@pytest.mark.parametrize("device,solver,needs_grad",
+                         sorted({k[:3] for k in _DERIV}))
 def test_resolve_derivatives_matrix(device, solver, needs_grad):
-    """K5 for CUDA tensors, forward only: an input that needs a gradient
-    raises there rather than come back detached."""
-    want = _DERIV[(device, solver, needs_grad)]
-    if want in routes.DERIV_ROUTES:
-        assert routes.resolve_derivatives(device, solver, needs_grad) == want
-    else:
-        with pytest.raises(ValueError, match=want):
-            routes.resolve_derivatives(device, solver, needs_grad)
+    """K5 for CUDA tensors within its row bound, forward only: an input
+    that needs a gradient raises there rather than come back detached; past
+    the bound "auto" takes the plain sweep (with or without a gradient) and
+    "cuda" raises, naming the bound. Each refined shape at and one past the
+    bound, both orientations, both itemsizes."""
+    for shape, itemsize in _SHAPES:
+        want = _DERIV[(device, solver, needs_grad, shape, itemsize)]
+        args = (device, solver, needs_grad, shape, itemsize)
+        if want in routes.DERIV_ROUTES:
+            assert routes.resolve_derivatives(*args) == want
+        else:
+            with pytest.raises(ValueError, match=want):
+                routes.resolve_derivatives(*args)
+        if want == "K5's bound":
+            with pytest.raises(ValueError,
+                               match=f"{_K5_ROWS[itemsize]} rows"):
+                routes.resolve_derivatives(*args)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_k5_bound_is_cuda_deriv_max_rows(itemsize):
+    """The matrix's bounds are K5's own, read from ``cuda_deriv``."""
+    from sigkernel_tpu_torch.ops import cuda_deriv
+
+    b = _K5_ROWS[itemsize]
+    assert cuda_deriv.max_rows(itemsize) == b
+    assert routes.resolve_derivatives("cuda", "auto", False, (b, b),
+                                      itemsize) == "cuda"
+    assert routes.resolve_derivatives("cuda", "auto", True, (b + 1, b + 1),
+                                      itemsize) == "scan"
 
 
 def test_resolve_derivatives_unknown_solver_lists_the_options():
     with pytest.raises(ValueError, match="'auto', 'scan', 'cuda'"):
-        routes.resolve_derivatives("cuda", "pallas", False)
+        routes.resolve_derivatives("cuda", "pallas", False, (10, 10), 8)
 
 
 # the inc family's tier on the card, by refined shape and the backward's
