@@ -28,9 +28,11 @@ Phases (any failure raises and the script exits non-zero):
    chain against K2 and the striped adjoint against K3<inc>; K2-sparse
    (``inc_wavefront[sparse]``) against its plain version and K8
    (``adjoint_ckpt``) against K3<inc> (bit for bit) and its plain version;
-   then K7's band decomposition at its edges (``BAND_CASES``: ragged rows
+   then the band decomposition at its edges (``BAND_CASES``: ragged rows
    and columns, a zero-padded last adjoint stripe, one pair shorter than a
-   band, 5,000 blocks), K7 and K7-stack bit for bit.
+   band, 5,000 blocks, dyadic 5), K7, K7-stack and K3<inc, boundary> (on
+   the forward stripe's K7-stack) bit for bit, and at dyadic 6 K3<inc,
+   boundary> on its one-block kernel, by its counter.
 2. The forward main path at the north-star size: ``SigKernel(RBFKernel(1.0),
    dyadic_order=1)`` on X, Y of shape (100, 1024, 3), float64 and float32:
    ``compute_Gram(X, X, sym=True)``, ``compute_Gram(X, Y)``,
@@ -162,12 +164,14 @@ STRIPE_PROBLEMS = [
     ("stripes 2 pairs 1024x1024 d5", 2, 1024, 1024, 5, (2,), 375),
 ]
 CKPT_WINDOWS = (5, None)  # phase 1: K8's window (None: the module's own)
-# phase 1, K7's band decomposition (bands of 128 rows, one block each;
-# hand-offs in chunks of 32 columns): name, pairs, M, N, dim, dyadic order,
-# row0, rows, flip, naive. Ragged rows and C (R 212, C 280: a short last band
-# and chunk), the striped adjoint's zero-padded last stripe (bands wholly
-# past the frame), one pair with rows < 128, and more blocks than the card
-# holds at once (2,500 pairs x 2 bands = 5,000 blocks of 128 threads)
+# phase 1, the band decomposition of K7, K7-stack and K3<inc, boundary>
+# (bands of 128 rows, one block each; hand-offs in chunks of 32 columns):
+# name, pairs, M, N, dim, dyadic order, row0, rows, flip (K7's), naive.
+# Ragged rows and C (R 212, C 280: a short last band and chunk), the striped
+# adjoint's zero-padded last stripe (bands wholly past the frame), one pair
+# with rows < 128, more blocks than the card holds at once (2,500 pairs x 2
+# bands = 5,000 blocks of 128 threads), and dyadic 5 (a base row's 32 rows
+# are one warp of K3<inc, boundary>'s collapse; R 192, C 256, both frames)
 BAND_CASES = [
     ("ragged rows and C", 3, 71, 54, 3, 2, 0, 200, True, True),
     ("ragged rows and C", 3, 71, 54, 3, 2, 0, 200, False, False),
@@ -176,7 +180,14 @@ BAND_CASES = [
     ("one pair, rows < 128", 1, 41, 60, 2, 0, 0, 40, True, True),
     ("5,000 blocks: 2,500 pairs of length 64", 2500, 64, 64, 3, 2, 0, 252,
      False, False),
+    ("dyadic 5: a base row is a whole warp", 3, 9, 7, 3, 5, 0, 192, False,
+     False),
+    ("dyadic 5, zero-padded", 3, 7, 9, 3, 5, 128, 192, True, True),
 ]
+# phase 1: K3<inc, boundary> at dyadic 6 (f = 64 > 32: the one-block
+# kernel, by its counter), as BAND_CASES
+ONE_BLOCK_CASE = ("dyadic 6: the one-block kernel", 2, 5, 4, 3, 6, 0, 192,
+                  False, True)
 # phase 7: one pair past K5's row bound under solver="auto" (float64: 8,184
 # refined rows against 4,840), which takes the plain sweep as JAX does
 DERIV_LONG = (1024, 3)
@@ -645,9 +656,10 @@ def main():
 
     def stripe_kernels(inc, dy, naive, rows, dtype, limit, glimit, label):
         """K7 (forward and flipped), K7-stack and K3<inc, boundary> against
-        their plain versions stripe by stripe at stripe height ``rows``;
-        the stripe chain against K2 and the striped adjoint against
-        K2-stack -> K3<inc>. Returns the bit-equality flags."""
+        their plain versions stripe by stripe at stripe height ``rows``,
+        bit for bit; the stripe chain against K2 and the striped adjoint
+        against K2-stack -> K3<inc> (bit for bit). Returns the bit-equality
+        flags."""
         P = inc.shape[0]
         R, C = cuda_blocked.frame(inc.shape[1], inc.shape[2], dy)
         S = -(-R // rows)
@@ -701,14 +713,18 @@ def main():
             del stk, pstk
         compare_max("adj_stripe", dtype, ct, pct, glimit,
                     f"K3<inc, boundary> {label}")
-        bits.append(torch.equal(ct, pct))
+        check(torch.equal(ct, pct), f"K3<inc, boundary> {label}: not "
+                                    "bit-equal")
+        bits.append(True)
         _, stk = cuda_solver.inc_solve_stack(inc, dy, naive)
         k3 = cuda_solver.inc_adjoint(inc, stk, dy, naive)
         del stk
         got = cuda_blocked.adjoint(inc, dy, naive, rows)
         compare_max("adj_stripe", dtype, got, k3, glimit,
                     f"striped adjoint {label} vs K3<inc>")
-        bits.append(torch.equal(got, k3))
+        check(torch.equal(got, k3), f"striped adjoint {label}: differs from "
+                                    "K3<inc>")
+        bits.append(True)
         return bits, k3
 
     def ckpt_kernels(inc, dy, naive, dtype, limit, glimit, label, k3):
@@ -767,9 +783,12 @@ def main():
     print(f"[1] long-path kernel cases passed in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
-    # K7's band decomposition at its edges: K7 and K7-stack bit for bit
+    # the band decomposition at its edges: K7, K7-stack and K3<inc,
+    # boundary> bit for bit; at dyadic 6 K3<inc, boundary> takes the
+    # one-block kernel
     t_phase = time.perf_counter()
-    for bname, P, M, N, D, dy, row0, rows, flip, naive in BAND_CASES:
+    for bname, P, M, N, D, dy, row0, rows, flip, naive in (
+            BAND_CASES + [ONE_BLOCK_CASE]):
         X64 = make_paths(gen, P, M, D, F64)
         Y64 = make_paths(gen, P, N, D, F64)
         for dtype in (F64, F32):
@@ -779,7 +798,7 @@ def main():
             bd = inc.new_ones(P, C + 1)
             bd[:, 1:] += 1e-2 * torch.rand(P, C, generator=gen, device=dev,
                                            dtype=F64).to(dtype)
-            label = (f"K7 {bname} {name[dtype]} (R {R}, C {C}, rows {row0} +"
+            label = (f"{bname} {name[dtype]} (R {R}, C {C}, rows {row0} +"
                      f" {rows}, {-(-rows // cuda_blocked.BAND_ROWS)} bands a "
                      f"pair, flip {flip}, {'naive' if naive else 'order-2'})")
             limit = F64_RTOL if dtype == F64 else F32_RTOL_SMALL
@@ -788,21 +807,43 @@ def main():
                 inc, bd, row0, rows, dy, naive, flip))
             want = cuda_blocked.stripe_solve_plain(inc, bd, row0, rows, dy,
                                                    naive, flip)
-            compare("stripe", dtype, got, want, limit, label)
-            check(torch.equal(got, want), f"{label}: not bit-equal")
+            compare("stripe", dtype, got, want, limit, "K7 " + label)
+            check(torch.equal(got, want), f"K7 {label}: not bit-equal")
             (b, stk), ts = synced(lambda: cuda_blocked.stripe_solve_stack(
                 inc, bd, row0, rows, dy, naive, flip))
             pb, pstk = cuda_blocked.stripe_solve_stack_plain(
                 inc, bd, row0, rows, dy, naive, flip)
             compare_max("stripe_stack", dtype, stk, pstk, glimit,
-                        f"{label} stack")
+                        f"K7-stack {label}")
             check(torch.equal(b, pb) and torch.equal(stk, pstk),
-                  f"{label}: K7-stack not bit-equal")
-            del stk, pstk, inc
-            print(f"[1] {label}: K7 and K7-stack bit-equal to their plain "
-                  f"versions ({t7 * 1e3:.1f} / {ts * 1e3:.1f} ms)")
-    print(f"[1] K7 band cases passed in "
-          f"{time.perf_counter() - t_phase:.1f} s")
+                  f"K7-stack {label}: not bit-equal")
+            del pstk
+            if flip:  # K3<inc, boundary> takes the forward stripe's stack
+                del stk
+                _, stk = cuda_blocked.stripe_solve_stack(inc, bd, row0, rows,
+                                                         dy, naive)
+            kernel = cuda_blocked.stripe_adjoint_kernel(dy)
+            key = "one_block" if kernel == "one_block" else name[dtype]
+            before = dict(cuda_blocked.ADJOINT_COUNTS)
+            ct, ta = synced(lambda: cuda_blocked.stripe_adjoint(
+                inc, stk, bd, torch.zeros_like(inc), row0, rows, dy, naive))
+            launched = {k: v - before[k]
+                        for k, v in cuda_blocked.ADJOINT_COUNTS.items()}
+            check(launched == {k: int(k == key) for k in launched},
+                  f"K3<inc, boundary> {label}: launches {launched}, not one "
+                  f"of the {kernel} kernel")
+            pct = cuda_blocked.stripe_adjoint_plain(
+                inc, stk, bd, torch.zeros_like(inc), row0, rows, dy, naive)
+            compare_max("adj_stripe", dtype, ct, pct, glimit,
+                        f"K3<inc, boundary> {label}")
+            check(torch.equal(ct, pct),
+                  f"K3<inc, boundary> {label}: not bit-equal")
+            del stk, inc, ct, pct
+            print(f"[1] {label}: K7, K7-stack and K3<inc, boundary> "
+                  f"({kernel.replace('_', '-')} kernel) bit-equal to their "
+                  f"plain versions ({t7 * 1e3:.1f} / {ts * 1e3:.1f} / "
+                  f"{ta * 1e3:.1f} ms)")
+    print(f"[1] band cases passed in {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phases 2-4: the forward main path, counted ---------------------
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -1309,6 +1350,8 @@ def main():
     read_counters("11", [(k, dt) for k in ("stripe", "stripe_stack",
                                            "adj_stripe")
                          for dt in (F32, F64)], not_gen)
+    check(cuda_blocked.ADJOINT_COUNTS["one_block"] == 0,
+          "[11] K3<inc, boundary> took the one-block kernel")
     v64 = long_fwd[(F64, calls[1][0])]
     K_max = float(long_fwd[(F64, gram_label)].abs().max())
     for label, grade in long_grades:

@@ -1,5 +1,5 @@
 // K3: the adjoint PDE sweep with the product and the dyadic collapse done
-// in flight, one thread block per pair.
+// in flight; one thread block per pair for K3<gen> and K3<inc>.
 //
 // Replaces the TPU kernels
 //   sigkernel_tpu/ops/pallas_adjoint.py::_product_kernel
@@ -14,21 +14,32 @@
 //
 // What it computes, and the index algebra: adjoint.cuh.
 //
-// K3<inc, boundary> (adjoint_collapse_stripe) is the same body on one
-// stripe of a grid too tall for one block: the reverse sweep of the
-// reverse problem's stripe t = S - 1 - s from its north boundary (row 0 of
-// the reverse ring takes bd_r[t][q] instead of 1), times forward stripe s's
-// stack (K7-stack), collapsed into stripe s's base rows. It replaces the
-// product and collapse that sigkernel_tpu/ops/pallas_blocked.py::
-// adjoint_blocked and adjoint_blocked_df run in XLA on two materialised
-// stripe grids; here the product grid never exists in device memory.
+// K3<inc, boundary> is the same product and collapse on one stripe of a
+// grid too tall for one block: the reverse sweep of the reverse problem's
+// stripe t = S - 1 - s from its north boundary bd_r[t] (its row 0), times
+// forward stripe s's stack (K7-stack), collapsed into stripe s's base rows.
+// It replaces the product and collapse that sigkernel_tpu/ops/
+// pallas_blocked.py::adjoint_blocked and adjoint_blocked_df run in XLA on
+// two materialised stripe grids; here the product grid never exists in
+// device memory.
 //
-// What bounds it on the H100: the reverse sweep costs what the forward does
-// (a barrier per diagonal, and four exp per refined cell for "gen"); on top
-// come one stack read (coalesced along the diagonal) and one read-add-write
-// of the base cotangent (L1/L2) per refined cell. The refined product grid
-// never exists in device memory.
+// What bounds it on the H100. One block a pair (adjoint_collapse_stripe,
+// the earlier design) filled 16 of 132 SMs for phase 11's 16-pair chunks
+// and took a barrier on each of the stripe's rows + C - 1 reverse
+// diagonals: ~86x its bound, which is the stack's bytes (read once). So for
+// f <= 32 it is the band-pipelined wavefront of band_sweep.cuh in its
+// kBandAdjoint mode: ceil(rows / 128) blocks a pair, the sweep in registers,
+// no barrier a diagonal, the stack staged in shared memory a chunk of
+// steps ahead by cp.async, and each base cell summed in registers across
+// its f lanes by shuffles and added into ct once (not once per refined
+// cell). What is left is K7's: the per-step arithmetic and shuffles (f more
+// a step for the collapse), the latency of the increment reads, and the
+// pipeline's fill. At f > 32 a base row spans warps and the in-order
+// collapse cannot run in flight: the wrapper routes such stripes to the
+// one-block kernel, within the row bound its ring of three diagonals in
+// shared memory sets.
 #include "adjoint.cuh"
+#include "band_sweep.cuh"
 #include "rbf_gen.cuh"
 
 namespace sigkernel {
@@ -74,7 +85,7 @@ __global__ void adjoint_collapse_inc(const T* __restrict__ inc,
                   ct + pair * cells, transpose, 0, R / f);
 }
 
-// K3<inc, boundary>: forward stripe s = rows row0 .. row0 + rows - 1 of the
+// K3<inc, boundary> on one block a pair (f > 32): forward stripe s = rows row0 .. row0 + rows - 1 of the
 // frame (its K7-stack in `stack`), the reverse problem's stripe from its
 // north boundary bd (P, C + 1), accumulated into ct's base rows of the
 // stripe.
@@ -158,6 +169,46 @@ int launch_adjoint_stripe(const void* inc, const void* stack, const void* bd,
   return cudaGetLastError();
 }
 
+template <typename T, int kF>
+cudaError_t launch_band(const void* inc, const void* stack, const void* bd,
+                        void* ct, void* scratch, void* counters, int64_t P,
+                        int Mb, int Nb, int row0, int rows, int nbands,
+                        int naive, void* stream) {
+  const size_t smem = band_stage_bytes<T>();
+  cudaError_t e = allow_smem(band_stripe<T, kBandAdjoint, kF>, smem);
+  if (e != cudaSuccess) return e;
+  band_stripe<T, kBandAdjoint, kF><<<static_cast<unsigned>(P * nbands),
+                                     kBandRows, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(inc), static_cast<const T*>(bd), nullptr,
+      const_cast<T*>(static_cast<const T*>(stack)), static_cast<T*>(scratch),
+      static_cast<int*>(counters), static_cast<T*>(ct), P, nbands, Mb, Nb, kF,
+      row0, rows, 1, naive);
+  return cudaGetLastError();
+}
+
+// K3<inc, boundary> on the band kernel, one instance per f = 1 .. 32 (the
+// collapse unrolls over a group's f lanes); f > 32 is refused.
+template <typename T>
+int launch_adjoint_band(const void* inc, const void* stack, const void* bd,
+                        void* ct, void* scratch, void* counters, int64_t P,
+                        int Mb, int Nb, int f, int row0, int rows, int nbands,
+                        int naive, int device, void* stream) {
+  if (nbands != band_count(rows) || P * nbands >= (int64_t(1) << 31)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  decltype(&launch_band<T, 1>) launch =
+      f == 1 ? &launch_band<T, 1> : f == 2 ? &launch_band<T, 2>
+      : f == 4 ? &launch_band<T, 4> : f == 8 ? &launch_band<T, 8>
+      : f == 16 ? &launch_band<T, 16> : f == 32 ? &launch_band<T, 32>
+      : nullptr;
+  if (launch == nullptr) return cudaErrorInvalidValue;
+  return launch(inc, stack, bd, ct, scratch, counters, P, Mb, Nb, row0, rows,
+                nbands, naive, stream);
+}
+
 }  // namespace sigkernel
 
 extern "C" {
@@ -203,7 +254,8 @@ int sk_adjoint_inc_f64(const void* inc, const void* stack, void* ct,
 // inc: (P, Mb, Nb); stack: (P, rows + C + 1, rows + 1), forward stripe
 // rows row0 .. row0 + rows - 1 (K7-stack); bd: (P, C + 1), the reverse
 // problem's boundary above the matching stripe; ct: (P, Mb, Nb), zeroed
-// once for all stripes (each writes only its own base rows).
+// once for all stripes (each writes only its own base rows). The one-block
+// kernel, for f > 32.
 int sk_adjoint_stripe_f32(const void* inc, const void* stack, const void* bd,
                           void* ct, int64_t P, int Mb, int Nb, int f,
                           int row0, int rows, int naive, int device,
@@ -220,6 +272,30 @@ int sk_adjoint_stripe_f64(const void* inc, const void* stack, const void* bd,
   return sigkernel::launch_adjoint_stripe<double>(inc, stack, bd, ct, P, Mb,
                                                   Nb, f, row0, rows, naive,
                                                   device, stream);
+}
+
+// K3<inc, boundary> on the band-pipelined wavefront (f <= 32): the
+// arguments above, plus scratch: (P, nbands - 1, C + 1) values and
+// counters: P * nbands + 1 zeroed ints, nbands = ceil(rows / 128), as K7's.
+// Adds each base cell's sum into ct.
+int sk_adjoint_band_f32(const void* inc, const void* stack, const void* bd,
+                        void* ct, void* scratch, void* counters, int64_t P,
+                        int Mb, int Nb, int f, int row0, int rows, int nbands,
+                        int naive, int device, void* stream) {
+  return sigkernel::launch_adjoint_band<float>(inc, stack, bd, ct, scratch,
+                                               counters, P, Mb, Nb, f, row0,
+                                               rows, nbands, naive, device,
+                                               stream);
+}
+
+int sk_adjoint_band_f64(const void* inc, const void* stack, const void* bd,
+                        void* ct, void* scratch, void* counters, int64_t P,
+                        int Mb, int Nb, int f, int row0, int rows, int nbands,
+                        int naive, int device, void* stream) {
+  return sigkernel::launch_adjoint_band<double>(inc, stack, bd, ct, scratch,
+                                                counters, P, Mb, Nb, f, row0,
+                                                rows, nbands, naive, device,
+                                                stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // The band-pipelined wavefront: one stripe of a refined grid swept by many
 // blocks per pair, each sweep held in registers, with no block-wide barrier
-// per diagonal. K7 (stripe_wavefront.cu) is its first user; wavefront.cuh's
-// `sweep` (one block a pair, a barrier a diagonal) stays for K1, K2, K3, K5,
-// K6 and K8.
+// per diagonal. Its users: K7 and K7-stack (stripe_wavefront.cu) and
+// K3<inc, boundary> for f <= 32 (adjoint_collapse.cu). wavefront.cuh's
+// `sweep` (one block a pair, a barrier a diagonal) stays for K1, K2, K3<gen,
+// inc>, K5, K6 and K8, and adjoint.cuh for K3<inc, boundary> at f > 32.
 //
 // Decomposition. The stripe's rows 1 .. rows (row 0 is the north boundary
 // bd) are cut into bands of kBandRows = 128 rows, one block of four warps a
@@ -31,7 +32,7 @@
 //     never waits on one below it;
 //   - band 0's first warp reads bd, which is ready; the warp holding row
 //     `rows` writes the stripe's bottom row (bottom[0] = 1, the west
-//     corner).
+//     corner), except in kBandAdjoint, which has no bottom row.
 // The consumer polls with volatile loads and __nanosleep, fences, and reads
 // the values with volatile loads (never __ldg: the read-only path may hold a
 // stale line).
@@ -49,11 +50,43 @@
 // frame's R rows, both axes reversed with flip, transposed when Mb > Nb),
 // exact 1 / f^2 scaling.
 //
-// The stack (kStack) is K2-stack's layout for the stripe: stack[p (rows +
-// 1) + i] = K[i][p - i], written in full. The lanes of one step share the
+// The stack (kBandStack) is K2-stack's layout for the stripe: stack[p (rows
+// + 1) + i] = K[i][p - i], written in full. The lanes of one step share the
 // diagonal p = i + c, so their stores are neighbouring addresses. Each
 // warp also writes its rows' fixed entries (0 before column 0, 1 at it, 0
 // past column C), and band 0's first warp row 0 (bd, then 0).
+//
+// The adjoint (kBandAdjoint, always with flip: the reverse problem's stripe
+// from its boundary bd, forward stripe row0 .. row0 + rows - 1 in `stack`,
+// K7-stack's layout). Lane t at step s holds nw = K_rev[i-1][c-1], which
+// pairs with forward cell (a, b) = (rows - i, C - c) on forward diagonal p =
+// a + b = rows + C - i0 - s, one p for the whole warp (i0 its first row):
+// the term is mul(stack[p][a], nw), the operand order of adjoint.cuh. As i
+// runs over 1 .. rows and c over 1 .. C these are the forward cells of rows
+// 0 .. rows - 1 and columns 0 .. C - 1, the boundary row included. The
+// stack values reach shared memory a chunk of 32 steps ahead by cp.async
+// (each lane copies and reads only its own entries, so no barrier), and the
+// lanes of one step read neighbouring addresses.
+//
+// The collapse, in registers, in scan_solver.collapse_refined's order
+// (forward p descending, then forward row ascending). Since rows, row0 and
+// the warp's first row - 1 are multiples of f (f <= 32), forward base row a
+// / f is one aligned group of f lanes, forward row ascending being lane
+// descending. Step s is one forward diagonal, and the group's f terms fall
+// in at most two base columns: with b0 = C - s + (the group's first lane),
+// the lanes j >= f - r of the group, r = b0 mod f (the same for every
+// group), lie in column b0 / f + 1 and the others in b0 / f. Every lane of
+// the group shuffles in its f terms, j descending, and adds each into `hi`
+// or `lo` (the two open base cells; all lanes hold the same sums). When r
+// becomes f - 1 a new column enters, the one in `hi` (b0 / f + 2) has had
+// its last term, and the group's first lane adds it into ct once; then hi
+// = lo, lo = 0. After the last step the two open cells are added. f is a
+// template argument (one instance per f = 1 .. 32), so the f shuffles
+// unroll; ct's value of the cell in hi is read when it opens, f steps
+// before its add needs it. Base rows
+// at or past the frame's R / f (padding) write nothing; ct is in the
+// pairs' own frame, transposed when Mb > Nb. Each base cell is add(ct,
+// sum), the sum started at 0: bit for bit the plain version's ct += sums.
 #pragma once
 
 #include "wavefront.cuh"
@@ -67,6 +100,11 @@ constexpr int kRingChunks = 8;
 constexpr int kRing = kChunk * kRingChunks;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// What a band sweep writes: the bottom row (K7), the bottom row and the
+// stack (K7-stack), or the reverse stripe's product with a forward stack,
+// collapsed into the base cotangent (K3<inc, boundary>).
+enum BandMode : int { kBandBottom = 0, kBandStack = 1, kBandAdjoint = 2 };
+
 template <typename T>
 struct BandShared {
   T ring[kBandWarps - 1][kRing];
@@ -74,6 +112,13 @@ struct BandShared {
   int consumed[kBandWarps - 1];  // chunks warp w + 1 has loaded
   int ticket;
 };
+
+// kBandAdjoint's dynamic shared memory: per warp two chunks of 32 steps x 32
+// lanes of forward values.
+template <typename T>
+constexpr size_t band_stage_bytes() {
+  return sizeof(T) * kBandWarps * 2 * kChunk * 32;
+}
 
 // A hand-off that never comes (a broken kernel, not a slow one: the longest
 // real wait is the pipeline's fill, well under a millisecond) traps after
@@ -91,18 +136,45 @@ __device__ __forceinline__ void wait_for(const volatile int* counter,
   }
 }
 
+// One value from global to shared memory, asynchronously (cp.async), and
+// the waits on the groups of such copies.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(to), "l"(src), "n"(sizeof(T)) : "memory");
+}
+
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
 inline int band_count(int rows) { return (rows + kBandRows - 1) / kBandRows; }
 
+__host__ __device__ constexpr int log2_of(int f) {
+  return f > 1 ? 1 + log2_of(f / 2) : 0;
+}
+
 // Sweep one stripe (see above). inc: the pairs' base grids (P, Mb, Nb); bd,
-// bottom: (P, C + 1); stack: (P, rows + C + 1, rows + 1) with kStack;
-// scratch: (P, nbands - 1, C + 1); counters: P * nbands progress counters
-// then the ticket, all zero at launch.
-template <typename T, bool kStack>
+// bottom: (P, C + 1); stack: (P, rows + C + 1, rows + 1), written with
+// kBandStack, read with kBandAdjoint; scratch: (P, nbands - 1, C + 1);
+// counters: P * nbands progress counters then the ticket, all zero at
+// launch; ct (kBandAdjoint): (P, Mb, Nb). kF: with kBandAdjoint, f (1 ..
+// 32) fixed at compile time, so that the collapse over a group's f lanes
+// unrolls; the other modes read f at run time.
+template <typename T, int kMode, int kF = 1>
 __global__ void __launch_bounds__(kBandRows)
 band_stripe(const T* __restrict__ inc, const T* __restrict__ bd,
             T* __restrict__ bottom, T* __restrict__ stack, T* scratch,
-            int* counters, int64_t P, int nbands, int Mb, int Nb, int f,
-            int row0, int rows, int flip, int naive) {
+            int* counters, T* __restrict__ ct, int64_t P, int nbands, int Mb,
+            int Nb, int f, int row0, int rows, int flip, int naive) {
+  constexpr bool kStack = kMode == kBandStack;
+  constexpr bool kAdjoint = kMode == kBandAdjoint;
   __shared__ BandShared<T> sh;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -156,18 +228,19 @@ band_stripe(const T* __restrict__ inc, const T* __restrict__ bd,
   } else {
     src = bd_p;
   }
-  // where this warp's last row goes: the bottom row, the ring, the global row
+  // where this warp's last row goes: the bottom row (none with kBandAdjoint),
+  // the ring, the global row
   const int bottom_lane = rows - i0 < 32 ? rows - i0 : -1;
-  const int out_lane = bottom_lane >= 0 ? bottom_lane : 31;
+  const int out_lane = bottom_lane < 0 ? 31 : kAdjoint ? -1 : bottom_lane;
   const bool out_ring = bottom_lane < 0 && warp < kBandWarps - 1;
-  T* out = bottom_lane >= 0 ? bottom + pair * (C + 1)
+  T* out = bottom_lane >= 0 ? (kAdjoint ? nullptr : bottom + pair * (C + 1))
            : out_ring ? nullptr
                       : scratch + (pair * (nbands - 1) + band) * (C + 1);
   int* out_ready = bottom_lane >= 0 || out_ring
                        ? nullptr : counters + pair * nbands + band;
-  if (lane == bottom_lane) out[0] = T(1);
+  if (bottom_lane >= 0 && lane == out_lane) out[0] = T(1);
 
-  T* stk = kStack ? stack + pair * stack_elems(rows, C) : nullptr;
+  T* stk = kStack || kAdjoint ? stack + pair * stack_elems(rows, C) : nullptr;
   const int64_t stride = rows + 1;
   if constexpr (kStack) {
     for (int p = 0; p <= i0 + 31; ++p) {  // left of and at column 0
@@ -182,6 +255,45 @@ band_stripe(const T* __restrict__ inc, const T* __restrict__ bd,
       }
     }
   }
+
+  // kBandAdjoint: the staged forward values, the group (see above), the
+  // group's frame base row, and where a finished base cell goes
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  T* stage = reinterpret_cast<T*>(band_smem) + warp * 2 * kChunk * 32;
+  auto prefetch = [&](int k) {  // chunk k's steps into buffer k & 1
+    T* buf = stage + (k & 1) * kChunk * 32;
+    for (int j = 0; j < kChunk; ++j) {
+      const int s = k * kChunk + j + 1;
+      const int c = s - lane;
+      if (has_inc && c >= 1 && c <= C) {
+        const int64_t p = rows + C - i0 - s;
+        copy_async(buf + j * 32 + lane, stk + p * stride + (rows - i));
+      }
+    }
+    commit_async();
+  };
+  constexpr int lg = log2_of(kF);
+  const int gbase = lane & ~(kF - 1);  // the group's first lane
+  const bool lead = has_inc && lane == gbase;
+  const int ga = row0 / f + ((rows - i0 + 1) >> lg) - (lane >> lg) - 1;
+  T* ct_p = kAdjoint ? ct + pair * static_cast<int64_t>(Mb) * Nb : nullptr;
+  auto cell = [&](int b) -> T* {  // base cell (ga, b), or none
+    if (b < 0 || b >= Cb) return nullptr;
+    return ct_p + (transpose ? static_cast<int64_t>(b) * (R / f) + ga
+                             : static_cast<int64_t>(ga) * Cb + b);
+  };
+  // base cell b has all its terms: add them to ct's value `was`
+  auto emit = [&](T acc, int b, T was) {
+    if (T* at = cell(b)) *at = add(was, acc);
+  };
+  auto fetch = [&](int b) -> T {
+    const T* at = cell(b);
+    return at != nullptr ? *at : T(0);
+  };
+  // the two open base cells, and ct's value of hi's, read when hi opened so
+  // that the add at its close does not wait on memory
+  T hi = T(0), lo = T(0), ct_hi = T(0);
+  if constexpr (kAdjoint) prefetch(0);
 
   T cur = T(1);                         // K[i][c - 1]; column 0 is 1
   T nw = i == 1 ? bd_p[0] : T(1);       // K[i - 1][c - 1] (lane 0's start)
@@ -206,12 +318,25 @@ band_stripe(const T* __restrict__ inc, const T* __restrict__ bd,
         }
       }
     }
+    if constexpr (kAdjoint) {
+      if (j == 0) {  // this chunk's forward values are in; fetch the next
+        prefetch((s - 1) / kChunk + 1);
+        wait_async<1>();
+      }
+    }
     const T from_up = __shfl_sync(kFullMask, up, j);
     T n = __shfl_up_sync(kFullMask, cur, 1);
     if (lane == 0) n = from_up;
     const int c = s - lane;
+    T term = T(0);
     if (c >= 1 && c <= C) {
       const T v = scheme(nw, n, cur, u, naive != 0);
+      if constexpr (kAdjoint) {
+        if (has_inc) {
+          term = mul(stage[(((s - 1) / kChunk) & 1) * kChunk * 32 + j * 32 +
+                           lane], nw);
+        }
+      }
       cur = v;
       if (++m == f) {
         m = 0;
@@ -244,7 +369,34 @@ band_stripe(const T* __restrict__ inc, const T* __restrict__ bd,
         }
       }
     }
+    if constexpr (kAdjoint) {  // the group's terms of forward diagonal p
+      const int rr = (C - s) & (kF - 1);
+      if (rr == kF - 1) {  // uniform: a new base column enters
+        const int b = ((C - s + gbase) >> lg) + 2;  // hi's column
+        if (lead) {
+          emit(hi, b, ct_hi);
+          ct_hi = fetch(b - 1);
+        }
+        hi = lo;
+        lo = T(0);
+      }
+#pragma unroll
+      for (int jj = kF - 1; jj >= 0; --jj) {
+        const T t = __shfl_sync(kFullMask, term, gbase + jj);
+        const int cs = s - gbase - jj;
+        if (cs >= 1 && cs <= C) {
+          if (jj >= kF - rr) hi = add(hi, t); else lo = add(lo, t);
+        }
+      }
+    }
     nw = n;
+  }
+  if constexpr (kAdjoint) {  // the two cells still open
+    if (lead) {
+      const int b0 = gbase - 31;  // C - s + gbase after the last step
+      emit(hi, (b0 >> lg) + 1, ct_hi);
+      emit(lo, b0 >> lg, fetch(b0 >> lg));
+    }
   }
 }
 

@@ -43,7 +43,7 @@
 
 namespace sigkernel {
 
-template <typename T, bool kStack>
+template <typename T, int kMode>
 int launch_stripe(const void* inc, const void* bd, void* bottom, void* stack,
                   void* scratch, void* counters, int64_t P, int Mb, int Nb,
                   int f, int row0, int rows, int nbands, int flip, int naive,
@@ -53,12 +53,12 @@ int launch_stripe(const void* inc, const void* bd, void* bottom, void* stack,
   }
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  band_stripe<T, kStack><<<static_cast<unsigned>(P * nbands), kBandRows, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  band_stripe<T, kMode><<<static_cast<unsigned>(P * nbands), kBandRows, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(inc), static_cast<const T*>(bd),
       static_cast<T*>(bottom), static_cast<T*>(stack),
-      static_cast<T*>(scratch), static_cast<int*>(counters), P, nbands, Mb,
-      Nb, f, row0, rows, flip, naive);
+      static_cast<T*>(scratch), static_cast<int*>(counters), nullptr, P,
+      nbands, Mb, Nb, f, row0, rows, flip, naive);
   return cudaGetLastError();
 }
 
@@ -75,7 +75,7 @@ int sk_stripe_f32(const void* inc, const void* bd, void* bottom,
                   void* scratch, void* counters, int64_t P, int Mb, int Nb,
                   int f, int row0, int rows, int nbands, int flip, int naive,
                   int device, void* stream) {
-  return sigkernel::launch_stripe<float, false>(
+  return sigkernel::launch_stripe<float, sigkernel::kBandBottom>(
       inc, bd, bottom, nullptr, scratch, counters, P, Mb, Nb, f, row0, rows,
       nbands, flip, naive, device, stream);
 }
@@ -84,7 +84,7 @@ int sk_stripe_f64(const void* inc, const void* bd, void* bottom,
                   void* scratch, void* counters, int64_t P, int Mb, int Nb,
                   int f, int row0, int rows, int nbands, int flip, int naive,
                   int device, void* stream) {
-  return sigkernel::launch_stripe<double, false>(
+  return sigkernel::launch_stripe<double, sigkernel::kBandBottom>(
       inc, bd, bottom, nullptr, scratch, counters, P, Mb, Nb, f, row0, rows,
       nbands, flip, naive, device, stream);
 }
@@ -93,7 +93,7 @@ int sk_stripe_stack_f32(const void* inc, const void* bd, void* bottom,
                         void* stack, void* scratch, void* counters, int64_t P,
                         int Mb, int Nb, int f, int row0, int rows, int nbands,
                         int flip, int naive, int device, void* stream) {
-  return sigkernel::launch_stripe<float, true>(
+  return sigkernel::launch_stripe<float, sigkernel::kBandStack>(
       inc, bd, bottom, stack, scratch, counters, P, Mb, Nb, f, row0, rows,
       nbands, flip, naive, device, stream);
 }
@@ -102,7 +102,7 @@ int sk_stripe_stack_f64(const void* inc, const void* bd, void* bottom,
                         void* stack, void* scratch, void* counters, int64_t P,
                         int Mb, int Nb, int f, int row0, int rows, int nbands,
                         int flip, int naive, int device, void* stream) {
-  return sigkernel::launch_stripe<double, true>(
+  return sigkernel::launch_stripe<double, sigkernel::kBandStack>(
       inc, bd, bottom, stack, scratch, counters, P, Mb, Nb, f, row0, rows,
       nbands, flip, naive, device, stream);
 }

@@ -74,6 +74,12 @@ _SIGNATURES = {
                               _I, _P],
     "sk_adjoint_stripe_f64": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
                               _I, _P],
+    # inc, stack, bd, ct, scratch, counters, P, Mb, Nb, f, row0, rows,
+    # nbands, naive, device, stream
+    "sk_adjoint_band_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P],
+    "sk_adjoint_band_f64": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P],
     # inc, sparse, scratch, ct, P, Mb, Nb, f, W, naive, device, stream
     "sk_adjoint_ckpt_f32": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
                             _P],
@@ -223,11 +229,11 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
 
 
-def launch(what: str, fns, counts, t, *args) -> None:
+def launch(what: str, fns, counts, t, *args, key=None) -> None:
     """Call ``fns[t.dtype]`` of the library with ``args`` on ``t``'s card and
     current stream, raise on a CUDA error, and count the launch in
-    ``counts`` under ``t``'s dtype."""
+    ``counts`` under ``key`` (default: ``t``'s dtype)."""
     fn = getattr(library(), fns[t.dtype])
     device, stream = stream_args(t)
     check(fn(*args, device, stream), what)
-    counts[dtype_key(t)] += 1
+    counts[key or dtype_key(t)] += 1

@@ -30,6 +30,16 @@ decomposition on any device, for the tests).
   the reverse sweep of stripe ``t`` from its boundary multiplied in flight
   by stripe ``s``'s stack and collapsed to base rows.
 
+K3<inc, boundary> has two kernels, chosen by shape
+(:func:`stripe_adjoint_kernel`). While a base row's ``f`` refined rows fit
+one warp (``f <= 32``, dyadic order at most 5) it is the band-pipelined
+wavefront too, the collapse summed in registers in
+``collapse_refined``'s order (:func:`stripe_adjoint_banded_plain` emulates
+it). Past that a base row spans warps and the collapse cannot run in flight
+in that order, so the stripe goes to the one-block kernel (one block a pair,
+a barrier a diagonal), whose ring of three diagonals bounds the stripe's
+rows by :func:`._build.max_rows`; the routes cut no stripe taller.
+
 The adjoint's stripe height. One stripe's stack is ``(Rs + C + 1) (Rs + 1)``
 values a pair, alive for one stripe at a time; the caller's chunk of pairs
 keeps it within ``routes.STACK_BYTES`` (8 GiB). At ``Rs = 2048`` and
@@ -43,7 +53,8 @@ Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (``*_plain``, on :func:`.scan_solver.solve_stripe`) only for CPU
 tensors. ``COUNTS`` (K7), ``STACK_COUNTS`` (K7-stack) and
 ``ADJOINT_COUNTS`` (K3<inc, boundary>) hold the launches per dtype and the
-calls of the plain versions.
+calls of the plain versions; ``ADJOINT_COUNTS["one_block"]`` counts the
+one-block kernel's launches (``f > 32``), which the dtype keys leave out.
 """
 from __future__ import annotations
 
@@ -54,7 +65,7 @@ from ..utils import dyadic_refine
 
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 STACK_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
-ADJOINT_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
+ADJOINT_COUNTS = {"float32": 0, "float64": 0, "one_block": 0, "plain": 0}
 
 # the striped adjoint's stripe height (refined rows), before rounding to f
 ADJ_ROWS = 2048
@@ -62,12 +73,17 @@ ADJ_ROWS = 2048
 # csrc/band_sweep.cuh (kBandRows, kChunk)
 BAND_ROWS = 128
 CHUNK = 32
+# lanes a warp: K3<inc, boundary>'s band kernel keeps a base row's f refined
+# rows in one warp
+WARP = 32
 
 _FNS = {torch.float32: "sk_stripe_f32", torch.float64: "sk_stripe_f64"}
 _STACK_FNS = {torch.float32: "sk_stripe_stack_f32",
               torch.float64: "sk_stripe_stack_f64"}
-_ADJOINT_FNS = {torch.float32: "sk_adjoint_stripe_f32",
-                torch.float64: "sk_adjoint_stripe_f64"}
+_ADJOINT_FNS = {torch.float32: "sk_adjoint_band_f32",
+                torch.float64: "sk_adjoint_band_f64"}
+_ONE_BLOCK_FNS = {torch.float32: "sk_adjoint_stripe_f32",
+                  torch.float64: "sk_adjoint_stripe_f64"}
 
 
 def frame(Mb: int, Nb: int, dyadic_order: int):
@@ -163,28 +179,18 @@ def _sweep_tile(north, west, u, scheme):
     return tile
 
 
-def stripe_solve_banded_plain(inc, bd, row0, rows, dyadic_order=0,
-                              naive=False, flip=False, H=BAND_ROWS, Wc=CHUNK,
-                              stack=False):
-    """K7's decomposition in plain PyTorch, for the tests: bands of ``H``
-    rows swept one after another, each in chunks of ``Wc`` columns, a chunk
-    taking its north row from the band above's hand-off row (``bd`` for
-    band 0) and its west column from the chunk before; the increments by
-    K7's index arithmetic. Returns the bottom row ``(P, C + 1)``, with
-    ``stack`` also K7-stack's stack written as the kernel writes it. Bit for
-    bit :func:`stripe_solve_plain` / :func:`stripe_solve_stack_plain`; no
-    route runs it."""
+def _band_sweep(inc, bd, row0, rows, f, naive, flip, H, Wc, visit=None):
+    """K7's decomposition in plain PyTorch: bands of ``H`` rows swept one
+    after another, each in chunks of ``Wc`` columns, a chunk taking its
+    north row from the band above's hand-off row (``bd`` for band 0) and its
+    west column from the chunk before; the increments by K7's index
+    arithmetic. Calls ``visit(i0, c0, tile)`` on each chunk's tile (its cell
+    ``(r, q)`` is the stripe's ``(i0 - 1 + r, c0 - 1 + q)``) and returns the
+    bottom row ``(P, C + 1)``."""
     P = inc.shape[0]
-    f = 2 ** dyadic_order
     C = max(inc.shape[1], inc.shape[2]) * f
     scheme = scan_solver.get_scheme(naive)
     u = _band_increments(inc, f, row0, rows, flip)
-    stk = None
-    if stack:
-        stk = inc.new_zeros(P, rows + C + 1, rows + 1)
-        stk[:, :C + 1, 0] = bd
-        diag = torch.arange(1, rows + 1, device=inc.device)
-        stk[:, diag, diag] = 1
     above = bd
     for i0 in range(1, rows + 1, H):  # band by band
         h = min(H, rows - i0 + 1)
@@ -197,12 +203,112 @@ def stripe_solve_banded_plain(inc, bd, row0, rows, dyadic_order=0,
                                scheme)
             west = tile[:, 1:, -1]
             below[:, c0:c0 + w] = tile[:, -1, 1:]
-            if stk is not None:
-                i = torch.arange(i0, i0 + h, device=inc.device)[:, None]
-                c = torch.arange(c0, c0 + w, device=inc.device)[None, :]
-                stk[:, i + c, i.expand(h, w)] = tile[:, 1:, 1:]
+            if visit is not None:
+                visit(i0, c0, tile)
         above = below
-    return (above, stk) if stack else above
+    return above
+
+
+def _tile_cells(i0, c0, tile):
+    """The stripe's rows ``(h, 1)`` and columns ``(1, w)`` of a tile's swept
+    cells."""
+    h, w = tile.shape[-2] - 1, tile.shape[-1] - 1
+    dev = tile.device
+    return (torch.arange(i0, i0 + h, device=dev)[:, None],
+            torch.arange(c0, c0 + w, device=dev)[None, :])
+
+
+def stripe_solve_banded_plain(inc, bd, row0, rows, dyadic_order=0,
+                              naive=False, flip=False, H=BAND_ROWS, Wc=CHUNK,
+                              stack=False):
+    """K7's decomposition (:func:`_band_sweep`) in plain PyTorch, for the
+    tests. Returns the bottom row ``(P, C + 1)``, with ``stack`` also
+    K7-stack's stack written as the kernel writes it. Bit for bit
+    :func:`stripe_solve_plain` / :func:`stripe_solve_stack_plain`; no route
+    runs it."""
+    P = inc.shape[0]
+    f = 2 ** dyadic_order
+    C = max(inc.shape[1], inc.shape[2]) * f
+    stk = visit = None
+    if stack:
+        stk = inc.new_zeros(P, rows + C + 1, rows + 1)
+        stk[:, :C + 1, 0] = bd
+        diag = torch.arange(1, rows + 1, device=inc.device)
+        stk[:, diag, diag] = 1
+
+        def visit(i0, c0, tile):
+            i, c = _tile_cells(i0, c0, tile)
+            stk[:, i + c, i.expand(i.shape[0], c.shape[1])] = tile[:, 1:, 1:]
+    bottom = _band_sweep(inc, bd, row0, rows, f, naive, flip, H, Wc, visit)
+    return (bottom, stk) if stack else bottom
+
+
+def stripe_adjoint_banded_plain(inc, stack, bd, ct, row0, rows,
+                                dyadic_order=0, naive=False, H=BAND_ROWS,
+                                Wc=CHUNK) -> torch.Tensor:
+    """K3<inc, boundary>'s band kernel in plain PyTorch, for the tests. The
+    reverse stripe is swept as :func:`_band_sweep` sweeps it with ``flip``;
+    reverse cell ``(i, c)`` (both from 1) multiplies the forward stack
+    entry the kernel reads, ``stack[rows + C - i - c][rows - i]``, by its
+    north-west value. The collapse then runs the kernel's lane arithmetic,
+    warp by warp (:data:`WARP` rows): lane ``t`` holds column ``s - t`` at
+    step ``s``; a group of ``f`` lanes (one base row) adds its terms, lane
+    descending, into two open base cells ``hi`` and ``lo``; when a new base
+    column enters (``(C - s) % f == f - 1``) the cell in ``hi`` is added
+    into ``ct`` and the two shift; after the last step both are added.
+    Updates ``ct`` in place and returns it. Bit for bit
+    :func:`stripe_adjoint_plain`; no route runs it."""
+    P, Mb, Nb = inc.shape
+    f = 2 ** dyadic_order
+    if f > WARP:
+        raise ValueError(f"the band kernel's collapse holds a base row in one "
+                         f"warp of {WARP} lanes; f = {f}")
+    R, C = frame(Mb, Nb, dyadic_order)
+    nwarps = -(-rows // WARP)
+    terms = inc.new_zeros(P, nwarps * WARP, C)  # reverse row i - 1, column c - 1
+
+    def visit(i0, c0, tile):
+        i, c = _tile_cells(i0, c0, tile)
+        fwd = stack[:, rows + C - i - c, (rows - i).expand(i.shape[0],
+                                                           c.shape[1])]
+        terms[:, i - 1, c - 1] = fwd * tile[:, :-1, :-1]
+
+    _band_sweep(inc, bd, row0, rows, f, naive, True, H, Wc, visit)
+    dev = inc.device
+    groups = WARP // f
+    terms = terms.reshape(P, nwarps, groups, f, C)
+    gbase = torch.arange(0, WARP, f, device=dev)  # each group's first lane
+    i0 = torch.arange(nwarps, device=dev)[:, None] * WARP + 1
+    # the group's frame base row; base rows past the frame write nothing
+    ga = row0 // f + ((rows - i0 + 1) >> dyadic_order) - gbase // f - 1
+    lead = (ga >= row0 // f) & (ga < R // f)
+    out = ct.transpose(-1, -2) if Mb > Nb else ct  # the solve's frame
+    hi = inc.new_zeros(P, nwarps, groups)
+    lo = torch.zeros_like(hi)
+
+    def emit(acc, b):
+        ok = lead & ((b >= 0) & (b < C // f))[None, :]
+        w, g = ok.nonzero(as_tuple=True)
+        out[:, ga[w, g], b[g]] = out[:, ga[w, g], b[g]] + acc[:, w, g]
+
+    for s in range(1, C + WARP):
+        rr = (C - s) & (f - 1)
+        if rr == f - 1:  # a new base column enters
+            emit(hi, ((C - s + gbase) >> dyadic_order) + 2)
+            hi, lo = lo, torch.zeros_like(lo)
+        for jj in range(f - 1, -1, -1):
+            cs = s - gbase - jj
+            ok = (cs >= 1) & (cs <= C)
+            t = terms[:, :, torch.arange(groups, device=dev), jj,
+                      (cs - 1).clamp(0, C - 1)]
+            if jj >= f - rr:
+                hi = torch.where(ok, hi + t, hi)
+            else:
+                lo = torch.where(ok, lo + t, lo)
+    b0 = gbase - (WARP - 1)  # C - s + gbase after the last step
+    emit(hi, (b0 >> dyadic_order) + 1)
+    emit(lo, b0 >> dyadic_order)
+    return ct
 
 
 def stripe_adjoint_plain(inc, stack, bd, ct, row0, rows, dyadic_order=0,
@@ -228,7 +334,14 @@ def stripe_adjoint_plain(inc, stack, bd, ct, row0, rows, dyadic_order=0,
     return ct
 
 
-def _check(inc, bd, row0, rows, dyadic_order, what):
+def stripe_adjoint_kernel(dyadic_order: int) -> str:
+    """K3<inc, boundary>'s kernel at a refinement: ``"band"`` (the
+    band-pipelined kernel, whose collapse holds a base row's ``f`` refined
+    rows in one warp) while ``f <= 32``, else ``"one_block"``."""
+    return "band" if 2 ** dyadic_order <= WARP else "one_block"
+
+
+def _check(inc, bd, row0, rows, dyadic_order, what, one_block=False):
     cuda_solver._check(inc, what)
     P, Mb, Nb = inc.shape
     f = 2 ** dyadic_order
@@ -245,18 +358,16 @@ def _check(inc, bd, row0, rows, dyadic_order, what):
         raise ValueError(f"{what}: a stripe of {rows} rows is taller than "
                          f"the frame's {C} columns")
     bound = _build.max_rows(inc.element_size())
-    if rows > bound:
-        # K7 holds nothing of a stripe in shared memory, but K3<inc,
-        # boundary> does, and the routes cut no stripe taller (stripe_rows)
-        raise ValueError(f"{what}: a stripe of {rows} rows is taller than "
-                         f"the {bound} rows the routes cut it to, which "
-                         "K3<inc, boundary>'s ring of three diagonals in "
-                         "shared memory holds")
+    if one_block and rows > bound:
+        raise ValueError(f"{what}: at f = {f} > {WARP} K3<inc, boundary> runs "
+                         f"one block a pair, whose ring of three diagonals "
+                         f"in shared memory holds at most {bound} rows; the "
+                         f"stripe has {rows} (the routes cut none taller)")
     return P, Mb, Nb, f, C
 
 
 def _band_scratch(inc, rows, C):
-    """``(nbands, scratch, counters)`` of one K7 launch: the bands' hand-off
+    """``(nbands, scratch, counters)`` of one band launch: the bands' hand-off
     rows ``(P, nbands - 1, C + 1)`` and the zeroed progress counters and
     ticket (``P * nbands + 1`` ints), on the current stream."""
     P = inc.shape[0]
@@ -318,12 +429,13 @@ def stripe_adjoint(inc, stack, bd, ct, row0, rows, dyadic_order=0,
     ``row0 .. row0 + rows - 1`` (its K7-stack ``stack``) times the reverse
     problem's matching stripe, swept from its boundary ``bd``, into ``ct``'s
     base rows of the stripe (``ct (P, Mb, Nb)``, updated in place and
-    returned)."""
+    returned). The kernel by :func:`stripe_adjoint_kernel`."""
     if inc.device.type == "cpu":
         return stripe_adjoint_plain(inc, stack, bd, ct, row0, rows,
                                     dyadic_order, naive)
+    one_block = stripe_adjoint_kernel(dyadic_order) == "one_block"
     P, Mb, Nb, f, C = _check(inc, bd, row0, rows, dyadic_order,
-                             "stripe_adjoint")
+                             "stripe_adjoint", one_block)
     want = cuda_solver.stack_shape(P, rows, C)
     for name, t, shape in (("stack", stack, want), ("ct", ct, inc.shape)):
         if (t.shape != shape or t.dtype != inc.dtype
@@ -331,10 +443,17 @@ def stripe_adjoint(inc, stack, bd, ct, row0, rows, dyadic_order=0,
             raise ValueError(f"stripe_adjoint: {name} must be a contiguous "
                              f"{tuple(shape)} tensor of the grid's dtype and "
                              "device")
-    if P:
+    if P and one_block:
+        _build.launch("adjoint_collapse_stripe[one block]", _ONE_BLOCK_FNS,
+                      ADJOINT_COUNTS, inc, inc.data_ptr(), stack.data_ptr(),
+                      bd.data_ptr(), ct.data_ptr(), P, Mb, Nb, f, row0, rows,
+                      int(naive), key="one_block")
+    elif P:
+        nbands, scratch, counters = _band_scratch(inc, rows, C)
         _build.launch("adjoint_collapse_stripe", _ADJOINT_FNS, ADJOINT_COUNTS,
                       inc, inc.data_ptr(), stack.data_ptr(), bd.data_ptr(),
-                      ct.data_ptr(), P, Mb, Nb, f, row0, rows, int(naive))
+                      ct.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+                      P, Mb, Nb, f, row0, rows, nbands, int(naive))
     return ct
 
 

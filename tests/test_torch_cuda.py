@@ -2,7 +2,8 @@
 forward kernels K1 and K2, their stack-emitting instances, the adjoint K3
 (gen and inc sources), the increment-chain VJP K4, the derivative Gram's
 triple wavefront K5, the Linear generator K6, the stripe kernels K7,
-K7-stack and K3<inc, boundary>, the sparse-checkpoint pair K2-sparse and
+K7-stack and K3<inc, boundary> (its band kernel, and its one-block kernel
+past f = 32), the sparse-checkpoint pair K2-sparse and
 K8, and values and gradients through the estimators against the plain
 tier.
 
@@ -407,6 +408,60 @@ def test_band_decomposition_matches_plain(cuda, dtype, flip, P, Mb, Nb,
     pb, pstk = cuda_blocked.stripe_solve_stack_plain(inc, bd, row0, rows,
                                                      dyadic, False, flip)
     assert torch.equal(b, pb) and torch.equal(stk, pstk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("naive", [False, True])
+@pytest.mark.parametrize("P,Mb,Nb,dyadic,row0,rows", [
+    (3, 70, 53, 2, 0, 200),     # ragged: two bands, a short last chunk
+    (3, 70, 53, 2, 208, 280),   # zero-padded: bands wholly past the frame
+    (1, 40, 59, 0, 0, 40),      # one pair, rows < 128
+    (2, 150, 140, 0, 0, 140),   # a second band of 12 rows
+    (2, 100, 90, 2, 4, 352),    # three bands, the ring lapped (C = 400)
+    (3, 6, 8, 5, 0, 192),       # dyadic 5: a base row is a whole warp
+    (3, 8, 6, 5, 128, 192),     # dyadic 5, transposed and zero-padded
+    (2500, 63, 63, 2, 0, 252),  # 5,000 blocks, more than are resident
+])
+def test_band_adjoint_matches_plain(cuda, dtype, naive, P, Mb, Nb, dyadic,
+                                    row0, rows):
+    """K3<inc, boundary> on the band kernel at the edges of the band
+    decomposition, bit for bit its plain version and the CPU emulation of
+    the decomposition, adding into a cotangent that holds values."""
+    inc = _grid(Mb, Nb, 60 + rows, cuda, dtype, P)
+    C = max(Mb, Nb) * 2 ** dyadic
+    bd = torch.ones(P, C + 1, dtype=dtype, device=cuda)
+    bd[:, 1:] += 0.01 * torch.arange(C, dtype=dtype, device=cuda) / C
+    _, stk = cuda_blocked.stripe_solve_stack(inc, bd.flip(-1).contiguous(),
+                                             row0, rows, dyadic, naive)
+    ct = _grid(Mb, Nb, 70 + rows, cuda, dtype, P)
+    before = dict(cuda_blocked.ADJOINT_COUNTS)
+    got = cuda_blocked.stripe_adjoint(inc, stk, bd, ct.clone(), row0, rows,
+                                      dyadic, naive)
+    key = str(dtype).removeprefix("torch.")
+    assert {k: v - before[k] for k, v in cuda_blocked.ADJOINT_COUNTS.items()
+            } == {k: int(k == key) for k in before}
+    assert torch.equal(got, cuda_blocked.stripe_adjoint_plain(
+        inc, stk, bd, ct.clone(), row0, rows, dyadic, naive))
+    assert torch.equal(got, cuda_blocked.stripe_adjoint_banded_plain(
+        inc, stk, bd, ct.clone(), row0, rows, dyadic, naive))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dyadic_6_takes_the_one_block_adjoint(cuda, dtype):
+    """f = 64 > 32: K3<inc, boundary> launches the one-block kernel (its
+    own counter), bit for bit its plain version."""
+    inc = _grid(4, 3, 80, cuda, dtype, 2)
+    C = 4 * 64
+    bd = torch.ones(2, C + 1, dtype=dtype, device=cuda)
+    bd[:, 1:] += 0.01 * torch.arange(C, dtype=dtype, device=cuda) / C
+    _, stk = cuda_blocked.stripe_solve_stack(inc, bd, 0, 192, 6)
+    before = dict(cuda_blocked.ADJOINT_COUNTS)
+    got = cuda_blocked.stripe_adjoint(inc, stk, bd, torch.zeros_like(inc), 0,
+                                      192, 6)
+    assert {k: v - before[k] for k, v in cuda_blocked.ADJOINT_COUNTS.items()
+            } == {k: int(k == "one_block") for k in before}
+    assert torch.equal(got, cuda_blocked.stripe_adjoint_plain(
+        inc, stk, bd, torch.zeros_like(inc), 0, 192, 6))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
