@@ -32,7 +32,10 @@ Phases (any failure raises and the script exits non-zero):
    and columns, a zero-padded last adjoint stripe, one pair shorter than a
    band, 5,000 blocks, dyadic 5), K7, K7-stack and K3<inc, boundary> (on
    the forward stripe's K7-stack) bit for bit, and at dyadic 6 K3<inc,
-   boundary> on its one-block kernel, by its counter.
+   boundary> on its one-block kernel, by its counter; then K1 and K1-stack
+   (the band kernel with the RBF generator) bit for bit at the edges of
+   their band decomposition (``GEN_BAND_CASES``: frames of 1 to 4,092 rows,
+   a transposed pair, D 1 and 5, dyadic 0-3, 3,000 pairs).
 2. The forward main path at the north-star size: ``SigKernel(RBFKernel(1.0),
    dyadic_order=1)`` on X, Y of shape (100, 1024, 3), float64 and float32:
    ``compute_Gram(X, X, sym=True)``, ``compute_Gram(X, Y)``,
@@ -89,7 +92,8 @@ and no plain version may have run. The checks of those phases against plain
 versions come after the counters are read, then each kernel is timed beside
 its plain version at 128 pairs, length 1024, dyadic 1, dim 3 (the stripe
 kernels at phase 10's grid; K7 at both the forward's and the adjoint's
-stripe height, two entries). The last three
+stripe height, two entries; K1 and K1-stack beside their times before
+the band kernel). The last three
 lines of the output are the card's ``nvidia-smi`` line, one JSON object
 describing the kernels (each with its launches on the main path, its
 largest error against its plain version, its time and its plain version's,
@@ -184,6 +188,32 @@ BAND_CASES = [
      False),
     ("dyadic 5, zero-padded", 3, 7, 9, 3, 5, 128, 192, True, True),
 ]
+# phase 1, K1 and K1-stack on the band kernel (a whole frame a pair, bands of
+# 128 rows from a row 0 of 1s, the RBF increments generated a base column a
+# lane) at its edges, bit for bit: name, pairs, M, N, dim, dyadic order. The
+# frame's rows R = (min(M, N) - 1) 2^dyadic: 1, 31, 32, 33, 128 (one full
+# band), 129 (a second band of one row), 2,046 (the timed shape) and 4,092
+# (phase 8's); a transposed pair (M > N); D = 1 and 5; dyadic 0-3; and
+# 3,000 pairs, more blocks than are resident
+GEN_BAND_CASES = [
+    ("R 1", 3, 2, 6, 2, 0),
+    ("R 31", 3, 32, 40, 3, 0),
+    ("R 32, D 1", 3, 33, 40, 1, 0),
+    ("R 33, D 5", 3, 34, 50, 5, 0),
+    ("R 128: one full band", 3, 65, 70, 3, 1),
+    ("R 129: a band of one row", 3, 130, 140, 3, 0),
+    ("a transposed pair (M > N)", 3, 70, 40, 3, 1),
+    ("dyadic 3", 3, 9, 12, 5, 3),
+    ("R 2,046: the timed shape", 2, 1024, 1024, 3, 1),
+    ("R 4,092: phase 8's frame", 1, 1024, 1024, 5, 2),
+    ("3,000 pairs", 3000, 17, 17, 3, 2),
+]
+# K1 and K1-stack at the timed shape in the one-block-a-pair design that the
+# band kernel replaced (this script's timing, NVIDIA H100 80GB HBM3, 700.00
+# W), printed beside this run's
+EARLIER_MS = {("gen", "float32"): 18.009, ("gen", "float64"): 26.026,
+              ("gen_stack", "float32"): 19.252,
+              ("gen_stack", "float64"): 29.214}
 # phase 1: K3<inc, boundary> at dyadic 6 (f = 64 > 32: the one-block
 # kernel, by its counter), as BAND_CASES
 ONE_BLOCK_CASE = ("dyadic 6: the one-block kernel", 2, 5, 4, 3, 6, 0, 192,
@@ -844,6 +874,46 @@ def main():
                   f"plain versions ({t7 * 1e3:.1f} / {ts * 1e3:.1f} / "
                   f"{ta * 1e3:.1f} ms)")
     print(f"[1] band cases passed in {time.perf_counter() - t_phase:.1f} s")
+
+    # K1 and K1-stack on the band kernel at its edges, bit for bit
+    t_phase = time.perf_counter()
+    for gname, P, M, N, D, dy in GEN_BAND_CASES:
+        A = max(P // 2, 2)
+        X64 = make_paths(gen, A, M, D, F64)
+        Y64 = make_paths(gen, A, N, D, F64)
+        ii = torch.randint(0, A, (P,), generator=gen, device=dev)
+        jj = torch.randint(0, A, (P,), generator=gen, device=dev)
+        R = (min(M, N) - 1) * 2 ** dy
+        for dtype in (F64, F32):
+            X, Y = X64.to(dtype), Y64.to(dtype)
+            limit = (F64_RTOL if dtype == F64 else
+                     F32_RTOL_LONG if max(M, N) >= LONG else F32_RTOL_SMALL)
+            glimit = GRAD_F64 if dtype == F64 else GRAD_F32
+            for naive in (False,) if R > 1000 else (False, True):
+                label = (f"{gname} {name[dtype]} ({P} pairs, {M} x {N}, D {D},"
+                         f" dyadic {dy}, R {R}, "
+                         f"{-(-R // cuda_blocked.BAND_ROWS)} bands a pair, "
+                         f"{'naive' if naive else 'order-2'})")
+                k1, t1 = synced(lambda: cuda_gen.rbf_gen_solve_final(
+                    X, Y, ii, jj, 1.0, dy, naive))
+                p1 = cuda_gen.rbf_gen_solve_final_plain(X, Y, ii, jj, 1.0, dy,
+                                                        naive)
+                compare("gen", dtype, k1, p1, limit, "K1 " + label)
+                check(torch.equal(k1, p1), f"K1 {label}: not bit-equal")
+                (v, stk), ts = synced(lambda: cuda_gen.rbf_gen_solve_stack(
+                    X, Y, ii, jj, 1.0, dy, naive))
+                pv, pstk = cuda_gen.rbf_gen_solve_stack_plain(
+                    X, Y, ii, jj, 1.0, dy, naive)
+                compare_max("gen_stack", dtype, stk, pstk, glimit,
+                            "K1-stack " + label)
+                check(torch.equal(v, k1) and torch.equal(stk, pstk),
+                      f"K1-stack {label}: not bit-equal")
+                del stk, pstk
+                print(f"[1] {label}: K1 and K1-stack bit-equal to their plain "
+                      f"versions ({t1 * 1e3:.1f} / {ts * 1e3:.1f} ms)")
+        torch.cuda.empty_cache()
+    print(f"[1] K1 band cases passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
     # ---- phases 2-4: the forward main path, counted ---------------------
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -1518,8 +1588,10 @@ def main():
         bound_ms, by = bound(b, o, name[dtype])
         timing[(kind, dtype) + ((tag,) if tag else ())] = (
             ms, plain_ms, bound_ms, by, where)
-        print(f"[t] {instances[(kind, dtype)]}: {where}: kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        earlier = EARLIER_MS.get((kind, name[dtype])) if not tag else None
+        before = f" (one-block design: {earlier:.3f} ms)" if earlier else ""
+        print(f"[t] {instances[(kind, dtype)]}: {where}: kernel {ms:.3f} ms"
+              f"{before}, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
               f"({by}; {b} bytes, {o} operations), err {r:.2e} ({card})")
         torch.cuda.empty_cache()
 

@@ -180,8 +180,9 @@ cudaError_t launch_band(const void* inc, const void* stack, const void* bd,
   band_stripe<T, kBandAdjoint, kF><<<static_cast<unsigned>(P * nbands),
                                      kBandRows, smem,
                                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(inc), static_cast<const T*>(bd), nullptr,
-      const_cast<T*>(static_cast<const T*>(stack)), static_cast<T*>(scratch),
+      GridSource<T>{static_cast<const T*>(inc)}, static_cast<const T*>(bd),
+      nullptr, const_cast<T*>(static_cast<const T*>(stack)),
+      static_cast<T*>(scratch),
       static_cast<int*>(counters), static_cast<T*>(ct), P, nbands, Mb, Nb, kF,
       row0, rows, 1, naive);
   return cudaGetLastError();

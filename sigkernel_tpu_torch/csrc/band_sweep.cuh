@@ -1,9 +1,11 @@
 // The band-pipelined wavefront: one stripe of a refined grid swept by many
 // blocks per pair, each sweep held in registers, with no block-wide barrier
-// per diagonal. Its users: K7 and K7-stack (stripe_wavefront.cu) and
-// K3<inc, boundary> for f <= 32 (adjoint_collapse.cu). wavefront.cuh's
-// `sweep` (one block a pair, a barrier a diagonal) stays for K1, K2, K3<gen,
-// inc>, K5, K6 and K8, and adjoint.cuh for K3<inc, boundary> at f > 32.
+// per diagonal. Its users: K7 and K7-stack (stripe_wavefront.cu), K3<inc,
+// boundary> for f <= 32 (adjoint_collapse.cu), and K1 and K1-stack
+// (rbf_gen_wavefront.cu), which sweep a pair's whole frame with increments
+// generated from its paths. wavefront.cuh's `sweep` (one block a pair, a
+// barrier a diagonal) stays for K2, K3<gen, inc>, K5, K6 and K8, and
+// adjoint.cuh for K3<inc, boundary> at f > 32.
 //
 // Decomposition. The stripe's rows 1 .. rows (row 0 is the north boundary
 // bd) are cut into bands of kBandRows = 128 rows, one block of four warps a
@@ -44,11 +46,24 @@
 // in turn. blockIdx is not used, so nothing assumes the order in which
 // blocks start, and any number of blocks (more than are resident) is safe.
 //
-// Increments. Lane t reads its row's base value once per base cell and
-// keeps it for the f refined columns of that cell, with the next one
-// prefetched into a register: StripeGrid's arithmetic (zero past the
-// frame's R rows, both axes reversed with flip, transposed when Mb > Nb),
-// exact 1 / f^2 scaling.
+// Increments come from a source type (the kernel's Src), one value per base
+// cell: lane t asks its Src::Lane for base column q = 0, 1, 2, ... in that
+// order, keeps the value for the f refined columns of the cell, and asks for
+// the next one a whole base column ahead of its use, at its own wrap. A
+// source with kAligned set (RbfSource, whose values cost two exp) is asked
+// instead on the warp-uniform steps s = 0 mod f, one column a lane, for the
+// column after the next (u_more), so that a warp issues the generation once
+// every f steps, not on every step for the 32 / f lanes that wrap on it:
+// between two wraps of a lane (f steps apart) lies exactly one such step,
+// and a lane that holds u_more already skips it. GridSource (the
+// default; K7, K7-stack, K3<inc, boundary>) reads a pair's base grid with
+// StripeGrid's arithmetic (zero past the frame's R rows, both axes reversed
+// with flip, transposed when Mb > Nb, exact 1 / f^2 scaling) and sweeps a
+// stripe from its north boundary bd, writing its bottom row.
+// rbf_gen.cuh's RbfSource (K1, K1-stack) generates the increments from the
+// pair's paths and sweeps the whole frame (Src::kStripe false): row 0 is
+// the constant 1, read from no tensor, and the lane that owns row R writes
+// only the corner K[R][C], into `bottom` (P,).
 //
 // The stack (kBandStack) is K2-stack's layout for the stripe: stack[p (rows
 // + 1) + i] = K[i][p - i], written in full. The lanes of one step share the
@@ -100,9 +115,10 @@ constexpr int kRingChunks = 8;
 constexpr int kRing = kChunk * kRingChunks;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// What a band sweep writes: the bottom row (K7), the bottom row and the
-// stack (K7-stack), or the reverse stripe's product with a forward stack,
-// collapsed into the base cotangent (K3<inc, boundary>).
+// What a band sweep writes: the bottom row (K7; the corner with a whole
+// frame, K1), the bottom row and the stack (K7-stack; K1-stack), or the
+// reverse stripe's product with a forward stack, collapsed into the base
+// cotangent (K3<inc, boundary>).
 enum BandMode : int { kBandBottom = 0, kBandStack = 1, kBandAdjoint = 2 };
 
 template <typename T>
@@ -160,21 +176,58 @@ __host__ __device__ constexpr int log2_of(int f) {
   return f > 1 ? 1 + log2_of(f / 2) : 0;
 }
 
-// Sweep one stripe (see above). inc: the pairs' base grids (P, Mb, Nb); bd,
-// bottom: (P, C + 1); stack: (P, rows + C + 1, rows + 1), written with
-// kBandStack, read with kBandAdjoint; scratch: (P, nbands - 1, C + 1);
+// A pair's base increment grid (P, Mb, Nb), read with StripeGrid's
+// arithmetic; a stripe from a north boundary.
+template <typename T>
+struct GridSource {
+  static constexpr bool kStripe = true;
+  static constexpr bool kAligned = false;  // read at each lane's wrap
+  const T* inc;
+
+  struct Lane {
+    const T* g;
+    int ra, Nb, Cb, flip, transpose;
+    bool has_inc;
+    T scale;
+    // base column q of this lane's row, in the order the sweep meets them
+    __device__ __forceinline__ T col(int q) {
+      if (!has_inc || q >= Cb) return T(0);
+      const int cb = flip ? Cb - 1 - q : q;
+      const int64_t at = transpose ? static_cast<int64_t>(cb) * Nb + ra
+                                   : static_cast<int64_t>(ra) * Nb + cb;
+      return __ldg(g + at) * scale;
+    }
+  };
+
+  // the lane of pair `pair` whose frame base row is ra (has_inc false: a
+  // row past the stripe or the frame, whose increments are 0)
+  __device__ __forceinline__ Lane lane(int64_t pair, int ra, bool has_inc,
+                                       int Mb, int Nb, int f,
+                                       int flip) const {
+    const int transpose = Mb > Nb;
+    return Lane{inc + pair * static_cast<int64_t>(Mb) * Nb, ra, Nb,
+                transpose ? Mb : Nb, flip, transpose, has_inc,
+                T(1) / T(f * f)};
+  }
+};
+
+// Sweep one stripe (see above). src: the increments (GridSource: the pairs'
+// base grids (P, Mb, Nb)); bd, bottom: (P, C + 1) (a whole frame: no bd,
+// bottom (P,) the corners); stack: (P, rows + C + 1, rows + 1), written
+// with kBandStack, read with kBandAdjoint; scratch: (P, nbands - 1, C + 1);
 // counters: P * nbands progress counters then the ticket, all zero at
 // launch; ct (kBandAdjoint): (P, Mb, Nb). kF: with kBandAdjoint, f (1 ..
 // 32) fixed at compile time, so that the collapse over a group's f lanes
 // unrolls; the other modes read f at run time.
-template <typename T, int kMode, int kF = 1>
+template <typename T, int kMode, int kF = 1, typename Src = GridSource<T>>
 __global__ void __launch_bounds__(kBandRows)
-band_stripe(const T* __restrict__ inc, const T* __restrict__ bd,
+band_stripe(const Src src, const T* __restrict__ bd,
             T* __restrict__ bottom, T* __restrict__ stack, T* scratch,
             int* counters, T* __restrict__ ct, int64_t P, int nbands, int Mb,
             int Nb, int f, int row0, int rows, int flip, int naive) {
   constexpr bool kStack = kMode == kBandStack;
   constexpr bool kAdjoint = kMode == kBandAdjoint;
+  constexpr bool kStripe = Src::kStripe;  // else a whole frame from 1s
   __shared__ BandShared<T> sh;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -196,49 +249,42 @@ band_stripe(const T* __restrict__ inc, const T* __restrict__ bd,
   const int Cb = C / f;
   const int i = i0 + lane;
   const bool live = i <= rows;
-  const T* bd_p = bd + pair * (C + 1);
+  const T* bd_p = kStripe ? bd + pair * (C + 1) : nullptr;
 
   // this row's base increments, in the order the sweep meets them
-  const T* g = inc + pair * static_cast<int64_t>(Mb) * Nb;
   int r = flip ? rows - i : i - 1;
   r += row0;
   const bool has_inc = live && r < R;
   const int ra = has_inc ? r / f : 0;
-  const T scale = T(1) / T(f * f);
-  auto base = [&](int q) -> T {
-    if (!has_inc || q >= Cb) return T(0);
-    const int cb = flip ? Cb - 1 - q : q;
-    const int64_t at = transpose ? static_cast<int64_t>(cb) * Nb + ra
-                                 : static_cast<int64_t>(ra) * Nb + cb;
-    return __ldg(g + at) * scale;
-  };
+  typename Src::Lane incs = src.lane(pair, ra, has_inc, Mb, Nb, f, flip);
 
   // where the north values come from: bd, the ring of the warp above, or
   // the global row of the band above
-  const volatile T* src;
-  const volatile int* src_ready = nullptr;
-  bool src_ring = false;
+  const volatile T* north = nullptr;  // none: row 0 of a whole frame, 1s
+  const volatile int* north_ready = nullptr;
+  bool north_ring = false;
   if (warp > 0) {
-    src = sh.ring[warp - 1];
-    src_ready = sh.ready + warp - 1;
-    src_ring = true;
+    north = sh.ring[warp - 1];
+    north_ready = sh.ready + warp - 1;
+    north_ring = true;
   } else if (band > 0) {
-    src = scratch + (pair * (nbands - 1) + band - 1) * (C + 1);
-    src_ready = counters + pair * nbands + band - 1;
-  } else {
-    src = bd_p;
+    north = scratch + (pair * (nbands - 1) + band - 1) * (C + 1);
+    north_ready = counters + pair * nbands + band - 1;
+  } else if (kStripe) {
+    north = bd_p;
   }
   // where this warp's last row goes: the bottom row (none with kBandAdjoint),
   // the ring, the global row
   const int bottom_lane = rows - i0 < 32 ? rows - i0 : -1;
   const int out_lane = bottom_lane < 0 ? 31 : kAdjoint ? -1 : bottom_lane;
   const bool out_ring = bottom_lane < 0 && warp < kBandWarps - 1;
-  T* out = bottom_lane >= 0 ? (kAdjoint ? nullptr : bottom + pair * (C + 1))
+  T* out = bottom_lane >= 0
+               ? (kAdjoint || !kStripe ? nullptr : bottom + pair * (C + 1))
            : out_ring ? nullptr
                       : scratch + (pair * (nbands - 1) + band) * (C + 1);
   int* out_ready = bottom_lane >= 0 || out_ring
                        ? nullptr : counters + pair * nbands + band;
-  if (bottom_lane >= 0 && lane == out_lane) out[0] = T(1);
+  if (kStripe && bottom_lane >= 0 && lane == out_lane) out[0] = T(1);
 
   T* stk = kStack || kAdjoint ? stack + pair * stack_elems(rows, C) : nullptr;
   const int64_t stride = rows + 1;
@@ -251,7 +297,7 @@ band_stripe(const T* __restrict__ inc, const T* __restrict__ bd,
     }
     if (band == 0 && warp == 0) {
       for (int p = lane; p <= rows + C; p += 32) {
-        stk[p * stride] = p <= C ? bd_p[p] : T(0);
+        stk[p * stride] = p > C ? T(0) : kStripe ? bd_p[p] : T(1);
       }
     }
   }
@@ -296,21 +342,34 @@ band_stripe(const T* __restrict__ inc, const T* __restrict__ bd,
   if constexpr (kAdjoint) prefetch(0);
 
   T cur = T(1);                         // K[i][c - 1]; column 0 is 1
-  T nw = i == 1 ? bd_p[0] : T(1);       // K[i - 1][c - 1] (lane 0's start)
+  // K[i - 1][c - 1] (lane 0's start; bd[0] is the west corner, 1)
+  T nw = kStripe && i == 1 ? bd_p[0] : T(1);
   T up = T(0);                          // lane j: north of column s + j
-  T u = base(0), u_next = base(1);
+  T u = incs.col(0), u_next = incs.col(1);
+  // Src::kAligned: the lanes generate together, on the steps that are
+  // multiples of f, the column after u_next into u_more (see above)
+  T u_more = T(0);
+  bool more = false;
   int q = 0, m = 0;                     // base column, refined within it
   for (int s = 1; s <= C + 31; ++s) {
     const int j = (s - 1) & (kChunk - 1);
+    if constexpr (Src::kAligned) {
+      if ((s & (f - 1)) == 0 && !more) {  // uniform step, f a power of 2
+        u_more = incs.col(q + 2);
+        more = true;
+      }
+    }
     if (j == 0 && s <= C) {  // uniform: the next chunk of north values
       const int k = (s - 1) / kChunk;
-      if (src_ready != nullptr) {
-        wait_for(src_ready, k + 1);
-        if (src_ring) __threadfence_block(); else __threadfence();
+      if (north_ready != nullptr) {
+        wait_for(north_ready, k + 1);
+        if (north_ring) __threadfence_block(); else __threadfence();
       }
       const int c = s + lane;
-      up = c <= C ? (src_ring ? src[(c - 1) & (kRing - 1)] : src[c]) : T(0);
-      if (src_ring) {
+      up = c > C ? T(0)
+           : north_ring ? north[(c - 1) & (kRing - 1)]
+           : kStripe || north != nullptr ? north[c] : T(1);
+      if (north_ring) {
         __syncwarp();
         if (lane == 0) {
           __threadfence_block();
@@ -342,7 +401,12 @@ band_stripe(const T* __restrict__ inc, const T* __restrict__ bd,
         m = 0;
         ++q;
         u = u_next;
-        u_next = base(q + 1);
+        if constexpr (Src::kAligned) {
+          u_next = u_more;
+          more = false;
+        } else {
+          u_next = incs.col(q + 1);
+        }
       }
       if constexpr (kStack) {
         if (live) stk[static_cast<int64_t>(i + c) * stride + i] = v;
@@ -360,12 +424,14 @@ band_stripe(const T* __restrict__ inc, const T* __restrict__ bd,
             __threadfence_block();
             *(volatile int*)(sh.ready + warp) = k + 1;
           }
-        } else {
+        } else if (kStripe || out != nullptr) {
           *(volatile T*)(out + c) = v;
           if (last && out_ready != nullptr) {
             __threadfence();
             *(volatile int*)out_ready = k + 1;
           }
+        } else if (c == C) {
+          bottom[pair] = v;  // a whole frame's corner K[R][C]
         }
       }
     }

@@ -1,6 +1,6 @@
 // RBF increment generation from path points, shared by K1
-// (rbf_gen_wavefront.cu), K3<gen> (adjoint_collapse.cu) and K4
-// (rbf_dd_vjp.cu), so that all three round exactly alike.
+// (rbf_gen_wavefront.cu, RbfSource), K3<gen> (adjoint_collapse.cu, RbfGen)
+// and K4 (rbf_dd_vjp.cu), so that all three round exactly alike.
 #pragma once
 
 #include "wavefront.cuh"
@@ -51,6 +51,125 @@ struct RbfGen {
     return mul(sub(add(G(a + 1, b + 1), G(a, b)),
                    add(G(a + 1, b), G(a, b + 1))),
                scale);
+  }
+};
+
+// The band sweep's increment source (band_sweep.cuh) for the RBF kernel:
+// one lane of frame row i owns base row ra = (i - 1) / f of the pair's
+// shorter path `rows` (the wrapper orients the pair so that Lr <= Lc). It
+// keeps x_ra and x_ra+1 (kD > 0: in registers, kD = D; kD = 0: any D, read
+// through __ldg), their squared norms, and G(ra, q), G(ra + 1, q) of the
+// last base column, so that column q's increment costs two new G values
+// (two exp, two D-long dot products sharing one y point), not RbfGen::inc's
+// four; the sweep asks for the columns on warp-uniform steps (kAligned),
+// so a warp generates once every f steps. kD > 0 also loads y_{q+2} while
+// it generates column q, a column before its use. Each G value is
+// sqdist's and RbfGen::G's expression in their op order, and the increment
+// RbfGen::inc's, so a cached value rounds as a regenerated one: the sweep
+// stays bit-equal to the plain version.
+template <typename T, int kD>
+struct RbfSource {
+  static constexpr bool kStripe = false;  // the whole frame, from 1s
+  static constexpr bool kAligned = true;  // generated on uniform steps
+  static constexpr int kN = kD > 0 ? kD : 1;
+  const T* rows;
+  const T* cols;
+  const int64_t* ri;
+  const int64_t* ci;
+  int Lr, Lc, D;
+  T sigma;
+
+  struct Lane {
+    const T* x;  // x_ra (kD = 0 only)
+    const T* y;  // the pair's column path
+    int D, Cb;
+    bool has_inc;
+    T sigma, scale;
+    T x0[kN], x1[kN], yn[kN];  // x_ra, x_ra+1, y_{q+1} (kD > 0)
+    T sx0, sx1;                // |x_ra|^2, |x_ra+1|^2
+    T g0, g1;                  // G(ra, q), G(ra + 1, q): the last column
+
+    __device__ __forceinline__ T G(T sx, T sy, T dot) const {
+      return sk_exp(-sub(add(sx, sy), mul(T(2), dot)) / sigma);
+    }
+
+    // G(ra, b) and G(ra + 1, b) into g0n, g1n, from point b's values (kD >
+    // 0: yb holds them; kD = 0: read from y)
+    __device__ __forceinline__ void column(int b, const T* yb, T& g0n,
+                                           T& g1n) const {
+      T dot0 = T(0), dot1 = T(0), sy = T(0);
+      if constexpr (kD > 0) {
+#pragma unroll
+        for (int d = 0; d < kD; ++d) {
+          dot0 = add(dot0, mul(x0[d], yb[d]));
+          dot1 = add(dot1, mul(x1[d], yb[d]));
+          sy = add(sy, mul(yb[d], yb[d]));
+        }
+      } else {
+        const T* yp = y + static_cast<int64_t>(b) * D;
+        for (int d = 0; d < D; ++d) {
+          const T v = __ldg(yp + d);
+          dot0 = add(dot0, mul(__ldg(x + d), v));
+          dot1 = add(dot1, mul(__ldg(x + D + d), v));
+          sy = add(sy, mul(v, v));
+        }
+      }
+      g0n = G(sx0, sy, dot0);
+      g1n = G(sx1, sy, dot1);
+    }
+
+    __device__ __forceinline__ void load(int b) {  // yn = y_b (kD > 0)
+      if constexpr (kD > 0) {
+        const T* yp = y + static_cast<int64_t>(b) * kD;
+#pragma unroll
+        for (int d = 0; d < kD; ++d) yn[d] = __ldg(yp + d);
+      }
+    }
+
+    // base column q's increment; called for q = 0, 1, 2, ... in order
+    __device__ __forceinline__ T col(int q) {
+      if (!has_inc || q >= Cb) return T(0);
+      T g0n, g1n;
+      column(q + 1, yn, g0n, g1n);
+      if (q + 1 < Cb) load(q + 2);
+      const T v = mul(sub(add(g1n, g0), add(g1, g0n)), scale);
+      g0 = g0n;
+      g1 = g1n;
+      return v;
+    }
+  };
+
+  __device__ __forceinline__ Lane lane(int64_t pair, int ra, bool has_inc,
+                                       int, int Nb, int f, int) const {
+    Lane l;
+    l.x = rows + (ri[pair] * Lr + ra) * static_cast<int64_t>(D);
+    l.y = cols + ci[pair] * static_cast<int64_t>(Lc) * D;
+    l.D = D;
+    l.Cb = Nb;
+    l.has_inc = has_inc;
+    l.sigma = sigma;
+    l.scale = T(1) / T(f * f);
+    l.sx0 = l.sx1 = l.g0 = l.g1 = T(0);
+    if (!has_inc) return l;
+    if constexpr (kD > 0) {  // unrolled: the arrays stay in registers
+#pragma unroll
+      for (int d = 0; d < kD; ++d) {
+        l.x0[d] = __ldg(l.x + d);
+        l.x1[d] = __ldg(l.x + kD + d);
+        l.sx0 = add(l.sx0, mul(l.x0[d], l.x0[d]));
+        l.sx1 = add(l.sx1, mul(l.x1[d], l.x1[d]));
+      }
+    } else {
+      for (int d = 0; d < D; ++d) {
+        const T a = __ldg(l.x + d), b = __ldg(l.x + D + d);
+        l.sx0 = add(l.sx0, mul(a, a));
+        l.sx1 = add(l.sx1, mul(b, b));
+      }
+    }
+    l.load(0);
+    l.column(0, l.yn, l.g0, l.g1);
+    l.load(1);
+    return l;
   }
 };
 

@@ -12,114 +12,130 @@
 // memory. One kernel serves pairwise kernels (ri = ci = arange), the full
 // Gram, the symmetric triangle and the Gram linear-combination chunks.
 //
-// What bounds it on the H100: FP32/FP64 arithmetic and exp per refined
-// cell. This simple form generates the base increment of every refined
-// cell from scratch, (G(a+1,b+1) + G(a,b)) - (G(a+1,b) + G(a,b+1)) with
-// G(a,b) = exp(-|x_a - y_b|^2 / sigma): four exp and four D-long distances
-// per refined cell, f^2 times more than the base grid needs. The design
-// keeps the solution state in shared memory, reads path points through
-// L1/L2, and solves the transposed problem (the wrapper swaps X and Y, the
-// RBF kernel being symmetric) so the ring holds the shorter side. Caching
-// generated G values is later work.
-//
 // K1-stack (kStack = true) also writes the solution stack the adjoint
-// consumes (layout in wavefront.cuh), replacing the stack outputs of
+// consumes (K2-stack's layout, wavefront.cuh), replacing the stack outputs of
 //   sigkernel_tpu/ops/pallas_gen32.py::solve_final_f32_gen_stack
 //   sigkernel_tpu/ops/pallas_df64.py::solve_final_df_gen_stack
-// It adds one store per stack cell, written coalesced along a diagonal:
-// 67 MB a pair in double at length 1024, dyadic 1, so the stack's bytes
-// (8.6 GB for 128 pairs, against 3.35 TB/s) cost a few ms beside the
-// sweep's arithmetic.
+// one store per stack cell, the lanes of a step on neighbouring addresses.
+//
+// What bounds it on the H100: the arithmetic of the sweep and of the
+// generation, and for K1-stack the stack's bytes (8.6 GB for 128 pairs in
+// double at length 1024, dyadic 1). The earlier design ran one block a pair
+// with a barrier a diagonal and regenerated four G values (four exp and four
+// D-long distances) for every refined cell, f^2 times what the base grid
+// needs: ~100x its bound. Here the pair's whole frame is swept by the
+// band-pipelined wavefront of band_sweep.cuh (ceil(R / 128) blocks a pair,
+// the sweep in registers, no barrier a diagonal; no row bound, since
+// nothing of the frame sits in shared memory) with rbf_gen.cuh's RbfSource
+// as its increment source: each lane keeps its base row's two points and
+// the last base column's two G values, so a base column costs each lane
+// two exp, one column ahead of its use. The wrapper (ops/cuda_gen.py)
+// orients each pair so that `rows` is the shorter path (the RBF kernel is
+// symmetric and the recurrence transpose-covariant), and launches the pairs
+// in chunks whose hand-off scratch stays within its bound.
+#include "band_sweep.cuh"
 #include "rbf_gen.cuh"
 
 namespace sigkernel {
 
-template <typename T, bool kStack>
-__global__ void rbf_gen_wavefront(const T* __restrict__ rows,
-                                  const T* __restrict__ cols,
-                                  const int64_t* __restrict__ ri,
-                                  const int64_t* __restrict__ ci,
-                                  T* __restrict__ out, T* __restrict__ stack,
-                                  int Lr, int Lc, int D, int f, T sigma,
-                                  int naive) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);
-  const int64_t pair = blockIdx.x;
-  const RbfGen<T> gen(rows + ri[pair] * static_cast<int64_t>(Lr) * D,
-                      cols + ci[pair] * static_cast<int64_t>(Lc) * D, D, f,
-                      sigma);
-  const int R = (Lr - 1) * f, C = (Lc - 1) * f;
-  T* pair_stack = kStack ? stack + pair * stack_elems(R, C) : nullptr;
-  const T v = sweep<T, kStack>(ring, R, C, naive != 0,
-                               [&](int r, int c) -> T {
-    return gen.inc(r / f, c / f);
-  }, pair_stack);
-  if (threadIdx.x == 0) out[pair] = v;
+template <typename T, bool kStack, int kD>
+cudaError_t launch_gen_band(const void* rows, const void* cols,
+                            const void* ri, const void* ci, void* out,
+                            void* stack, void* scratch, void* counters,
+                            int64_t P, int Lr, int Lc, int D, int f,
+                            double sigma, int nbands, int naive,
+                            cudaStream_t stream) {
+  const RbfSource<T, kD> src{
+      static_cast<const T*>(rows), static_cast<const T*>(cols),
+      static_cast<const int64_t*>(ri), static_cast<const int64_t*>(ci), Lr,
+      Lc, D, static_cast<T>(sigma)};
+  constexpr int kMode = kStack ? kBandStack : kBandBottom;
+  band_stripe<T, kMode, 1, RbfSource<T, kD>>
+      <<<static_cast<unsigned>(P * nbands), kBandRows, 0, stream>>>(
+          src, nullptr, static_cast<T*>(out), static_cast<T*>(stack),
+          static_cast<T*>(scratch), static_cast<int*>(counters), nullptr, P,
+          nbands, Lr - 1, Lc - 1, f, 0, (Lr - 1) * f, 0, naive);
+  return cudaGetLastError();
 }
 
+// One instance per D = 1 .. 5 (the points in registers), and one for any D
+// (kD = 0, the points read through __ldg a column). On an H100 80GB HBM3
+// at 700 W, 128 pairs of length 1024, the register instances are faster:
+// at D = 3 by 1.08-1.17x at dyadic 1 and 1.25-1.40x at dyadic 0 (K1 and
+// K1-stack), at D = 5, dyadic 2 by 1.24x in float and 1.02x in double
+// (sigkernel_tpu_torch/probes/k1_probe.py source).
 template <typename T, bool kStack>
 int launch_gen(const void* rows, const void* cols, const void* ri,
-               const void* ci, void* out, void* stack, int64_t P, int Lr,
-               int Lc, int D, int f, double sigma, int naive, int device,
+               const void* ci, void* out, void* stack, void* scratch,
+               void* counters, int64_t P, int Lr, int Lc, int D, int f,
+               double sigma, int nbands, int naive, int device,
                void* stream) {
+  if (Lr < 2 || Lr > Lc || D < 1 || nbands != band_count((Lr - 1) * f) ||
+      P * nbands >= (int64_t(1) << 31)) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const int R = (Lr - 1) * f;
-  const size_t smem = 3 * static_cast<size_t>(R + 1) * sizeof(T);
-  e = allow_smem(rbf_gen_wavefront<T, kStack>, smem);
-  if (e != cudaSuccess) return e;
-  rbf_gen_wavefront<T, kStack><<<static_cast<unsigned>(P), threads_for(R),
-                                 smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(rows), static_cast<const T*>(cols),
-      static_cast<const int64_t*>(ri), static_cast<const int64_t*>(ci),
-      static_cast<T*>(out), static_cast<T*>(stack), Lr, Lc, D, f,
-      static_cast<T>(sigma), naive);
-  return cudaGetLastError();
+  decltype(&launch_gen_band<T, kStack, 0>) launch =
+      D == 1 ? &launch_gen_band<T, kStack, 1>
+      : D == 2 ? &launch_gen_band<T, kStack, 2>
+      : D == 3 ? &launch_gen_band<T, kStack, 3>
+      : D == 4 ? &launch_gen_band<T, kStack, 4>
+      : D == 5 ? &launch_gen_band<T, kStack, 5>
+      : &launch_gen_band<T, kStack, 0>;
+  return launch(rows, cols, ri, ci, out, stack, scratch, counters, P, Lr, Lc,
+                D, f, sigma, nbands, naive,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace sigkernel
 
 // rows/ri are the path side with the shorter refined length (the wrapper
-// orders them); Lr <= Lc.
+// orients them); 2 <= Lr <= Lc. scratch: (P, nbands - 1, C + 1) values;
+// counters: P * nbands + 1 zeroed ints; nbands = ceil((Lr - 1) f / 128).
 extern "C" {
 
 int sk_rbf_gen_wavefront_f32(const void* rows, const void* cols,
                              const void* ri, const void* ci, void* out,
-                             int64_t P, int Lr, int Lc, int D, int f,
-                             double sigma, int naive, int device,
+                             void* scratch, void* counters, int64_t P,
+                             int Lr, int Lc, int D, int f, double sigma,
+                             int nbands, int naive, int device,
                              void* stream) {
-  return sigkernel::launch_gen<float, false>(rows, cols, ri, ci, out, nullptr,
-                                             P, Lr, Lc, D, f, sigma, naive,
-                                             device, stream);
+  return sigkernel::launch_gen<float, false>(
+      rows, cols, ri, ci, out, nullptr, scratch, counters, P, Lr, Lc, D, f,
+      sigma, nbands, naive, device, stream);
 }
 
 int sk_rbf_gen_wavefront_f64(const void* rows, const void* cols,
                              const void* ri, const void* ci, void* out,
-                             int64_t P, int Lr, int Lc, int D, int f,
-                             double sigma, int naive, int device,
+                             void* scratch, void* counters, int64_t P,
+                             int Lr, int Lc, int D, int f, double sigma,
+                             int nbands, int naive, int device,
                              void* stream) {
-  return sigkernel::launch_gen<double, false>(rows, cols, ri, ci, out,
-                                              nullptr, P, Lr, Lc, D, f, sigma,
-                                              naive, device, stream);
+  return sigkernel::launch_gen<double, false>(
+      rows, cols, ri, ci, out, nullptr, scratch, counters, P, Lr, Lc, D, f,
+      sigma, nbands, naive, device, stream);
 }
 
 // stack: (P, R + C + 1, R + 1) with R = (Lr - 1) f, C = (Lc - 1) f
 int sk_rbf_gen_stack_f32(const void* rows, const void* cols, const void* ri,
-                         const void* ci, void* out, void* stack, int64_t P,
-                         int Lr, int Lc, int D, int f, double sigma,
+                         const void* ci, void* out, void* stack,
+                         void* scratch, void* counters, int64_t P, int Lr,
+                         int Lc, int D, int f, double sigma, int nbands,
                          int naive, int device, void* stream) {
-  return sigkernel::launch_gen<float, true>(rows, cols, ri, ci, out, stack,
-                                            P, Lr, Lc, D, f, sigma, naive,
-                                            device, stream);
+  return sigkernel::launch_gen<float, true>(
+      rows, cols, ri, ci, out, stack, scratch, counters, P, Lr, Lc, D, f,
+      sigma, nbands, naive, device, stream);
 }
 
 int sk_rbf_gen_stack_f64(const void* rows, const void* cols, const void* ri,
-                         const void* ci, void* out, void* stack, int64_t P,
-                         int Lr, int Lc, int D, int f, double sigma,
+                         const void* ci, void* out, void* stack,
+                         void* scratch, void* counters, int64_t P, int Lr,
+                         int Lc, int D, int f, double sigma, int nbands,
                          int naive, int device, void* stream) {
-  return sigkernel::launch_gen<double, true>(rows, cols, ri, ci, out, stack,
-                                             P, Lr, Lc, D, f, sigma, naive,
-                                             device, stream);
+  return sigkernel::launch_gen<double, true>(
+      rows, cols, ri, ci, out, stack, scratch, counters, P, Lr, Lc, D, f,
+      sigma, nbands, naive, device, stream);
 }
 
 }  // extern "C"

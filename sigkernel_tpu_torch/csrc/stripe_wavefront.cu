@@ -55,7 +55,7 @@ int launch_stripe(const void* inc, const void* bd, void* bottom, void* stack,
   if (e != cudaSuccess) return e;
   band_stripe<T, kMode><<<static_cast<unsigned>(P * nbands), kBandRows, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(inc), static_cast<const T*>(bd),
+      GridSource<T>{static_cast<const T*>(inc)}, static_cast<const T*>(bd),
       static_cast<T*>(bottom), static_cast<T*>(stack),
       static_cast<T*>(scratch), static_cast<int*>(counters), nullptr, P,
       nbands, Mb, Nb, f, row0, rows, flip, naive);

@@ -37,11 +37,12 @@ _SIGNATURES = {
     # inc, out, P, Mb, Nb, f, naive, device, stream
     "sk_inc_wavefront_f32": [_P, _P, _I64, _I, _I, _I, _I, _I, _P],
     "sk_inc_wavefront_f64": [_P, _P, _I64, _I, _I, _I, _I, _I, _P],
-    # rows, cols, ri, ci, out, P, Lr, Lc, D, f, sigma, naive, device, stream
-    "sk_rbf_gen_wavefront_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                                 _D, _I, _I, _P],
-    "sk_rbf_gen_wavefront_f64": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                                 _D, _I, _I, _P],
+    # rows, cols, ri, ci, out, scratch, counters, P, Lr, Lc, D, f, sigma,
+    # nbands, naive, device, stream
+    "sk_rbf_gen_wavefront_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                                 _I, _D, _I, _I, _I, _P],
+    "sk_rbf_gen_wavefront_f64": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                                 _I, _D, _I, _I, _I, _P],
     # inc, out, stack, P, Mb, Nb, f, naive, device, stream
     "sk_inc_stack_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
     "sk_inc_stack_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
@@ -60,12 +61,12 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _P],
     "sk_stripe_stack_f64": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _P],
-    # rows, cols, ri, ci, out, stack, P, Lr, Lc, D, f, sigma, naive, device,
-    # stream
-    "sk_rbf_gen_stack_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                             _D, _I, _I, _P],
-    "sk_rbf_gen_stack_f64": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                             _D, _I, _I, _P],
+    # rows, cols, ri, ci, out, stack, scratch, counters, P, Lr, Lc, D, f,
+    # sigma, nbands, naive, device, stream
+    "sk_rbf_gen_stack_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                             _I, _D, _I, _I, _I, _P],
+    "sk_rbf_gen_stack_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                             _I, _D, _I, _I, _I, _P],
     # inc, stack, ct, P, Mb, Nb, f, naive, device, stream
     "sk_adjoint_inc_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
     "sk_adjoint_inc_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],

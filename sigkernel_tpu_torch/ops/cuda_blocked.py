@@ -179,23 +179,21 @@ def _sweep_tile(north, west, u, scheme):
     return tile
 
 
-def _band_sweep(inc, bd, row0, rows, f, naive, flip, H, Wc, visit=None):
-    """K7's decomposition in plain PyTorch: bands of ``H`` rows swept one
-    after another, each in chunks of ``Wc`` columns, a chunk taking its
-    north row from the band above's hand-off row (``bd`` for band 0) and its
-    west column from the chunk before; the increments by K7's index
-    arithmetic. Calls ``visit(i0, c0, tile)`` on each chunk's tile (its cell
-    ``(r, q)`` is the stripe's ``(i0 - 1 + r, c0 - 1 + q)``) and returns the
-    bottom row ``(P, C + 1)``."""
-    P = inc.shape[0]
-    C = max(inc.shape[1], inc.shape[2]) * f
+def _band_sweep(u, bd, naive, H, Wc, visit=None):
+    """The band decomposition in plain PyTorch: the refined increments ``u
+    (P, rows, C)`` swept in bands of ``H`` rows, one after another, each in
+    chunks of ``Wc`` columns, a chunk taking its north row from the band
+    above's hand-off row (``bd`` for band 0) and its west column from the
+    chunk before. Calls ``visit(i0, c0, tile)`` on each chunk's tile (its
+    cell ``(r, q)`` is the stripe's ``(i0 - 1 + r, c0 - 1 + q)``) and
+    returns the bottom row ``(P, C + 1)``."""
+    P, rows, C = u.shape
     scheme = scan_solver.get_scheme(naive)
-    u = _band_increments(inc, f, row0, rows, flip)
     above = bd
     for i0 in range(1, rows + 1, H):  # band by band
         h = min(H, rows - i0 + 1)
-        below = inc.new_ones(P, C + 1)  # the band's hand-off row
-        west = inc.new_ones(P, h)
+        below = u.new_ones(P, C + 1)  # the band's hand-off row
+        west = u.new_ones(P, h)
         for c0 in range(1, C + 1, Wc):  # chunk by chunk
             w = min(Wc, C - c0 + 1)
             tile = _sweep_tile(above[:, c0 - 1:c0 + w], west,
@@ -226,20 +224,27 @@ def stripe_solve_banded_plain(inc, bd, row0, rows, dyadic_order=0,
     K7-stack's stack written as the kernel writes it. Bit for bit
     :func:`stripe_solve_plain` / :func:`stripe_solve_stack_plain`; no route
     runs it."""
-    P = inc.shape[0]
-    f = 2 ** dyadic_order
-    C = max(inc.shape[1], inc.shape[2]) * f
+    u = _band_increments(inc, 2 ** dyadic_order, row0, rows, flip)
+    return banded_sweep(u, bd, naive, H, Wc, stack)
+
+
+def banded_sweep(u, bd, naive=False, H=BAND_ROWS, Wc=CHUNK, stack=False):
+    """:func:`_band_sweep` of the refined increments ``u (P, rows, C)`` from
+    the north boundary ``bd``: the bottom row ``(P, C + 1)``, with ``stack``
+    also the stack ``(P, rows + C + 1, rows + 1)`` (row 0 = ``bd``) written
+    as the band kernel writes it."""
+    P, rows, C = u.shape
     stk = visit = None
     if stack:
-        stk = inc.new_zeros(P, rows + C + 1, rows + 1)
+        stk = u.new_zeros(P, rows + C + 1, rows + 1)
         stk[:, :C + 1, 0] = bd
-        diag = torch.arange(1, rows + 1, device=inc.device)
+        diag = torch.arange(1, rows + 1, device=u.device)
         stk[:, diag, diag] = 1
 
         def visit(i0, c0, tile):
             i, c = _tile_cells(i0, c0, tile)
             stk[:, i + c, i.expand(i.shape[0], c.shape[1])] = tile[:, 1:, 1:]
-    bottom = _band_sweep(inc, bd, row0, rows, f, naive, flip, H, Wc, visit)
+    bottom = _band_sweep(u, bd, naive, H, Wc, visit)
     return (bottom, stk) if stack else bottom
 
 
@@ -273,7 +278,8 @@ def stripe_adjoint_banded_plain(inc, stack, bd, ct, row0, rows,
                                                            c.shape[1])]
         terms[:, i - 1, c - 1] = fwd * tile[:, :-1, :-1]
 
-    _band_sweep(inc, bd, row0, rows, f, naive, True, H, Wc, visit)
+    _band_sweep(_band_increments(inc, f, row0, rows, True), bd, naive, H,
+                Wc, visit)
     dev = inc.device
     groups = WARP // f
     terms = terms.reshape(P, nwarps, groups, f, C)

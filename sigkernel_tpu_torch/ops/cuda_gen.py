@@ -10,18 +10,23 @@ kernel ``k_sig(X[ii[p]], Y[jj[p]])`` of each pair ``p``, with the increments
 ``dd(exp(-|x - y|^2 / sigma))`` generated in the kernel from the path points.
 Nothing but paths goes in and values come out; the pair index arrays let one
 kernel serve pairwise kernels, Grams, the symmetric triangle and the
-linear-combination chunks without copying paths per pair. On the H100 it is
-bound by arithmetic and ``exp``: four ``exp`` per refined cell in this
-simple form.
-
-K1-stack (:func:`rbf_gen_solve_stack`) also writes the solution stack (the
+linear-combination chunks without copying paths per pair. K1 and K1-stack
+(:func:`rbf_gen_solve_stack`, which also writes the solution stack: the
 stack outputs of ``solve_final_f32_gen_stack`` and
-``solve_final_df_gen_stack``). K3<gen> (:func:`rbf_gen_adjoint`) replaces
-``pallas_adjoint.py``'s ``_product_collapse_planes_gen_kernel``,
+``solve_final_df_gen_stack``) are the band-pipelined wavefront of
+``csrc/band_sweep.cuh`` with an RBF increment source: a block per (pair,
+band of :data:`.cuda_blocked.BAND_ROWS` rows), each lane generating its base
+row's increments once a base column from two cached G values
+(:func:`rbf_gen_banded_plain` emulates it on any device, for the tests). No
+row bound applies to them. A launch holds at most :func:`gen_chunk` pairs,
+so that the bands' hand-off scratch stays within :data:`SCRATCH_BYTES`.
+
+K3<gen> (:func:`rbf_gen_adjoint`) replaces ``pallas_adjoint.py``'s
+``_product_collapse_planes_gen_kernel``,
 ``_product_collapse_planes_gen_df_kernel`` and
 ``_product_collapse_planes_gen32_kernel``: the reverse sweep with its
 increments regenerated from the paths, the product with the stack and the
-dyadic collapse.
+dyadic collapse, one block a pair within the row bound.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (``*_plain``) only for CPU tensors. ``COUNTS``, ``STACK_COUNTS`` and
@@ -32,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, scan_solver
+from . import _build, cuda_blocked, scan_solver
 from .cuda_solver import stack_shape
 from ..utils import dyadic_refine
 
@@ -49,6 +54,12 @@ _ADJOINT_FNS = {torch.float32: "sk_adjoint_gen_f32",
 
 # the plain version solves pairs in chunks whose refined grids stay near this
 _PLAIN_CHUNK_BYTES = 1 << 30
+# K1's hand-off scratch a launch: (pairs, bands - 1, C + 1) values, with
+# the launch's counters. 512 MiB holds ~2,185 pairs at length 1024, dyadic
+# 1 in double (16 bands, C = 2,046: ~35,000 blocks, some 30 waves of the
+# card), so a launch of more pairs would fill the card no better; it bounds
+# what K1 adds to the peak.
+SCRATCH_BYTES = 512 << 20
 
 
 def sigma_value(sigma) -> float:
@@ -123,6 +134,113 @@ def rbf_gen_solve_stack_plain(X, Y, ii, jj, sigma, dyadic_order: int = 0,
     return grid[..., -1, -1].clone(), scan_solver.grid_to_stack(grid)
 
 
+def _lane_increments(X, Y, ii, jj, sigma, f):
+    """The refined increments ``(P, R, C)`` of each pair's frame as K1's
+    lanes meet them: RbfSource's arithmetic (``csrc/rbf_gen.cuh``) on the
+    band sweep's schedule (``csrc/band_sweep.cuh``). The pair is oriented
+    with the shorter path as ``rows`` (transposed when ``M > N``); lane ``i``
+    (frame row ``i`` from 1, lane ``t = (i - 1) % 32`` of its warp) owns
+    base row ``ra = (i - 1) // f``: ``x_ra``, ``x_ra+1`` and their squared
+    norms, and G of the last base column generated, so that its next column
+    costs two new G values from one point of ``cols``. It generates columns
+    0 and 1 first, then one column on each step ``s`` that is a multiple of
+    ``f`` unless it holds one in reserve; at step ``s`` it sweeps column ``c
+    = s - t`` with the current column's value and, after every ``f``
+    columns, moves on to the next column and the reserve. Each sum starts at
+    0 and runs over the coordinates in order, as in the kernel."""
+    if X.shape[1] <= Y.shape[1]:
+        xr, yc = X[ii], Y[jj]
+    else:
+        xr, yc = Y[jj], X[ii]
+    P, Lr, D = xr.shape
+    Cb = yc.shape[1] - 1
+    R, C = (Lr - 1) * f, Cb * f
+    dev = X.device
+    i = torch.arange(1, R + 1, device=dev)
+    t, ra = (i - 1) % cuda_blocked.WARP, (i - 1) // f
+    x0, x1 = xr[:, ra], xr[:, ra + 1]  # (P, R, D)
+    sig = torch.as_tensor(sigma_value(sigma), dtype=X.dtype, device=dev)
+    zero = x0.new_zeros(P, R)
+    sx0, sx1 = zero, zero
+    for d in range(D):
+        sx0, sx1 = sx0 + x0[..., d] * x0[..., d], sx1 + x1[..., d] * x1[..., d]
+
+    def column(b):  # G(ra, b) and G(ra + 1, b), b (R,) a point per lane
+        y = yc[:, b.clamp(max=Cb)]
+        dot0 = dot1 = sy = zero
+        for d in range(D):
+            dot0 = dot0 + x0[..., d] * y[..., d]
+            dot1 = dot1 + x1[..., d] * y[..., d]
+            sy = sy + y[..., d] * y[..., d]
+        return (torch.exp(-((sx0 + sy) - 2.0 * dot0) / sig),
+                torch.exp(-((sx1 + sy) - 2.0 * dot1) / sig))
+
+    g0, g1 = column(torch.zeros_like(i))
+    nxt = torch.zeros_like(i)  # the next base column each lane generates
+
+    def col(ask):
+        """The increment of each asking lane's next column (0 past the last
+        one, which leaves the cache as it is)."""
+        nonlocal g0, g1, nxt
+        g0n, g1n = column(nxt + 1)
+        v = ((g1n + g0) - (g1 + g0n)) * (1.0 / (f * f))
+        ok = ask & (nxt < Cb)
+        g0, g1 = torch.where(ok, g0n, g0), torch.where(ok, g1n, g1)
+        nxt = torch.where(ask, nxt + 1, nxt)
+        return torch.where(nxt <= Cb, v, torch.zeros_like(v))
+
+    everyone = torch.ones_like(i, dtype=torch.bool)
+    u = col(everyone)
+    u_next = col(everyone)
+    u_more, more = torch.zeros_like(u), torch.zeros_like(everyone)
+    out = u.new_zeros(P, R, C)
+    for s in range(1, C + cuda_blocked.WARP):
+        if s % f == 0:  # a uniform step: lanes with no reserve generate
+            ask = ~more
+            u_more = torch.where(ask, col(ask), u_more)
+            more = more | ask
+        c = s - t
+        on = (c >= 1) & (c <= C)
+        out[:, on, c[on] - 1] = u[:, on]
+        wrap = on & (c % f == 0)
+        u = torch.where(wrap, u_next, u)
+        u_next = torch.where(wrap, u_more, u_next)
+        more = more & ~wrap
+    return out
+
+
+def _banded(X, Y, ii, jj, sigma, dyadic_order, naive, H, Wc, stack):
+    f = 2 ** dyadic_order
+    u = _lane_increments(X, Y, ii, jj, sigma, f)
+    ones = u.new_ones(u.shape[0], u.shape[2] + 1)  # row 0 is the constant 1
+    return cuda_blocked.banded_sweep(u, ones, naive, H, Wc, stack)
+
+
+def rbf_gen_banded_plain(X, Y, ii, jj, sigma, dyadic_order: int = 0,
+                         naive: bool = False, H=cuda_blocked.BAND_ROWS,
+                         Wc=cuda_blocked.CHUNK) -> torch.Tensor:
+    """K1's own arithmetic in plain PyTorch, for the tests: each pair's
+    frame swept in bands of ``H`` rows and chunks of ``Wc`` columns
+    (:func:`.cuda_blocked.banded_sweep`) from a row 0 of 1s, the increments
+    generated lane by lane (:func:`_lane_increments`); the corners ``(P,)``.
+    Bit for bit :func:`rbf_gen_solve_final_plain`; no route runs it."""
+    if ii.shape[0] == 0 or X.shape[1] < 2 or Y.shape[1] < 2:
+        return X.new_ones(ii.shape[0])
+    return _banded(X, Y, ii, jj, sigma, dyadic_order, naive, H, Wc,
+                   False)[:, -1].clone()
+
+
+def rbf_gen_banded_stack_plain(X, Y, ii, jj, sigma, dyadic_order: int = 0,
+                               naive: bool = False, H=cuda_blocked.BAND_ROWS,
+                               Wc=cuda_blocked.CHUNK):
+    """K1-stack's own arithmetic, as :func:`rbf_gen_banded_plain`:
+    ``(values, stack)``, the stack written as the band kernel writes it.
+    Bit for bit :func:`rbf_gen_solve_stack_plain`."""
+    bottom, stk = _banded(X, Y, ii, jj, sigma, dyadic_order, naive, H, Wc,
+                          True)
+    return bottom[:, -1].clone(), stk
+
+
 def rbf_gen_adjoint_plain(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
                           naive: bool = False) -> torch.Tensor:
     """Plain version of K3<gen>: the increments regenerated from the paths,
@@ -163,16 +281,60 @@ def check_pairs(X, Y, ii, jj, what):
     return ii, jj
 
 
-def _oriented(X, Y, ii, jj, dyadic_order, what):
+def _oriented(X, Y, ii, jj, dyadic_order, what, bounded=True):
     """The shorter refined side is the kernels' diagonal axis: ``(rows,
-    row indices, cols, col indices, f, transposed)``."""
+    row indices, cols, col indices, f, transposed)``. ``bounded``: the
+    kernel keeps a ring of three diagonals in shared memory (K3<gen>), so
+    the rows are checked against :func:`._build.max_rows`."""
     f = 2 ** dyadic_order
     if X.shape[1] <= Y.shape[1]:
         rows, ri, cols, ci, transposed = X, ii, Y, jj, 0
     else:
         rows, ri, cols, ci, transposed = Y, jj, X, ii, 1
-    _build.check_rows((rows.shape[1] - 1) * f, X.element_size(), what)
+    if bounded:
+        _build.check_rows((rows.shape[1] - 1) * f, X.element_size(), what)
     return rows, ri, cols, ci, f, transposed
+
+
+def gen_chunk(P: int, R: int, C: int, itemsize: int) -> int:
+    """Pairs a K1 launch: all ``P`` while one band holds the frame's ``R``
+    rows (no scratch), else as many as keep the bands' hand-off scratch
+    and the launch's counters (an int a block, and the ticket) within
+    :data:`SCRATCH_BYTES` (at least one)."""
+    nbands = -(-R // cuda_blocked.BAND_ROWS)
+    if nbands <= 1:
+        return max(P, 1)
+    per_pair = (nbands - 1) * (C + 1) * itemsize + 4 * nbands
+    return max(1, min(P, (SCRATCH_BYTES - 4) // per_pair))
+
+
+def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
+                   naive, out, stack=None):
+    """K1 or K1-stack (``stack`` given) over the pairs in launches of
+    :func:`gen_chunk` pairs, each with its scratch and freshly zeroed
+    counters (reused across the launches, on one stream)."""
+    rows, ri, cols, ci, f, _ = _oriented(X, Y, ii, jj, dyadic_order, what,
+                                         bounded=False)
+    P, Lr, Lc = ii.shape[0], rows.shape[1], cols.shape[1]
+    R, C = (Lr - 1) * f, (Lc - 1) * f
+    nbands = -(-R // cuda_blocked.BAND_ROWS)
+    chunk = gen_chunk(P, R, C, X.element_size())
+    scratch = torch.empty(chunk * (nbands - 1) * (C + 1), dtype=X.dtype,
+                          device=X.device)
+    counters = torch.empty(chunk * nbands + 1, dtype=torch.int32,
+                           device=X.device)
+    per_stack = (R + C + 1) * (R + 1) * X.element_size()
+    item = out.element_size()
+    for s in range(0, P, chunk):
+        n = min(chunk, P - s)
+        counters.zero_()
+        at = (rows.data_ptr(), cols.data_ptr(), ri.data_ptr() + 8 * s,
+              ci.data_ptr() + 8 * s, out.data_ptr() + item * s)
+        if stack is not None:
+            at += (stack.data_ptr() + per_stack * s,)
+        _build.launch(what, fns, counts, X, *at, scratch.data_ptr(),
+                      counters.data_ptr(), n, Lr, Lc, X.shape[2], f,
+                      sigma_value(sigma), nbands, int(naive))
 
 
 def rbf_gen_solve_final(X, Y, ii, jj, sigma, dyadic_order: int = 0,
@@ -190,13 +352,9 @@ def rbf_gen_solve_final(X, Y, ii, jj, sigma, dyadic_order: int = 0,
     if P == 0 or M < 2 or N < 2:
         # no pairs, or a length-1 path (K is its boundary, 1): no launch
         return X.new_ones(P)
-    rows, ri, cols, ci, f, _ = _oriented(X, Y, ii, jj, dyadic_order,
-                                         "rbf_gen_solve_final")
     out = torch.empty(P, dtype=X.dtype, device=X.device)
-    _build.launch("rbf_gen_wavefront", _FNS, COUNTS, X, rows.data_ptr(),
-                  cols.data_ptr(), ri.data_ptr(), ci.data_ptr(),
-                  out.data_ptr(), P, rows.shape[1], cols.shape[1], X.shape[2],
-                  f, sigma_value(sigma), int(naive))
+    _launch_banded("rbf_gen_wavefront", _FNS, COUNTS, X, Y, ii, jj, sigma,
+                   dyadic_order, naive, out)
     return out
 
 
@@ -213,17 +371,13 @@ def rbf_gen_solve_stack(X, Y, ii, jj, sigma, dyadic_order: int = 0,
     P, M, N = ii.shape[0], X.shape[1], Y.shape[1]
     if M < 2 or N < 2:
         raise ValueError("rbf_gen_solve_stack: a length-1 path has no stack")
-    rows, ri, cols, ci, f, _ = _oriented(X, Y, ii, jj, dyadic_order,
-                                         "rbf_gen_solve_stack")
+    f = 2 ** dyadic_order
     out = torch.empty(P, dtype=X.dtype, device=X.device)
     stack = torch.empty(stack_shape(P, (M - 1) * f, (N - 1) * f),
                         dtype=X.dtype, device=X.device)
     if P:
-        _build.launch("rbf_gen_stack", _STACK_FNS, STACK_COUNTS, X,
-                      rows.data_ptr(), cols.data_ptr(), ri.data_ptr(),
-                      ci.data_ptr(), out.data_ptr(), stack.data_ptr(), P,
-                      rows.shape[1], cols.shape[1], X.shape[2], f,
-                      sigma_value(sigma), int(naive))
+        _launch_banded("rbf_gen_stack", _STACK_FNS, STACK_COUNTS, X, Y, ii,
+                       jj, sigma, dyadic_order, naive, out, stack)
     return out, stack
 
 

@@ -1,0 +1,149 @@
+"""K1 and K1-stack on the band-pipelined wavefront (``csrc/band_sweep.cuh``
+with ``csrc/rbf_gen.cuh``'s RbfSource), emulated in plain PyTorch by
+``cuda_gen.rbf_gen_banded_plain`` and ``rbf_gen_banded_stack_plain``: each
+pair's frame swept in bands of ``H`` rows and chunks of ``Wc`` columns from a
+row 0 of 1s, the increments generated by the kernel's lane arithmetic (a
+base row a lane, G cached one base column back, the columns generated on
+the warp-uniform steps ahead of their use, the pair transposed when ``M >
+N``). It must equal the plain versions (``rbf_gen_solve_final_plain``,
+``rbf_gen_solve_stack_plain``) bit for bit over both dtypes, both schemes,
+dyadic orders 0-3, ``M < N``, ``M == N`` and ``M > N``, D in {1, 3, 5},
+frames of fewer than 32 rows and of a row count that is no multiple of the
+band height, and identity, flipped and ``triu`` index arrays; and, on the
+same numpy inputs, the JAX package's scan tier within 1e-12 relative.
+
+These tests catch a broken generator. Each of these mutations of
+``_lane_increments`` made all 96 cases of ``test_banded_k1_is_the_plain_k1``
+fail: G cached one base column off (the cache left as it was after each
+column), g00 and g10 swapped (the two rows' cached values), a column
+generated every 2 f steps (the lanes starve), or generated on every
+uniform step whatever the lane holds in reserve (columns skipped). Two
+mutations change nothing, and no test can see them: swapping g10 with g01
+(they enter the increment only through ``g10 + g01``, a sum that is exact
+in either order), and another phase of the uniform steps (``s % f == 1``:
+any phase leaves one such step between two wraps of a lane).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sigkernel_tpu as sk
+
+from sigkernel_tpu_torch.ops import cuda_gen
+
+from conftest import make_paths
+
+# (M, N, D, index arrays, H, Wc): the shorter path's refined rows R = (min(M,
+# N) - 1) 2^dyadic, transposed in the kernel's frame when M > N. Bands of 16
+# rows and chunks of 8 columns put several bands and chunks, the last ones
+# short, on every frame past dyadic 1; (128, 32) are the kernel's own sizes
+# (one short band).
+_CASES = [
+    (4, 7, 1, "identity", 16, 8),   # R = 3 .. 24: fewer than 32 rows
+    (6, 6, 3, "triu", 16, 8),       # M == N, R = 5 .. 40
+    (8, 5, 5, "flipped", 16, 8),    # M > N: transposed, R = 4 .. 32
+    (5, 9, 3, "flipped", 128, 32),  # the kernel's band and chunk
+    (9, 5, 1, "triu", 8, 13),       # M > N, an odd chunk
+    (6, 11, 5, "identity", 16, 8),
+]
+
+
+def _case_id(case):
+    return "-".join(map(str, case))
+
+
+def _pairs(kind, A, B):
+    if kind == "identity":
+        n = min(A, B)
+        return np.arange(n), np.arange(n)
+    if kind == "flipped":
+        n = min(A, B)
+        return np.arange(n), np.arange(n)[::-1].copy()
+    ii, jj = np.triu_indices(min(A, B))
+    return ii, jj
+
+
+def _inputs(M, N, D, kind, dtype, seed):
+    rng = np.random.default_rng(seed)
+    X = make_paths(rng, 3, M, D, scale=0.8)
+    Y = make_paths(rng, 4, N, D, scale=0.8)
+    ii, jj = _pairs(kind, 3, 4)
+    t = [torch.tensor(a, dtype=dtype) for a in (X, Y)]
+    return (X, Y, ii, jj, *t, torch.tensor(ii), torch.tensor(jj))
+
+
+@pytest.mark.parametrize("case", _CASES, ids=_case_id)
+@pytest.mark.parametrize("dyadic", [0, 1, 2, 3])
+@pytest.mark.parametrize("naive", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_banded_k1_is_the_plain_k1(dtype, naive, dyadic, case):
+    M, N, D, kind, H, Wc = case
+    *_, X, Y, ii, jj = _inputs(M, N, D, kind, dtype, 0)
+    got = cuda_gen.rbf_gen_banded_plain(X, Y, ii, jj, 0.6, dyadic, naive, H,
+                                        Wc)
+    want = cuda_gen.rbf_gen_solve_final_plain(X, Y, ii, jj, 0.6, dyadic,
+                                              naive)
+    assert got.dtype == dtype and got.shape == want.shape == (len(ii),)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", _CASES[:3], ids=_case_id)
+@pytest.mark.parametrize("dyadic", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_banded_k1_stack_is_the_plain_stack(dtype, dyadic, case):
+    """Every entry of K1-stack's stack as the band kernel writes it: row 0
+    the constant 1 to column C, the swept cells on their diagonals, 1 at
+    column 0, 0 outside; and the values."""
+    M, N, D, kind, H, Wc = case
+    *_, X, Y, ii, jj = _inputs(M, N, D, kind, dtype, 1)
+    naive = dyadic % 2 == 1
+    got = cuda_gen.rbf_gen_banded_stack_plain(X, Y, ii, jj, 0.6, dyadic,
+                                              naive, H, Wc)
+    want = cuda_gen.rbf_gen_solve_stack_plain(X, Y, ii, jj, 0.6, dyadic,
+                                              naive)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_length_one_and_no_pairs():
+    """A length-1 path: K is its boundary, 1; no pairs: no values."""
+    X = torch.zeros(2, 1, 3, dtype=torch.float64)
+    Y = torch.ones(2, 4, 3, dtype=torch.float64)
+    ii = torch.arange(2)
+    assert torch.equal(cuda_gen.rbf_gen_banded_plain(X, Y, ii, ii, 1.0, 1),
+                       torch.ones(2, dtype=torch.float64))
+    none = torch.zeros(0, dtype=torch.int64)
+    assert cuda_gen.rbf_gen_banded_plain(Y, Y, none, none, 1.0).shape == (0,)
+
+
+@pytest.mark.parametrize("case", _CASES[:3], ids=_case_id)
+@pytest.mark.parametrize("dyadic", [0, 2])
+def test_banded_k1_matches_jax_scan_tier(dyadic, case):
+    """The JAX package's RBF Gram on its scan tier, at the same pairs of the
+    same numpy paths, float64 within 1e-12 relative."""
+    M, N, D, kind, H, Wc = case
+    Xn, Yn, iin, jjn, X, Y, ii, jj = _inputs(M, N, D, kind, torch.float64, 2)
+    gram = np.asarray(sk.sig_gram(sk.RBFKernel(0.6), jnp.asarray(Xn),
+                                  jnp.asarray(Yn), dyadic_order=dyadic,
+                                  solver="scan"))
+    got = cuda_gen.rbf_gen_banded_plain(X, Y, ii, jj, 0.6, dyadic, False, H,
+                                        Wc).numpy()
+    np.testing.assert_allclose(got, gram[iin, jjn], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("P,R,C,itemsize,want", [
+    (128, 2046, 2046, 8, 128),         # the timed shape: one launch
+    (10_000, 2046, 2046, 8, 2185),     # the forward Gram's tile, in double
+    (10_000, 2046, 2046, 4, 4368),     # ... in float
+    (5_050, 100, 300, 8, 5_050),       # one band: no scratch at all
+    (3, 100_000, 100_000, 8, 1),       # a pair's scratch past the bound
+])
+def test_launch_chunks_keep_the_scratch_within_its_bound(P, R, C, itemsize,
+                                                         want):
+    n = cuda_gen.gen_chunk(P, R, C, itemsize)
+    assert n == want
+    bands = -(-R // 128)
+    # the hand-off rows and the counters (an int a block, and the ticket)
+    assert n == 1 or n * ((bands - 1) * (C + 1) * itemsize + 4 * bands) + 4 \
+        <= cuda_gen.SCRATCH_BYTES

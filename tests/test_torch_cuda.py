@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 forward kernels K1 and K2, their stack-emitting instances, the adjoint K3
 (gen and inc sources), the increment-chain VJP K4, the derivative Gram's
-triple wavefront K5, the Linear generator K6, the stripe kernels K7,
+triple wavefront K5, the Linear generator K6, K1 and K1-stack at the edges
+of their band decomposition and in launches split by the scratch bound,
+the stripe kernels K7,
 K7-stack and K3<inc, boundary> (its band kernel, and its one-block kernel
 past f = 32), the sparse-checkpoint pair K2-sparse and
 K8, and values and gradients through the estimators against the plain
@@ -444,6 +446,63 @@ def test_band_adjoint_matches_plain(cuda, dtype, naive, P, Mb, Nb, dyadic,
         inc, stk, bd, ct.clone(), row0, rows, dyadic, naive))
     assert torch.equal(got, cuda_blocked.stripe_adjoint_banded_plain(
         inc, stk, bd, ct.clone(), row0, rows, dyadic, naive))
+
+
+# K1 on the band kernel: pairs, path lengths M, N, dim, dyadic order. The
+# frame's rows R = (min(M, N) - 1) 2^dyadic: 1, 31, 32, 33, 128 (one full
+# band) and 129 (a second band of one row); a transposed pair (M > N); D = 1
+# and 5 and D = 7 (no instance of its own: the points read through __ldg);
+# dyadic 0-3; 3,000 pairs, more blocks than are resident
+_GEN_BAND = [
+    (3, 2, 6, 2, 0), (3, 32, 40, 3, 0), (3, 33, 40, 1, 0), (2, 34, 50, 5, 0),
+    (2, 65, 70, 3, 1), (2, 130, 140, 3, 0), (2, 70, 40, 3, 1),
+    (2, 9, 12, 7, 3), (2, 17, 20, 5, 2), (3000, 17, 17, 3, 2),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,M,N,D,dyadic", _GEN_BAND)
+def test_band_gen_matches_plain(cuda, dtype, P, M, N, D, dyadic):
+    """K1 and K1-stack at the edges of the band decomposition, bit for bit
+    their plain versions (and, at a few pairs, the CPU emulation of the
+    band kernel)."""
+    A = max(P // 2, 2)
+    X = _paths(A, M, D, 90 + M, cuda, dtype)
+    Y = _paths(A, N, D, 91 + N, cuda, dtype)
+    g = torch.Generator(device=cuda).manual_seed(P + M)
+    ii = torch.randint(0, A, (P,), generator=g, device=cuda)
+    jj = torch.randint(0, A, (P,), generator=g, device=cuda)
+    for naive in (False, True):
+        got = cuda_gen.rbf_gen_solve_final(X, Y, ii, jj, 0.8, dyadic, naive)
+        want = cuda_gen.rbf_gen_solve_final_plain(X, Y, ii, jj, 0.8, dyadic,
+                                                  naive)
+        assert torch.equal(got, want)
+        v, stk = cuda_gen.rbf_gen_solve_stack(X, Y, ii, jj, 0.8, dyadic,
+                                              naive)
+        pv, pstk = cuda_gen.rbf_gen_solve_stack_plain(X, Y, ii, jj, 0.8,
+                                                      dyadic, naive)
+        assert torch.equal(v, got) and torch.equal(pv, want)
+        assert torch.equal(stk, pstk)
+        if P <= 3:
+            assert torch.equal(got, cuda_gen.rbf_gen_banded_plain(
+                X, Y, ii, jj, 0.8, dyadic, naive))
+
+
+def test_band_gen_splits_its_launches_by_the_scratch_bound(cuda, monkeypatch):
+    """With the scratch bound cut to one pair's hand-off rows, K1 and
+    K1-stack launch once a pair, with the same values and stack."""
+    X = _paths(4, 140, 3, 95, cuda, torch.float64)  # R = 139: two bands
+    ii = torch.tensor([0, 1, 2, 3, 0], device=cuda)
+    jj = torch.tensor([3, 2, 1, 0, 0], device=cuda)
+    whole = cuda_gen.rbf_gen_solve_final(X, X, ii, jj, 1.0)
+    _, whole_stack = cuda_gen.rbf_gen_solve_stack(X, X, ii, jj, 1.0)
+    monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", 140 * 8)
+    n, n_stack = cuda_gen.COUNTS["float64"], cuda_gen.STACK_COUNTS["float64"]
+    assert torch.equal(cuda_gen.rbf_gen_solve_final(X, X, ii, jj, 1.0), whole)
+    v, stk = cuda_gen.rbf_gen_solve_stack(X, X, ii, jj, 1.0)
+    assert torch.equal(v, whole) and torch.equal(stk, whole_stack)
+    assert cuda_gen.COUNTS["float64"] == n + 5
+    assert cuda_gen.STACK_COUNTS["float64"] == n_stack + 5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
