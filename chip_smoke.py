@@ -32,10 +32,12 @@ Phases (any failure raises and the script exits non-zero):
    and columns, a zero-padded last adjoint stripe, one pair shorter than a
    band, 5,000 blocks, dyadic 5), K7, K7-stack and K3<inc, boundary> (on
    the forward stripe's K7-stack) bit for bit, and at dyadic 6 K3<inc,
-   boundary> on its one-block kernel, by its counter; then K1 and K1-stack
-   (the band kernel with the RBF generator) bit for bit at the edges of
-   their band decomposition (``GEN_BAND_CASES``: frames of 1 to 4,092 rows,
-   a transposed pair, D 1 and 5, dyadic 0-3, 3,000 pairs).
+   boundary> on its one-block kernel, by its counter; then K1, K1-stack
+   and K3<gen> (the band kernel with the RBF generator, K3<gen>'s walking
+   the columns backward) bit for bit at the edges of their band
+   decomposition (``GEN_BAND_CASES``: frames of 1 to 4,092 rows, transposed
+   pairs, D 1 and 5, dyadic 0-3 and 5, 3,000 pairs), and at dyadic 6
+   K3<gen> on its one-block kernel, by its counter.
 2. The forward main path at the north-star size: ``SigKernel(RBFKernel(1.0),
    dyadic_order=1)`` on X, Y of shape (100, 1024, 3), float64 and float32:
    ``compute_Gram(X, X, sym=True)``, ``compute_Gram(X, Y)``,
@@ -92,8 +94,8 @@ and no plain version may have run. The checks of those phases against plain
 versions come after the counters are read, then each kernel is timed beside
 its plain version at 128 pairs, length 1024, dyadic 1, dim 3 (the stripe
 kernels at phase 10's grid; K7 at both the forward's and the adjoint's
-stripe height, two entries; K1 and K1-stack beside their times before
-the band kernel). The last three
+stripe height, two entries; K1, K1-stack and K3<gen> beside their times
+before the band kernel). The last three
 lines of the output are the card's ``nvidia-smi`` line, one JSON object
 describing the kernels (each with its launches on the main path, its
 largest error against its plain version, its time and its plain version's,
@@ -188,13 +190,16 @@ BAND_CASES = [
      False),
     ("dyadic 5, zero-padded", 3, 7, 9, 3, 5, 128, 192, True, True),
 ]
-# phase 1, K1 and K1-stack on the band kernel (a whole frame a pair, bands of
-# 128 rows from a row 0 of 1s, the RBF increments generated a base column a
-# lane) at its edges, bit for bit: name, pairs, M, N, dim, dyadic order. The
-# frame's rows R = (min(M, N) - 1) 2^dyadic: 1, 31, 32, 33, 128 (one full
-# band), 129 (a second band of one row), 2,046 (the timed shape) and 4,092
-# (phase 8's); a transposed pair (M > N); D = 1 and 5; dyadic 0-3; and
-# 3,000 pairs, more blocks than are resident
+# phase 1, K1, K1-stack and K3<gen> on the band kernel (a whole frame a pair,
+# bands of 128 rows from a row 0 of 1s, the RBF increments generated a base
+# column a lane; K3<gen> the reverse frame, its columns walked backward) at
+# its edges, bit for bit: name, pairs, M, N, dim, dyadic order. The frame's
+# rows R = (min(M, N) - 1) 2^dyadic: 1, 31, 32, 33, 128 (one full band), 129
+# (a second band of one row), 2,046 (the timed shape) and 4,092 (phase 8's);
+# transposed pairs (M > N: K3<gen>'s ct is written transposed); D = 1 and
+# 5; dyadic 0-3 and 5 (a base row is a whole warp of K3<gen>'s collapse);
+# 3,000 pairs, more blocks than are resident; and dyadic 6, where K3<gen>
+# takes its one-block kernel (counted under "one_block")
 GEN_BAND_CASES = [
     ("R 1", 3, 2, 6, 2, 0),
     ("R 31", 3, 32, 40, 3, 0),
@@ -204,16 +209,20 @@ GEN_BAND_CASES = [
     ("R 129: a band of one row", 3, 130, 140, 3, 0),
     ("a transposed pair (M > N)", 3, 70, 40, 3, 1),
     ("dyadic 3", 3, 9, 12, 5, 3),
+    ("dyadic 5: a base row is a whole warp, transposed", 3, 9, 7, 3, 5),
     ("R 2,046: the timed shape", 2, 1024, 1024, 3, 1),
     ("R 4,092: phase 8's frame", 1, 1024, 1024, 5, 2),
     ("3,000 pairs", 3000, 17, 17, 3, 2),
+    ("dyadic 6: K3<gen>'s one-block kernel", 3, 4, 5, 3, 6),
 ]
-# K1 and K1-stack at the timed shape in the one-block-a-pair design that the
-# band kernel replaced (this script's timing, NVIDIA H100 80GB HBM3, 700.00
-# W), printed beside this run's
+# K1, K1-stack and K3<gen> at the timed shape in the one-block-a-pair design
+# that the band kernel replaced (this script's timing, NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside this run's
 EARLIER_MS = {("gen", "float32"): 18.009, ("gen", "float64"): 26.026,
               ("gen_stack", "float32"): 19.252,
-              ("gen_stack", "float64"): 29.214}
+              ("gen_stack", "float64"): 29.214,
+              ("adj_gen", "float32"): 30.547,
+              ("adj_gen", "float64"): 41.361}
 # phase 1: K3<inc, boundary> at dyadic 6 (f = 64 > 32: the one-block
 # kernel, by its counter), as BAND_CASES
 ONE_BLOCK_CASE = ("dyadic 6: the one-block kernel", 2, 5, 4, 3, 6, 0, 192,
@@ -875,7 +884,8 @@ def main():
                   f"{ta * 1e3:.1f} ms)")
     print(f"[1] band cases passed in {time.perf_counter() - t_phase:.1f} s")
 
-    # K1 and K1-stack on the band kernel at its edges, bit for bit
+    # K1, K1-stack and K3<gen> on the band kernel at its edges, bit for bit;
+    # at dyadic 6 K3<gen> takes its one-block kernel
     t_phase = time.perf_counter()
     for gname, P, M, N, D, dy in GEN_BAND_CASES:
         A = max(P // 2, 2)
@@ -908,11 +918,29 @@ def main():
                             "K1-stack " + label)
                 check(torch.equal(v, k1) and torch.equal(stk, pstk),
                       f"K1-stack {label}: not bit-equal")
-                del stk, pstk
-                print(f"[1] {label}: K1 and K1-stack bit-equal to their plain "
-                      f"versions ({t1 * 1e3:.1f} / {ts * 1e3:.1f} ms)")
+                del pstk
+                kernel = cuda_blocked.stripe_adjoint_kernel(dy)
+                key = "one_block" if kernel == "one_block" else name[dtype]
+                before = dict(cuda_gen.ADJOINT_COUNTS)
+                ct, ta = synced(lambda: cuda_gen.rbf_gen_adjoint(
+                    X, Y, ii, jj, 1.0, stk, dy, naive))
+                launched = {k: v - before[k]
+                            for k, v in cuda_gen.ADJOINT_COUNTS.items()}
+                check(launched == {k: int(k == key) for k in launched},
+                      f"K3<gen> {label}: launches {launched}, not one of the "
+                      f"{kernel} kernel")
+                pct = cuda_gen.rbf_gen_adjoint_plain(X, Y, ii, jj, 1.0, stk,
+                                                     dy, naive)
+                compare_max("adj_gen", dtype, ct, pct, glimit,
+                            "K3<gen> " + label)
+                check(torch.equal(ct, pct), f"K3<gen> {label}: not bit-equal")
+                del stk, ct, pct
+                print(f"[1] {label}: K1, K1-stack and K3<gen> "
+                      f"({kernel.replace('_', '-')} kernel) bit-equal to "
+                      f"their plain versions ({t1 * 1e3:.1f} / "
+                      f"{ts * 1e3:.1f} / {ta * 1e3:.1f} ms)")
         torch.cuda.empty_cache()
-    print(f"[1] K1 band cases passed in "
+    print(f"[1] gen band cases passed in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
     # ---- phases 2-4: the forward main path, counted ---------------------

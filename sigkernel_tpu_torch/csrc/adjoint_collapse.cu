@@ -1,5 +1,7 @@
 // K3: the adjoint PDE sweep with the product and the dyadic collapse done
-// in flight; one thread block per pair for K3<gen> and K3<inc>.
+// in flight: one thread block per pair for K3<inc>, and for K3<gen> and
+// K3<inc, boundary> past f = 32; the band-pipelined wavefront of
+// band_sweep.cuh for K3<gen> and K3<inc, boundary> to f = 32.
 //
 // Replaces the TPU kernels
 //   sigkernel_tpu/ops/pallas_adjoint.py::_product_kernel
@@ -38,6 +40,21 @@
 // collapse cannot run in flight: the wrapper routes such stripes to the
 // one-block kernel, within the row bound its ring of three diagonals in
 // shared memory sets.
+//
+// K3<gen> the same way. One block a pair (adjoint_collapse_gen, the earlier
+// design) ran 128 blocks for 132 SMs at the timed shape, a barrier on each
+// of its R + C - 1 reverse diagonals, regenerated four G values (four exp)
+// for every refined cell and added every refined term into ct in global
+// memory: 14x its bound, the stack's bytes read once. So for f <= 32 it is
+// kBandAdjoint over the pair's whole frame (row0 0, rows R, from 1s, no
+// boundary) with rbf_gen.cuh's RbfSource as its source, the columns walked
+// from the last to the first (flip): each lane generates its base row's
+// increments once a base column from two cached G values, on the
+// warp-uniform steps, and nothing of the frame sits in shared memory, so
+// no row bound applies. ct is in the pairs' own frame: the launcher passes
+// band_stripe that frame (Mb = Lx - 1, Nb = Ly - 1), so that its transpose
+// (Mb > Nb) is the wrapper's. Past f = 32 the one-block kernel stays,
+// within the row bound.
 #include "adjoint.cuh"
 #include "band_sweep.cuh"
 #include "rbf_gen.cuh"
@@ -174,7 +191,7 @@ cudaError_t launch_band(const void* inc, const void* stack, const void* bd,
                         void* ct, void* scratch, void* counters, int64_t P,
                         int Mb, int Nb, int row0, int rows, int nbands,
                         int naive, void* stream) {
-  const size_t smem = band_stage_bytes<T>();
+  const size_t smem = band_stage_bytes<T, GridSource<T>>();
   cudaError_t e = allow_smem(band_stripe<T, kBandAdjoint, kF>, smem);
   if (e != cudaSuccess) return e;
   band_stripe<T, kBandAdjoint, kF><<<static_cast<unsigned>(P * nbands),
@@ -210,13 +227,83 @@ int launch_adjoint_band(const void* inc, const void* stack, const void* bd,
                 nbands, naive, stream);
 }
 
+// K3<gen> on the band kernel: the reverse sweep of each pair's whole frame
+// with RbfSource walking the columns backward, times K1-stack's stack.
+template <typename T, int kF, int kD>
+cudaError_t launch_gen_adjoint_band(const void* rows, const void* cols,
+                                    const void* ri, const void* ci, void* ct,
+                                    const void* stack, void* scratch,
+                                    void* counters, int64_t P, int Lr,
+                                    int Lc, int D, double sigma, int nbands,
+                                    int transpose, int naive,
+                                    cudaStream_t stream) {
+  using Src = RbfSource<T, kD>;
+  const Src src{static_cast<const T*>(rows), static_cast<const T*>(cols),
+                static_cast<const int64_t*>(ri),
+                static_cast<const int64_t*>(ci), Lr, Lc, D,
+                static_cast<T>(sigma)};
+  const size_t smem = band_stage_bytes<T, Src>();
+  cudaError_t e = allow_smem(band_stripe<T, kBandAdjoint, kF, Src>, smem);
+  if (e != cudaSuccess) return e;
+  // the pairs' own base frame (Lx - 1, Ly - 1)
+  const int Mb = transpose ? Lc - 1 : Lr - 1;
+  const int Nb = transpose ? Lr - 1 : Lc - 1;
+  band_stripe<T, kBandAdjoint, kF, Src>
+      <<<static_cast<unsigned>(P * nbands), kBandRows, smem, stream>>>(
+          src, nullptr, nullptr,
+          const_cast<T*>(static_cast<const T*>(stack)),
+          static_cast<T*>(scratch), static_cast<int*>(counters),
+          static_cast<T*>(ct), P, nbands, Mb, Nb, kF, 0, (Lr - 1) * kF, 1,
+          naive);
+  return cudaGetLastError();
+}
+
+// The instance for dim D: the points in registers for D = 1 .. 5, read
+// through __ldg for any other D (kD = 0), as K1's dispatch.
+template <typename T, int kF>
+decltype(&launch_gen_adjoint_band<T, kF, 0>) gen_adjoint_for(int D) {
+  return D == 1 ? &launch_gen_adjoint_band<T, kF, 1>
+       : D == 2 ? &launch_gen_adjoint_band<T, kF, 2>
+       : D == 3 ? &launch_gen_adjoint_band<T, kF, 3>
+       : D == 4 ? &launch_gen_adjoint_band<T, kF, 4>
+       : D == 5 ? &launch_gen_adjoint_band<T, kF, 5>
+       : &launch_gen_adjoint_band<T, kF, 0>;
+}
+
+// K3<gen> for f = 1 .. 32, one instance per (f, D): the collapse unrolls
+// over a group's f lanes; f > 32 is refused.
+template <typename T>
+int launch_adjoint_gen_band(const void* rows, const void* cols,
+                            const void* ri, const void* ci, void* ct,
+                            const void* stack, void* scratch, void* counters,
+                            int64_t P, int Lr, int Lc, int D, int f,
+                            double sigma, int nbands, int transpose,
+                            int naive, int device, void* stream) {
+  if (Lr < 2 || Lr > Lc || D < 1 || nbands != band_count((Lr - 1) * f) ||
+      P * nbands >= (int64_t(1) << 31)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  decltype(&launch_gen_adjoint_band<T, 1, 0>) launch =
+      f == 1 ? gen_adjoint_for<T, 1>(D) : f == 2 ? gen_adjoint_for<T, 2>(D)
+      : f == 4 ? gen_adjoint_for<T, 4>(D) : f == 8 ? gen_adjoint_for<T, 8>(D)
+      : f == 16 ? gen_adjoint_for<T, 16>(D)
+      : f == 32 ? gen_adjoint_for<T, 32>(D) : nullptr;
+  if (launch == nullptr) return cudaErrorInvalidValue;
+  return launch(rows, cols, ri, ci, ct, stack, scratch, counters, P, Lr, Lc,
+                D, sigma, nbands, transpose, naive,
+                static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace sigkernel
 
 extern "C" {
 
 // rows/ri: the path side with the shorter refined length (Lr <= Lc);
 // transpose: 1 when rows are the pairs' second (Y) side. ct: (P, Lx-1,
-// Ly-1) in the pairs' own (X, Y) frame, zeroed.
+// Ly-1) in the pairs' own (X, Y) frame, zeroed. The one-block kernel, for
+// f > 32.
 int sk_adjoint_gen_f32(const void* rows, const void* cols, const void* ri,
                        const void* ci, const void* stack, void* ct,
                        int64_t P, int Lr, int Lc, int D, int f, double sigma,
@@ -235,6 +322,33 @@ int sk_adjoint_gen_f64(const void* rows, const void* cols, const void* ri,
                                                P, Lr, Lc, D, f, sigma,
                                                transpose, naive, device,
                                                stream);
+}
+
+// K3<gen> on the band-pipelined wavefront (f <= 32): rows, cols, ri, ci,
+// ct and transpose as above; stack: (P, R + C + 1, R + 1), K1-stack's;
+// scratch: (P, nbands - 1, C + 1) values and counters: P * nbands + 1
+// zeroed ints, nbands = ceil((Lr - 1) f / 128), as K1's. Adds each base
+// cell's unscaled sum into ct.
+int sk_adjoint_gen_band_f32(const void* rows, const void* cols,
+                            const void* ri, const void* ci, void* ct,
+                            const void* stack, void* scratch, void* counters,
+                            int64_t P, int Lr, int Lc, int D, int f,
+                            double sigma, int nbands, int transpose,
+                            int naive, int device, void* stream) {
+  return sigkernel::launch_adjoint_gen_band<float>(
+      rows, cols, ri, ci, ct, stack, scratch, counters, P, Lr, Lc, D, f,
+      sigma, nbands, transpose, naive, device, stream);
+}
+
+int sk_adjoint_gen_band_f64(const void* rows, const void* cols,
+                            const void* ri, const void* ci, void* ct,
+                            const void* stack, void* scratch, void* counters,
+                            int64_t P, int Lr, int Lc, int D, int f,
+                            double sigma, int nbands, int transpose,
+                            int naive, int device, void* stream) {
+  return sigkernel::launch_adjoint_gen_band<double>(
+      rows, cols, ri, ci, ct, stack, scratch, counters, P, Lr, Lc, D, f,
+      sigma, nbands, transpose, naive, device, stream);
 }
 
 // inc: (P, Mb, Nb); ct: (P, Mb, Nb), zeroed.

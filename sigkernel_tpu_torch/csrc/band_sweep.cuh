@@ -1,11 +1,12 @@
 // The band-pipelined wavefront: one stripe of a refined grid swept by many
 // blocks per pair, each sweep held in registers, with no block-wide barrier
 // per diagonal. Its users: K7 and K7-stack (stripe_wavefront.cu), K3<inc,
-// boundary> for f <= 32 (adjoint_collapse.cu), and K1 and K1-stack
+// boundary> for f <= 32 (adjoint_collapse.cu), K1 and K1-stack
 // (rbf_gen_wavefront.cu), which sweep a pair's whole frame with increments
-// generated from its paths. wavefront.cuh's `sweep` (one block a pair, a
-// barrier a diagonal) stays for K2, K3<gen, inc>, K5, K6 and K8, and
-// adjoint.cuh for K3<inc, boundary> at f > 32.
+// generated from its paths, and K3<gen> for f <= 32 (adjoint_collapse.cu),
+// the reverse sweep of that whole frame. wavefront.cuh's `sweep` (one block
+// a pair, a barrier a diagonal) stays for K2, K3<inc>, K5, K6 and K8, and
+// adjoint.cuh for K3<inc, boundary> and K3<gen> at f > 32.
 //
 // Decomposition. The stripe's rows 1 .. rows (row 0 is the north boundary
 // bd) are cut into bands of kBandRows = 128 rows, one block of four warps a
@@ -60,10 +61,11 @@
 // StripeGrid's arithmetic (zero past the frame's R rows, both axes reversed
 // with flip, transposed when Mb > Nb, exact 1 / f^2 scaling) and sweeps a
 // stripe from its north boundary bd, writing its bottom row.
-// rbf_gen.cuh's RbfSource (K1, K1-stack) generates the increments from the
+// rbf_gen.cuh's RbfSource (K1, K1-stack; K3<gen> with flip, its columns
+// walked from the last to the first) generates the increments from the
 // pair's paths and sweeps the whole frame (Src::kStripe false): row 0 is
 // the constant 1, read from no tensor, and the lane that owns row R writes
-// only the corner K[R][C], into `bottom` (P,).
+// only the corner K[R][C], into `bottom` (P,), except in kBandAdjoint.
 //
 // The stack (kBandStack) is K2-stack's layout for the stripe: stack[p (rows
 // + 1) + i] = K[i][p - i], written in full. The lanes of one step share the
@@ -73,15 +75,20 @@
 //
 // The adjoint (kBandAdjoint, always with flip: the reverse problem's stripe
 // from its boundary bd, forward stripe row0 .. row0 + rows - 1 in `stack`,
-// K7-stack's layout). Lane t at step s holds nw = K_rev[i-1][c-1], which
-// pairs with forward cell (a, b) = (rows - i, C - c) on forward diagonal p =
-// a + b = rows + C - i0 - s, one p for the whole warp (i0 its first row):
-// the term is mul(stack[p][a], nw), the operand order of adjoint.cuh. As i
-// runs over 1 .. rows and c over 1 .. C these are the forward cells of rows
-// 0 .. rows - 1 and columns 0 .. C - 1, the boundary row included. The
-// stack values reach shared memory a chunk of 32 steps ahead by cp.async
-// (each lane copies and reads only its own entries, so no barrier), and the
-// lanes of one step read neighbouring addresses.
+// K7-stack's layout; or, with RbfSource, the reverse problem's whole frame
+// from 1s, row0 = 0 and rows = R, K1-stack's stack). Lane t at step s
+// holds nw = K_rev[i-1][c-1], which pairs with forward cell (a, b) = (rows
+// - i, C - c) on forward diagonal p = a + b = rows + C - i0 - s, one p for
+// the whole warp (i0 its first row): the term is mul(stack[p][a], nw), the
+// operand order of adjoint.cuh. As i runs over 1 .. rows and c over 1 .. C
+// these are the forward cells of rows 0 .. rows - 1 and columns 0 .. C - 1,
+// the boundary row included. The stack values reach shared memory a stage
+// of Src::kStage steps ahead by cp.async (each lane copies and reads only
+// its own entries, so no barrier), and the lanes of one step read
+// neighbouring addresses. The stage's depth is the source's: 32 steps for
+// GridSource (K3<inc, boundary>), 16 for RbfSource (K3<gen>, whose double
+// instance at D = 3, f = 2 then takes 96 registers, not 158), each the
+// faster of the two on an H100 (sigkernel_tpu_torch/probes/k3_probe.py).
 //
 // The collapse, in registers, in scan_solver.collapse_refined's order
 // (forward p descending, then forward row ascending). Since rows, row0 and
@@ -129,11 +136,12 @@ struct BandShared {
   int ticket;
 };
 
-// kBandAdjoint's dynamic shared memory: per warp two chunks of 32 steps x 32
-// lanes of forward values.
-template <typename T>
+// kBandAdjoint's stage: the forward values of Src::kStage steps x 32 lanes
+// a buffer, two buffers a warp (one read while the next is copied in), in
+// dynamic shared memory.
+template <typename T, typename Src>
 constexpr size_t band_stage_bytes() {
-  return sizeof(T) * kBandWarps * 2 * kChunk * 32;
+  return sizeof(T) * kBandWarps * 2 * Src::kStage * 32;
 }
 
 // A hand-off that never comes (a broken kernel, not a slow one: the longest
@@ -182,6 +190,7 @@ template <typename T>
 struct GridSource {
   static constexpr bool kStripe = true;
   static constexpr bool kAligned = false;  // read at each lane's wrap
+  static constexpr int kStage = 32;  // kBandAdjoint's stage, in steps
   const T* inc;
 
   struct Lane {
@@ -216,9 +225,11 @@ struct GridSource {
 // bottom (P,) the corners); stack: (P, rows + C + 1, rows + 1), written
 // with kBandStack, read with kBandAdjoint; scratch: (P, nbands - 1, C + 1);
 // counters: P * nbands progress counters then the ticket, all zero at
-// launch; ct (kBandAdjoint): (P, Mb, Nb). kF: with kBandAdjoint, f (1 ..
-// 32) fixed at compile time, so that the collapse over a group's f lanes
-// unrolls; the other modes read f at run time.
+// launch; ct (kBandAdjoint): (P, Mb, Nb). Mb, Nb: the base frame in the
+// pairs' own orientation, which sets ct's (K1 passes its oriented frame,
+// Mb <= Nb; K3<gen> the pairs' own, transposed when Mb > Nb). kF: with
+// kBandAdjoint, f (1 .. 32) fixed at compile time, so that the collapse
+// over a group's f lanes unrolls; the other modes read f at run time.
 template <typename T, int kMode, int kF = 1, typename Src = GridSource<T>>
 __global__ void __launch_bounds__(kBandRows)
 band_stripe(const Src src, const T* __restrict__ bd,
@@ -228,6 +239,7 @@ band_stripe(const Src src, const T* __restrict__ bd,
   constexpr bool kStack = kMode == kBandStack;
   constexpr bool kAdjoint = kMode == kBandAdjoint;
   constexpr bool kStripe = Src::kStripe;  // else a whole frame from 1s
+  constexpr int kStage = Src::kStage;
   __shared__ BandShared<T> sh;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -305,15 +317,15 @@ band_stripe(const Src src, const T* __restrict__ bd,
   // kBandAdjoint: the staged forward values, the group (see above), the
   // group's frame base row, and where a finished base cell goes
   extern __shared__ __align__(16) unsigned char band_smem[];
-  T* stage = reinterpret_cast<T*>(band_smem) + warp * 2 * kChunk * 32;
-  auto prefetch = [&](int k) {  // chunk k's steps into buffer k & 1
-    T* buf = stage + (k & 1) * kChunk * 32;
-    for (int j = 0; j < kChunk; ++j) {
-      const int s = k * kChunk + j + 1;
+  T* stage = reinterpret_cast<T*>(band_smem) + warp * 2 * kStage * 32;
+  auto prefetch = [&](int k) {  // stage k's steps into buffer k & 1
+    T* buf = stage + (k & 1) * kStage * 32;
+    for (int js = 0; js < kStage; ++js) {
+      const int s = k * kStage + js + 1;
       const int c = s - lane;
       if (has_inc && c >= 1 && c <= C) {
         const int64_t p = rows + C - i0 - s;
-        copy_async(buf + j * 32 + lane, stk + p * stride + (rows - i));
+        copy_async(buf + js * 32 + lane, stk + p * stride + (rows - i));
       }
     }
     commit_async();
@@ -353,6 +365,7 @@ band_stripe(const Src src, const T* __restrict__ bd,
   int q = 0, m = 0;                     // base column, refined within it
   for (int s = 1; s <= C + 31; ++s) {
     const int j = (s - 1) & (kChunk - 1);
+    const int js = (s - 1) & (kStage - 1);  // the step within its stage
     if constexpr (Src::kAligned) {
       if ((s & (f - 1)) == 0 && !more) {  // uniform step, f a power of 2
         u_more = incs.col(q + 2);
@@ -378,8 +391,8 @@ band_stripe(const Src src, const T* __restrict__ bd,
       }
     }
     if constexpr (kAdjoint) {
-      if (j == 0) {  // this chunk's forward values are in; fetch the next
-        prefetch((s - 1) / kChunk + 1);
+      if (js == 0) {  // this stage's forward values are in; fetch the next
+        prefetch((s - 1) / kStage + 1);
         wait_async<1>();
       }
     }
@@ -392,7 +405,7 @@ band_stripe(const Src src, const T* __restrict__ bd,
       const T v = scheme(nw, n, cur, u, naive != 0);
       if constexpr (kAdjoint) {
         if (has_inc) {
-          term = mul(stage[(((s - 1) / kChunk) & 1) * kChunk * 32 + j * 32 +
+          term = mul(stage[(((s - 1) / kStage) & 1) * kStage * 32 + js * 32 +
                            lane], nw);
         }
       }

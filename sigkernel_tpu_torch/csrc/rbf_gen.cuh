@@ -1,6 +1,7 @@
-// RBF increment generation from path points, shared by K1
-// (rbf_gen_wavefront.cu, RbfSource), K3<gen> (adjoint_collapse.cu, RbfGen)
-// and K4 (rbf_dd_vjp.cu), so that all three round exactly alike.
+// RBF increment generation from path points, shared by K1 and K3<gen> for
+// f <= 32 (rbf_gen_wavefront.cu and adjoint_collapse.cu, RbfSource), K3<gen>
+// past it (adjoint_collapse.cu, RbfGen) and K4 (rbf_dd_vjp.cu), so that all
+// of them round exactly alike.
 #pragma once
 
 #include "wavefront.cuh"
@@ -55,22 +56,35 @@ struct RbfGen {
 };
 
 // The band sweep's increment source (band_sweep.cuh) for the RBF kernel:
-// one lane of frame row i owns base row ra = (i - 1) / f of the pair's
-// shorter path `rows` (the wrapper orients the pair so that Lr <= Lc). It
-// keeps x_ra and x_ra+1 (kD > 0: in registers, kD = D; kD = 0: any D, read
-// through __ldg), their squared norms, and G(ra, q), G(ra + 1, q) of the
-// last base column, so that column q's increment costs two new G values
+// one lane of frame row i owns base row ra of the pair's shorter path
+// `rows` (the wrapper orients the pair so that Lr <= Lc). It keeps x_ra and
+// x_ra+1 (kD > 0: in registers, kD = D; kD = 0: any D, read through __ldg),
+// their squared norms, and G(ra, b), G(ra + 1, b) of the last base column b
+// it generated, so that the next column's increment costs two new G values
 // (two exp, two D-long dot products sharing one y point), not RbfGen::inc's
-// four; the sweep asks for the columns on warp-uniform steps (kAligned),
-// so a warp generates once every f steps. kD > 0 also loads y_{q+2} while
-// it generates column q, a column before its use. Each G value is
-// sqdist's and RbfGen::G's expression in their op order, and the increment
-// RbfGen::inc's, so a cached value rounds as a regenerated one: the sweep
-// stays bit-equal to the plain version.
+// four; the sweep asks for the columns on warp-uniform steps (kAligned), so
+// a warp generates once every f steps. kD > 0 also loads the next column's
+// y point while it generates this one, a column before its use. Each G
+// value is sqdist's and RbfGen::G's expression in their op order, and the
+// increment RbfGen::inc's, so a cached value rounds as a regenerated one:
+// the sweep stays bit-equal to the plain version.
+//
+// The walk. Forward (K1, K1-stack): the sweep's q-th column is base column
+// q, the cache starts at column 0, and column q costs the G values of
+// column q + 1. With flip (K3<gen>'s reverse sweep, whose q-th column is
+// forward base column b = Cb - 1 - q): the cache starts at column Cb,
+// column b costs the G values of column b, and the points are loaded
+// downward. The increment is (G(a+1, b+1) + G(a, b)) - (G(a+1, b) + G(a,
+// b+1)) either way, with the same two operand pairs: forward the new
+// values are the b + 1 ones, so the pairs read (g1n + g0) and (g1 + g0n);
+// reversed the new values are the b ones, so they read (g1 + g0n) and
+// (g1n + g0). IEEE addition is commutative, so each pair's sum, and so the
+// increment, rounds exactly as RbfGen::inc and gen_increments round it.
 template <typename T, int kD>
 struct RbfSource {
   static constexpr bool kStripe = false;  // the whole frame, from 1s
   static constexpr bool kAligned = true;  // generated on uniform steps
+  static constexpr int kStage = 16;  // kBandAdjoint's stage, in steps
   static constexpr int kN = kD > 0 ? kD : 1;
   const T* rows;
   const T* cols;
@@ -82,12 +96,12 @@ struct RbfSource {
   struct Lane {
     const T* x;  // x_ra (kD = 0 only)
     const T* y;  // the pair's column path
-    int D, Cb;
+    int D, Cb, flip;
     bool has_inc;
     T sigma, scale;
-    T x0[kN], x1[kN], yn[kN];  // x_ra, x_ra+1, y_{q+1} (kD > 0)
+    T x0[kN], x1[kN], yn[kN];  // x_ra, x_ra+1, the next column's y (kD > 0)
     T sx0, sx1;                // |x_ra|^2, |x_ra+1|^2
-    T g0, g1;                  // G(ra, q), G(ra + 1, q): the last column
+    T g0, g1;                  // G(ra, b), G(ra + 1, b): the last column b
 
     __device__ __forceinline__ T G(T sx, T sy, T dot) const {
       return sk_exp(-sub(add(sx, sy), mul(T(2), dot)) / sigma);
@@ -126,26 +140,34 @@ struct RbfSource {
       }
     }
 
-    // base column q's increment; called for q = 0, 1, 2, ... in order
+    // the sweep's base column q (forward base column q, or Cb - 1 - q with
+    // flip); called for q = 0, 1, 2, ... in order
     __device__ __forceinline__ T col(int q) {
       if (!has_inc || q >= Cb) return T(0);
+      const int b = flip ? Cb - 1 - q : q + 1;  // the G column it costs
       T g0n, g1n;
-      column(q + 1, yn, g0n, g1n);
-      if (q + 1 < Cb) load(q + 2);
-      const T v = mul(sub(add(g1n, g0), add(g1, g0n)), scale);
+      column(b, yn, g0n, g1n);
+      if (q + 1 < Cb) load(flip ? b - 1 : b + 1);
+      // the same operand pairs either way (see above)
+      const T v = flip ? mul(sub(add(g1, g0n), add(g1n, g0)), scale)
+                       : mul(sub(add(g1n, g0), add(g1, g0n)), scale);
       g0 = g0n;
       g1 = g1n;
       return v;
     }
   };
 
+  // the lane of base row ra of pair `pair`'s frame, (Mb, Nb) in either
+  // orientation (its columns are the longer side)
   __device__ __forceinline__ Lane lane(int64_t pair, int ra, bool has_inc,
-                                       int, int Nb, int f, int) const {
+                                       int Mb, int Nb, int f,
+                                       int flip) const {
     Lane l;
     l.x = rows + (ri[pair] * Lr + ra) * static_cast<int64_t>(D);
     l.y = cols + ci[pair] * static_cast<int64_t>(Lc) * D;
     l.D = D;
-    l.Cb = Nb;
+    l.Cb = Mb > Nb ? Mb : Nb;
+    l.flip = flip;
     l.has_inc = has_inc;
     l.sigma = sigma;
     l.scale = T(1) / T(f * f);
@@ -166,9 +188,10 @@ struct RbfSource {
         l.sx1 = add(l.sx1, mul(b, b));
       }
     }
-    l.load(0);
-    l.column(0, l.yn, l.g0, l.g1);
-    l.load(1);
+    const int b0 = flip ? l.Cb : 0;  // the cache's first column
+    l.load(b0);
+    l.column(b0, l.yn, l.g0, l.g1);
+    l.load(flip ? b0 - 1 : 1);
     return l;
   }
 };

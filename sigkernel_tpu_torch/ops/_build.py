@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
 started together, and the objects are linked into one shared library with
 a plain ``extern "C"`` interface (no PyTorch headers, so the build takes
-seconds). The library lands in
+under a minute: about 45 s on the H100 machine, most of it the 72
+instances of K3<gen>'s band kernel). The library lands in
 ``build/sigkernel_tpu_torch/<hash of the sources>/libsigkernel_cuda.so``
 under the directory that holds the package, so a library built from other
 sources is never loaded. ``nvcc``'s resource report (``-Xptxas -v``) is kept
@@ -92,6 +93,12 @@ _SIGNATURES = {
                            _I, _I, _I, _P],
     "sk_adjoint_gen_f64": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _D,
                            _I, _I, _I, _P],
+    # rows, cols, ri, ci, ct, stack, scratch, counters, P, Lr, Lc, D, f,
+    # sigma, nbands, transpose, naive, device, stream
+    "sk_adjoint_gen_band_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
+                                _I, _I, _D, _I, _I, _I, _I, _P],
+    "sk_adjoint_gen_band_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
+                                _I, _I, _D, _I, _I, _I, _I, _P],
     # X, Y, ii, jj, ct, dx, dy, esum, P, M, N, D, sigma, device, stream
     "sk_rbf_dd_vjp_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                           _D, _I, _P],

@@ -248,11 +248,12 @@ def banded_sweep(u, bd, naive=False, H=BAND_ROWS, Wc=CHUNK, stack=False):
     return (bottom, stk) if stack else bottom
 
 
-def stripe_adjoint_banded_plain(inc, stack, bd, ct, row0, rows,
-                                dyadic_order=0, naive=False, H=BAND_ROWS,
-                                Wc=CHUNK) -> torch.Tensor:
-    """K3<inc, boundary>'s band kernel in plain PyTorch, for the tests. The
-    reverse stripe is swept as :func:`_band_sweep` sweeps it with ``flip``;
+def banded_adjoint(u, stack, bd, out, row0, R, f, naive=False, H=BAND_ROWS,
+                   Wc=CHUNK) -> None:
+    """The band kernel's adjoint mode (kBandAdjoint) in plain PyTorch, for
+    the tests: its arithmetic on the reverse problem's refined increments
+    ``u (P, rows, C)`` as its lanes meet them, whatever their source. The
+    reverse stripe is swept from ``bd`` as :func:`_band_sweep` sweeps it;
     reverse cell ``(i, c)`` (both from 1) multiplies the forward stack
     entry the kernel reads, ``stack[rows + C - i - c][rows - i]``, by its
     north-west value. The collapse then runs the kernel's lane arithmetic,
@@ -260,17 +261,17 @@ def stripe_adjoint_banded_plain(inc, stack, bd, ct, row0, rows,
     step ``s``; a group of ``f`` lanes (one base row) adds its terms, lane
     descending, into two open base cells ``hi`` and ``lo``; when a new base
     column enters (``(C - s) % f == f - 1``) the cell in ``hi`` is added
-    into ``ct`` and the two shift; after the last step both are added.
-    Updates ``ct`` in place and returns it. Bit for bit
-    :func:`stripe_adjoint_plain`; no route runs it."""
-    P, Mb, Nb = inc.shape
-    f = 2 ** dyadic_order
+    into ``out`` and the two shift; after the last step both are added.
+    ``out``: the cotangent in the solve's frame (a view, updated in place),
+    whose base rows from ``row0 / f`` the stripe covers; base rows at or
+    past the frame's ``R / f`` write nothing."""
     if f > WARP:
         raise ValueError(f"the band kernel's collapse holds a base row in one "
                          f"warp of {WARP} lanes; f = {f}")
-    R, C = frame(Mb, Nb, dyadic_order)
+    P, rows, C = u.shape
+    dyadic_order = f.bit_length() - 1
     nwarps = -(-rows // WARP)
-    terms = inc.new_zeros(P, nwarps * WARP, C)  # reverse row i - 1, column c - 1
+    terms = u.new_zeros(P, nwarps * WARP, C)  # reverse row i - 1, column c - 1
 
     def visit(i0, c0, tile):
         i, c = _tile_cells(i0, c0, tile)
@@ -278,9 +279,8 @@ def stripe_adjoint_banded_plain(inc, stack, bd, ct, row0, rows,
                                                            c.shape[1])]
         terms[:, i - 1, c - 1] = fwd * tile[:, :-1, :-1]
 
-    _band_sweep(_band_increments(inc, f, row0, rows, True), bd, naive, H,
-                Wc, visit)
-    dev = inc.device
+    _band_sweep(u, bd, naive, H, Wc, visit)
+    dev = u.device
     groups = WARP // f
     terms = terms.reshape(P, nwarps, groups, f, C)
     gbase = torch.arange(0, WARP, f, device=dev)  # each group's first lane
@@ -288,8 +288,7 @@ def stripe_adjoint_banded_plain(inc, stack, bd, ct, row0, rows,
     # the group's frame base row; base rows past the frame write nothing
     ga = row0 // f + ((rows - i0 + 1) >> dyadic_order) - gbase // f - 1
     lead = (ga >= row0 // f) & (ga < R // f)
-    out = ct.transpose(-1, -2) if Mb > Nb else ct  # the solve's frame
-    hi = inc.new_zeros(P, nwarps, groups)
+    hi = u.new_zeros(P, nwarps, groups)
     lo = torch.zeros_like(hi)
 
     def emit(acc, b):
@@ -314,6 +313,22 @@ def stripe_adjoint_banded_plain(inc, stack, bd, ct, row0, rows,
     b0 = gbase - (WARP - 1)  # C - s + gbase after the last step
     emit(hi, (b0 >> dyadic_order) + 1)
     emit(lo, b0 >> dyadic_order)
+
+
+def stripe_adjoint_banded_plain(inc, stack, bd, ct, row0, rows,
+                                dyadic_order=0, naive=False, H=BAND_ROWS,
+                                Wc=CHUNK) -> torch.Tensor:
+    """K3<inc, boundary>'s band kernel in plain PyTorch, for the tests:
+    :func:`banded_adjoint` on the stripe's reversed increments as the
+    kernel reads them (:func:`_band_increments` with ``flip``), into ``ct``
+    in the solve's frame. Updates ``ct`` in place and returns it. Bit for
+    bit :func:`stripe_adjoint_plain`; no route runs it."""
+    _, Mb, Nb = inc.shape
+    f = 2 ** dyadic_order
+    R, _ = frame(Mb, Nb, dyadic_order)
+    out = ct.transpose(-1, -2) if Mb > Nb else ct  # the solve's frame
+    banded_adjoint(_band_increments(inc, f, row0, rows, True), stack, bd,
+                   out, row0, R, f, naive, H, Wc)
     return ct
 
 

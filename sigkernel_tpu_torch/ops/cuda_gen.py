@@ -25,13 +25,21 @@ K3<gen> (:func:`rbf_gen_adjoint`) replaces ``pallas_adjoint.py``'s
 ``_product_collapse_planes_gen_kernel``,
 ``_product_collapse_planes_gen_df_kernel`` and
 ``_product_collapse_planes_gen32_kernel``: the reverse sweep with its
-increments regenerated from the paths, the product with the stack and the
-dyadic collapse, one block a pair within the row bound.
+increments generated from the paths, the product with the stack and the
+dyadic collapse. While a base row's ``f`` refined rows fit one warp (``f <=
+32``, dyadic order at most 5) it is the same band-pipelined wavefront in its
+adjoint mode, the increments generated by the same source walking the base
+columns from the last to the first, each base cell summed in registers in
+``collapse_refined``'s order (:func:`rbf_gen_adjoint_banded_plain` emulates
+it); no row bound applies, and its launches are split as K1's. Past that it
+is the one-block kernel (a block a pair, a barrier a diagonal, within the
+row bound), chosen by :func:`.cuda_blocked.stripe_adjoint_kernel`'s rule.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (``*_plain``) only for CPU tensors. ``COUNTS``, ``STACK_COUNTS`` and
 ``ADJOINT_COUNTS`` hold the kernel launches per dtype and the calls of the
-plain versions.
+plain versions; ``ADJOINT_COUNTS["one_block"]`` counts K3<gen>'s one-block
+launches (``f > 32``), which the dtype keys leave out.
 """
 from __future__ import annotations
 
@@ -43,14 +51,16 @@ from ..utils import dyadic_refine
 
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 STACK_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
-ADJOINT_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
+ADJOINT_COUNTS = {"float32": 0, "float64": 0, "one_block": 0, "plain": 0}
 
 _FNS = {torch.float32: "sk_rbf_gen_wavefront_f32",
         torch.float64: "sk_rbf_gen_wavefront_f64"}
 _STACK_FNS = {torch.float32: "sk_rbf_gen_stack_f32",
               torch.float64: "sk_rbf_gen_stack_f64"}
-_ADJOINT_FNS = {torch.float32: "sk_adjoint_gen_f32",
-                torch.float64: "sk_adjoint_gen_f64"}
+_ADJOINT_FNS = {torch.float32: "sk_adjoint_gen_band_f32",
+                torch.float64: "sk_adjoint_gen_band_f64"}
+_ONE_BLOCK_FNS = {torch.float32: "sk_adjoint_gen_f32",
+                  torch.float64: "sk_adjoint_gen_f64"}
 
 # the plain version solves pairs in chunks whose refined grids stay near this
 _PLAIN_CHUNK_BYTES = 1 << 30
@@ -134,20 +144,24 @@ def rbf_gen_solve_stack_plain(X, Y, ii, jj, sigma, dyadic_order: int = 0,
     return grid[..., -1, -1].clone(), scan_solver.grid_to_stack(grid)
 
 
-def _lane_increments(X, Y, ii, jj, sigma, f):
-    """The refined increments ``(P, R, C)`` of each pair's frame as K1's
-    lanes meet them: RbfSource's arithmetic (``csrc/rbf_gen.cuh``) on the
-    band sweep's schedule (``csrc/band_sweep.cuh``). The pair is oriented
-    with the shorter path as ``rows`` (transposed when ``M > N``); lane ``i``
-    (frame row ``i`` from 1, lane ``t = (i - 1) % 32`` of its warp) owns
-    base row ``ra = (i - 1) // f``: ``x_ra``, ``x_ra+1`` and their squared
-    norms, and G of the last base column generated, so that its next column
-    costs two new G values from one point of ``cols``. It generates columns
-    0 and 1 first, then one column on each step ``s`` that is a multiple of
-    ``f`` unless it holds one in reserve; at step ``s`` it sweeps column ``c
-    = s - t`` with the current column's value and, after every ``f``
-    columns, moves on to the next column and the reserve. Each sum starts at
-    0 and runs over the coordinates in order, as in the kernel."""
+def _lane_increments(X, Y, ii, jj, sigma, f, flip=False):
+    """The refined increments ``(P, R, C)`` of each pair's frame as the band
+    kernel's lanes meet them: RbfSource's arithmetic (``csrc/rbf_gen.cuh``)
+    on the band sweep's schedule (``csrc/band_sweep.cuh``). The pair is
+    oriented with the shorter path as ``rows`` (transposed when ``M > N``);
+    lane ``i`` (frame row ``i`` from 1, lane ``t = (i - 1) % 32`` of its
+    warp) owns base row ``ra = (i - 1) // f``: ``x_ra``, ``x_ra+1`` and
+    their squared norms, and G of the last base column generated, so that
+    its next column costs two new G values from one point of ``cols``. It
+    generates columns 0 and 1 first, then one column on each step ``s`` that
+    is a multiple of ``f`` unless it holds one in reserve; at step ``s`` it
+    sweeps column ``c = s - t`` with the current column's value and, after
+    every ``f`` columns, moves on to the next column and the reserve. Each
+    sum starts at 0 and runs over the coordinates in order, as in the
+    kernel. With ``flip`` (K3<gen>'s reverse sweep) row ``i`` owns forward
+    base row ``(R - i) // f`` and its ``q``-th column is forward base column
+    ``Cb - 1 - q``: the cache starts at column ``Cb`` and each column costs
+    its own G values, the increment's operand pairs unchanged."""
     if X.shape[1] <= Y.shape[1]:
         xr, yc = X[ii], Y[jj]
     else:
@@ -157,7 +171,8 @@ def _lane_increments(X, Y, ii, jj, sigma, f):
     R, C = (Lr - 1) * f, Cb * f
     dev = X.device
     i = torch.arange(1, R + 1, device=dev)
-    t, ra = (i - 1) % cuda_blocked.WARP, (i - 1) // f
+    t = (i - 1) % cuda_blocked.WARP
+    ra = (R - i) // f if flip else (i - 1) // f
     x0, x1 = xr[:, ra], xr[:, ra + 1]  # (P, R, D)
     sig = torch.as_tensor(sigma_value(sigma), dtype=X.dtype, device=dev)
     zero = x0.new_zeros(P, R)
@@ -166,7 +181,7 @@ def _lane_increments(X, Y, ii, jj, sigma, f):
         sx0, sx1 = sx0 + x0[..., d] * x0[..., d], sx1 + x1[..., d] * x1[..., d]
 
     def column(b):  # G(ra, b) and G(ra + 1, b), b (R,) a point per lane
-        y = yc[:, b.clamp(max=Cb)]
+        y = yc[:, b.clamp(0, Cb)]
         dot0 = dot1 = sy = zero
         for d in range(D):
             dot0 = dot0 + x0[..., d] * y[..., d]
@@ -175,15 +190,18 @@ def _lane_increments(X, Y, ii, jj, sigma, f):
         return (torch.exp(-((sx0 + sy) - 2.0 * dot0) / sig),
                 torch.exp(-((sx1 + sy) - 2.0 * dot1) / sig))
 
-    g0, g1 = column(torch.zeros_like(i))
-    nxt = torch.zeros_like(i)  # the next base column each lane generates
+    g0, g1 = column(torch.full_like(i, Cb if flip else 0))
+    nxt = torch.zeros_like(i)  # each lane's next column, in sweep order
 
     def col(ask):
         """The increment of each asking lane's next column (0 past the last
         one, which leaves the cache as it is)."""
         nonlocal g0, g1, nxt
-        g0n, g1n = column(nxt + 1)
-        v = ((g1n + g0) - (g1 + g0n)) * (1.0 / (f * f))
+        g0n, g1n = column(Cb - 1 - nxt if flip else nxt + 1)
+        if flip:  # the new values are column b's, the cached b + 1's
+            v = ((g1 + g0n) - (g1n + g0)) * (1.0 / (f * f))
+        else:
+            v = ((g1n + g0) - (g1 + g0n)) * (1.0 / (f * f))
         ok = ask & (nxt < Cb)
         g0, g1 = torch.where(ok, g0n, g0), torch.where(ok, g1n, g1)
         nxt = torch.where(ask, nxt + 1, nxt)
@@ -251,6 +269,30 @@ def rbf_gen_adjoint_plain(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
                                           stack, 2 ** dyadic_order, naive)
 
 
+def rbf_gen_adjoint_banded_plain(X, Y, ii, jj, sigma, stack,
+                                 dyadic_order: int = 0, naive: bool = False,
+                                 H=cuda_blocked.BAND_ROWS,
+                                 Wc=cuda_blocked.CHUNK) -> torch.Tensor:
+    """K3<gen>'s band kernel in plain PyTorch, for the tests: the reverse
+    increments generated lane by lane with the columns walked backward
+    (:func:`_lane_increments` with ``flip``), swept from a row 0 of 1s in
+    bands of ``H`` rows and chunks of ``Wc`` columns, multiplied with the
+    forward ``stack`` and collapsed by the kernel's lane arithmetic
+    (:func:`.cuda_blocked.banded_adjoint`) into ``ct (P, M-1, N-1)`` in the
+    pairs' own frame; then the exact ``1 / f^2``. Bit for bit
+    :func:`rbf_gen_adjoint_plain`; no route runs it."""
+    P, M, N = ii.shape[0], X.shape[1], Y.shape[1]
+    ct = X.new_zeros(P, max(M - 1, 0), max(N - 1, 0))
+    if P == 0 or M < 2 or N < 2:
+        return ct
+    f = 2 ** dyadic_order
+    u = _lane_increments(X, Y, ii, jj, sigma, f, flip=True)
+    out = ct.transpose(-1, -2) if M > N else ct  # the solve's frame
+    cuda_blocked.banded_adjoint(u, stack, u.new_ones(P, u.shape[2] + 1), out,
+                                0, u.shape[1], f, naive, H, Wc)
+    return ct / (f * f)
+
+
 def check_pairs(X, Y, ii, jj, what):
     """Check a launch's inputs; returns the index arrays as contiguous
     int64."""
@@ -281,11 +323,12 @@ def check_pairs(X, Y, ii, jj, what):
     return ii, jj
 
 
-def _oriented(X, Y, ii, jj, dyadic_order, what, bounded=True):
+def _oriented(X, Y, ii, jj, dyadic_order, what, bounded=False):
     """The shorter refined side is the kernels' diagonal axis: ``(rows,
     row indices, cols, col indices, f, transposed)``. ``bounded``: the
-    kernel keeps a ring of three diagonals in shared memory (K3<gen>), so
-    the rows are checked against :func:`._build.max_rows`."""
+    kernel keeps a ring of three diagonals in shared memory (K3<gen>'s
+    one-block kernel), so the rows are checked against
+    :func:`._build.max_rows`."""
     f = 2 ** dyadic_order
     if X.shape[1] <= Y.shape[1]:
         rows, ri, cols, ci, transposed = X, ii, Y, jj, 0
@@ -309,12 +352,13 @@ def gen_chunk(P: int, R: int, C: int, itemsize: int) -> int:
 
 
 def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
-                   naive, out, stack=None):
-    """K1 or K1-stack (``stack`` given) over the pairs in launches of
-    :func:`gen_chunk` pairs, each with its scratch and freshly zeroed
-    counters (reused across the launches, on one stream)."""
-    rows, ri, cols, ci, f, _ = _oriented(X, Y, ii, jj, dyadic_order, what,
-                                         bounded=False)
+                   naive, out, stack=None, adjoint=False):
+    """K1 (into ``out (P,)``), K1-stack (``stack`` given, written) or
+    K3<gen> (``adjoint``: ``stack`` read, ``out`` the cotangent) over the
+    pairs in launches of :func:`gen_chunk` pairs, each with its scratch and
+    freshly zeroed counters (reused across the launches, on one stream)."""
+    rows, ri, cols, ci, f, transposed = _oriented(X, Y, ii, jj, dyadic_order,
+                                                  what)
     P, Lr, Lc = ii.shape[0], rows.shape[1], cols.shape[1]
     R, C = (Lr - 1) * f, (Lc - 1) * f
     nbands = -(-R // cuda_blocked.BAND_ROWS)
@@ -324,17 +368,18 @@ def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
     counters = torch.empty(chunk * nbands + 1, dtype=torch.int32,
                            device=X.device)
     per_stack = (R + C + 1) * (R + 1) * X.element_size()
-    item = out.element_size()
+    per_out = out.stride(0) * out.element_size()
+    frame = (transposed,) if adjoint else ()
     for s in range(0, P, chunk):
         n = min(chunk, P - s)
         counters.zero_()
         at = (rows.data_ptr(), cols.data_ptr(), ri.data_ptr() + 8 * s,
-              ci.data_ptr() + 8 * s, out.data_ptr() + item * s)
+              ci.data_ptr() + 8 * s, out.data_ptr() + per_out * s)
         if stack is not None:
             at += (stack.data_ptr() + per_stack * s,)
         _build.launch(what, fns, counts, X, *at, scratch.data_ptr(),
                       counters.data_ptr(), n, Lr, Lc, X.shape[2], f,
-                      sigma_value(sigma), nbands, int(naive))
+                      sigma_value(sigma), nbands, *frame, int(naive))
 
 
 def rbf_gen_solve_final(X, Y, ii, jj, sigma, dyadic_order: int = 0,
@@ -386,7 +431,8 @@ def rbf_gen_adjoint(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
     """K3<gen>: the gradient ``(P, M-1, N-1)`` of each pair's value in its
     base RBF increments, given the forward ``stack`` of
     :func:`rbf_gen_solve_stack` (unit upstream cotangent; the caller scales
-    by its ``g``)."""
+    by its ``g``). The band kernel while ``f <= 32``, else the one-block
+    kernel (:func:`.cuda_blocked.stripe_adjoint_kernel`)."""
     if X.device.type == "cpu":
         return rbf_gen_adjoint_plain(X, Y, ii, jj, sigma, stack,
                                      dyadic_order, naive)
@@ -396,16 +442,23 @@ def rbf_gen_adjoint(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
                      device=X.device)
     if P == 0 or M < 2 or N < 2:
         return ct
-    rows, ri, cols, ci, f, transposed = _oriented(X, Y, ii, jj, dyadic_order,
-                                                  "rbf_gen_adjoint")
+    f = 2 ** dyadic_order
     want = stack_shape(P, (M - 1) * f, (N - 1) * f)
     if (stack.shape != want or stack.dtype != X.dtype
             or stack.device != X.device or not stack.is_contiguous()):
         raise ValueError(f"rbf_gen_adjoint: stack must be a contiguous {want}"
                          " tensor of the paths' dtype and device")
-    _build.launch("adjoint_collapse_gen", _ADJOINT_FNS, ADJOINT_COUNTS, X,
-                  rows.data_ptr(), cols.data_ptr(), ri.data_ptr(),
-                  ci.data_ptr(), stack.data_ptr(), ct.data_ptr(), P,
-                  rows.shape[1], cols.shape[1], X.shape[2], f,
-                  sigma_value(sigma), transposed, int(naive))
+    if cuda_blocked.stripe_adjoint_kernel(dyadic_order) == "band":
+        _launch_banded("adjoint_collapse_gen", _ADJOINT_FNS, ADJOINT_COUNTS,
+                       X, Y, ii, jj, sigma, dyadic_order, naive, ct, stack,
+                       adjoint=True)
+        return ct / (f * f)
+    rows, ri, cols, ci, f, transposed = _oriented(
+        X, Y, ii, jj, dyadic_order, "rbf_gen_adjoint", bounded=True)
+    _build.launch("adjoint_collapse_gen[one block]", _ONE_BLOCK_FNS,
+                  ADJOINT_COUNTS, X, rows.data_ptr(), cols.data_ptr(),
+                  ri.data_ptr(), ci.data_ptr(), stack.data_ptr(),
+                  ct.data_ptr(), P, rows.shape[1], cols.shape[1], X.shape[2],
+                  f, sigma_value(sigma), transposed, int(naive),
+                  key="one_block")
     return ct / (f * f)

@@ -3,7 +3,8 @@ forward kernels K1 and K2, their stack-emitting instances, the adjoint K3
 (gen and inc sources), the increment-chain VJP K4, the derivative Gram's
 triple wavefront K5, the Linear generator K6, K1 and K1-stack at the edges
 of their band decomposition and in launches split by the scratch bound,
-the stripe kernels K7,
+K3<gen> on its band kernel at the edges of the band decomposition and
+on its one-block kernel past f = 32, the stripe kernels K7,
 K7-stack and K3<inc, boundary> (its band kernel, and its one-block kernel
 past f = 32), the sparse-checkpoint pair K2-sparse and
 K8, and values and gradients through the estimators against the plain
@@ -503,6 +504,92 @@ def test_band_gen_splits_its_launches_by_the_scratch_bound(cuda, monkeypatch):
     assert torch.equal(v, whole) and torch.equal(stk, whole_stack)
     assert cuda_gen.COUNTS["float64"] == n + 5
     assert cuda_gen.STACK_COUNTS["float64"] == n_stack + 5
+
+
+# K3<gen> on the band kernel: pairs, M, N, D, dyadic; the cases of
+# tests/test_torch_band_gen_adjoint.py (R 1, 31, 32, 33, 128 and 129, M <, ==
+# and > N, D 1, 3 and 5, dyadic 0-3 and 5), then D 7 (the generic source),
+# a frame of 1,020 rows (8 bands) and 3,000 pairs, more blocks than are
+# resident
+_GEN_ADJOINT_BAND = [
+    (3, 2, 6, 1, 0), (3, 32, 40, 3, 0), (4, 33, 35, 1, 0), (3, 34, 36, 5, 0),
+    (3, 65, 70, 3, 1), (3, 130, 132, 3, 0), (4, 6, 6, 3, 2), (3, 9, 5, 5, 1),
+    (4, 11, 6, 1, 2), (3, 4, 7, 5, 3), (3, 6, 4, 3, 3), (3, 3, 4, 3, 5),
+    (4, 4, 3, 1, 5), (2, 9, 12, 7, 3), (2, 256, 300, 3, 2),
+    (3000, 17, 17, 3, 2),
+]
+
+
+def _gen_pairs(P, M, N, D, cuda, dtype):
+    A = max(P // 2, 2)
+    X = _paths(A, M, D, 80 + M, cuda, dtype)
+    Y = _paths(A, N, D, 81 + N, cuda, dtype)
+    g = torch.Generator(device=cuda).manual_seed(P + N)
+    ii = torch.randint(0, A, (P,), generator=g, device=cuda)
+    jj = torch.randint(0, A, (P,), generator=g, device=cuda)
+    return X, Y, ii, jj
+
+
+def _launched(counts, before):
+    return {k: v - before[k] for k, v in counts.items()}
+
+
+def test_band_gen_adjoint_matches_plain(cuda):
+    """K3<gen> on the band kernel at the edges of its band decomposition,
+    both dtypes and schemes: one launch under the dtype's key, bit for bit
+    its plain version on K1-stack's stack (and, at a few pairs, the CPU
+    emulation of the band kernel)."""
+    for dtype in (torch.float32, torch.float64):
+        key = str(dtype).removeprefix("torch.")
+        for P, M, N, D, dyadic in _GEN_ADJOINT_BAND:
+            X, Y, ii, jj = _gen_pairs(P, M, N, D, cuda, dtype)
+            for naive in (False, True):
+                _, stk = cuda_gen.rbf_gen_solve_stack(X, Y, ii, jj, 0.8,
+                                                      dyadic, naive)
+                before = dict(cuda_gen.ADJOINT_COUNTS)
+                got = cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, 0.8, stk, dyadic,
+                                               naive)
+                assert _launched(cuda_gen.ADJOINT_COUNTS, before) == {
+                    k: int(k == key) for k in before}
+                assert got.shape == (P, M - 1, N - 1)
+                assert torch.equal(got, cuda_gen.rbf_gen_adjoint_plain(
+                    X, Y, ii, jj, 0.8, stk, dyadic, naive))
+                if P <= 4 and max(M, N) < 200:
+                    assert torch.equal(
+                        got, cuda_gen.rbf_gen_adjoint_banded_plain(
+                            X, Y, ii, jj, 0.8, stk, dyadic, naive))
+
+
+def test_gen_adjoint_at_dyadic_6_takes_the_one_block_kernel(cuda):
+    """f = 64 > 32: K3<gen> launches its one-block kernel (its own counter,
+    no dtype key), bit for bit its plain version, in both frames."""
+    for dtype in (torch.float32, torch.float64):
+        for M, N in ((4, 3), (3, 5)):
+            X, Y, ii, jj = _gen_pairs(3, M, N, 3, cuda, dtype)
+            _, stk = cuda_gen.rbf_gen_solve_stack(X, Y, ii, jj, 0.8, 6)
+            before = dict(cuda_gen.ADJOINT_COUNTS)
+            got = cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, 0.8, stk, 6)
+            assert _launched(cuda_gen.ADJOINT_COUNTS, before) == {
+                k: int(k == "one_block") for k in before}
+            assert torch.equal(got, cuda_gen.rbf_gen_adjoint_plain(
+                X, Y, ii, jj, 0.8, stk, 6))
+
+
+def test_band_gen_adjoint_splits_its_launches_by_the_scratch_bound(
+        cuda, monkeypatch):
+    """With the scratch bound cut to one pair's hand-off rows, K3<gen>
+    launches once a pair, with the same cotangent."""
+    X = _paths(4, 140, 3, 96, cuda, torch.float64)  # R = 139: two bands
+    Y = _paths(4, 150, 3, 97, cuda, torch.float64)
+    ii = torch.tensor([0, 1, 2, 3, 0], device=cuda)
+    jj = torch.tensor([3, 2, 1, 0, 0], device=cuda)
+    _, stk = cuda_gen.rbf_gen_solve_stack(Y, X, jj, ii, 1.0)
+    whole = cuda_gen.rbf_gen_adjoint(Y, X, jj, ii, 1.0, stk)
+    monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", 150 * 8)
+    n = cuda_gen.ADJOINT_COUNTS["float64"]
+    assert torch.equal(cuda_gen.rbf_gen_adjoint(Y, X, jj, ii, 1.0, stk),
+                       whole)
+    assert cuda_gen.ADJOINT_COUNTS["float64"] == n + 5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
