@@ -37,7 +37,14 @@ Phases (any failure raises and the script exits non-zero):
    the columns backward) bit for bit at the edges of their band
    decomposition (``GEN_BAND_CASES``: frames of 1 to 4,092 rows, transposed
    pairs, D 1 and 5, dyadic 0-3 and 5, 3,000 pairs), and at dyadic 6
-   K3<gen> on its one-block kernel, by its counter.
+   K3<gen> on its one-block kernel, by its counter; then K8 on its band
+   kernel (each warp recomputing its rows' forward values from the sparse
+   stack, with a halo) bit for bit against its plain version and K3<inc>
+   at the edges of its decomposition (``CKPT_BAND_CASES``: frames smaller
+   than a window, W 2, 3, 5 and 8, a halo reaching row 0, a short last
+   band, dyadic 0-2 and 5, 3,000 pairs), and at dyadic 6 K8 on its
+   one-block kernel, by its counter; K8's timed calls (below) are checked
+   bit for bit too.
 2. The forward main path at the north-star size: ``SigKernel(RBFKernel(1.0),
    dyadic_order=1)`` on X, Y of shape (100, 1024, 3), float64 and float32:
    ``compute_Gram(X, X, sym=True)``, ``compute_Gram(X, Y)``,
@@ -84,7 +91,7 @@ Phases (any failure raises and the script exits non-zero):
     K1-stack -> K3<gen> -> K4, and the increment grid, K2-stack -> K3<inc>)
     and the sparse route again, with times and peaks; and the gate's
     crossover (``gate_sweep``): the scoring rule and a 32 x 32 lincomb at
-    lengths where one chunk holds 47 to 128 full stacks, and phase 5's
+    lengths where one chunk holds 17 to 128 full stacks, and phase 5's
     float64-grade lincomb, each on the full generator route and the sparse
     route in turns.
 
@@ -94,8 +101,9 @@ and no plain version may have run. The checks of those phases against plain
 versions come after the counters are read, then each kernel is timed beside
 its plain version at 128 pairs, length 1024, dyadic 1, dim 3 (the stripe
 kernels at phase 10's grid; K7 at both the forward's and the adjoint's
-stripe height, two entries; K1, K1-stack and K3<gen> beside their times
-before the band kernel). The last three
+stripe height, two entries; K8 also at phase 12's shape, 128 pairs of
+length 1024, dyadic 2, dim 5, a second entry; K1, K1-stack, K3<gen> and K8
+beside their times before the band kernel). The last three
 lines of the output are the card's ``nvidia-smi`` line, one JSON object
 describing the kernels (each with its launches on the main path, its
 largest error against its plain version, its time and its plain version's,
@@ -215,14 +223,38 @@ GEN_BAND_CASES = [
     ("3,000 pairs", 3000, 17, 17, 3, 2),
     ("dyadic 6: K3<gen>'s one-block kernel", 3, 4, 5, 3, 6),
 ]
-# K1, K1-stack and K3<gen> at the timed shape in the one-block-a-pair design
-# that the band kernel replaced (this script's timing, NVIDIA H100 80GB
-# HBM3, 700.00 W), printed beside this run's
+# K1, K1-stack, K3<gen> and K8 at the timed shape in the one-block-a-pair
+# design that the band kernel replaced (this script's timing, NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside this run's
 EARLIER_MS = {("gen", "float32"): 18.009, ("gen", "float64"): 26.026,
               ("gen_stack", "float32"): 19.252,
               ("gen_stack", "float64"): 29.214,
               ("adj_gen", "float32"): 30.547,
-              ("adj_gen", "float64"): 41.361}
+              ("adj_gen", "float64"): 41.361,
+              ("adj_ckpt", "float32"): 28.313,
+              ("adj_ckpt", "float64"): 34.390}
+# phase 1, K8 at the edges of its band decomposition (the reverse frame in
+# bands of 128 rows, each warp recomputing its rows' forward values a
+# window at a time from the sparse stack, with a halo of W - 2 rows), bit
+# for bit against its plain version and K3<inc> on the full stack: name,
+# pairs, M, N, dim, dyadic order, window W. Frames smaller than a window, a
+# transposed pair, no diagonal recomputed (W 2), a warp whose halo reaches
+# forward row 0 (R 36), a short last warp and band (R 130: a second band of
+# 2 rows), dyadic 2 and 5, 3,000 pairs, and dyadic 6, where the one-block
+# kernel runs (counted under "one_block"). R 4,092 (32 bands) is the long
+# stripe problem's above, and the timed calls check both timed shapes bit
+# for bit.
+CKPT_BAND_CASES = [
+    ("R 2, C 3: smaller than a window", 2, 3, 4, 3, 0, 8),
+    ("transposed, W 3", 3, 15, 10, 3, 1, 3),
+    ("W 2: no diagonal recomputed", 2, 11, 26, 3, 0, 2),
+    ("R 36: warp 0's halo reaches row 0", 2, 37, 46, 3, 0, 8),
+    ("R 130: a second band of 2 rows, W 5", 2, 131, 141, 3, 0, 5),
+    ("dyadic 2, transposed", 2, 18, 13, 5, 2, 8),
+    ("dyadic 5: a base row is a whole warp", 2, 3, 4, 3, 5, 8),
+    ("3,000 pairs", 3000, 17, 17, 3, 2, 8),
+    ("dyadic 6: the one-block kernel", 2, 3, 4, 3, 6, 8),
+]
 # phase 1: K3<inc, boundary> at dyadic 6 (f = 64 > 32: the one-block
 # kernel, by its counter), as BAND_CASES
 ONE_BLOCK_CASE = ("dyadic 6: the one-block kernel", 2, 5, 4, 3, 6, 0, 192,
@@ -244,10 +276,14 @@ CKPT = (32, 1024, 5, 2)
 CKPT_F32 = (8, 2049)
 CKPT_WIDE = 100  # phase 12: X batch of one run at the default max_batch
 # phase 12, the ckpt gate's crossover: path length (dyadic 2) and dtype; in
-# double a chunk of 8 GiB holds 47, 64, 96 and 128 full stacks, in float 64
-GATE_SWEEP = ((837, "float64"), (724, "float64"), (592, "float64"),
-              (512, "float64"), (1024, "float32"))
+# double a chunk of 8 GiB holds 17, 47, 64, 96 and 128 full stacks, in
+# float 64
+GATE_SWEEP = ((1400, "float64"), (837, "float64"), (724, "float64"),
+              (592, "float64"), (512, "float64"), (1024, "float32"))
 TIMED_STRIPE_PAIRS = 16  # K7, K7-stack, K3<inc, boundary> at phase 10/11
+# K8's plain version at phase 12's shape (128 pairs, R 4,092): pairs a call,
+# so that its full stacks and grids (~1.1 GB a pair in double) fit the card
+PLAIN_CKPT_CHUNK = 48
 # the card's peak rates (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
 # non-tensor-core FLOP/s by dtype
 HBM_BYTES_S = 3.35e12
@@ -395,7 +431,7 @@ def deriv_grids(kernel, X, Y, gamma, ii, jj):
 
 def gate_sweep(gen, card, X5, Y5):
     """The ckpt gate's crossover, uncounted: at each ``GATE_SWEEP`` length
-    (dyadic 2, dim 5; one chunk of ``routes.STACK_BYTES`` holds 47 to 128
+    (dyadic 2, dim 5; one chunk of ``routes.STACK_BYTES`` holds 17 to 128
     full stacks) the scoring rule (X 32, y 1) and a lincomb fwd+bwd (X, Y
     32, ``pair_chunk=128``), then phase 5's float64-grade north-star lincomb
     (``X5``, ``Y5``: 128 full stacks a chunk), each on the full generator
@@ -545,6 +581,12 @@ def main():
         a = float((got - want).abs().max()) if got.numel() else 0.0
         max_abs[(kind, dtype)] = max(max_abs[(kind, dtype)], a)
         check(r <= limit, f"{label}: max err / max ref {r:.3e} > {limit:.0e}")
+        return r
+
+    def compare_bits(kind, dtype, got, want, limit, label):
+        """As ``compare_max``, and bit for bit."""
+        r = compare_max(kind, dtype, got, want, limit, label)
+        check(torch.equal(got, want), f"{label}: not bit-equal")
         return r
 
     def zero_counters():
@@ -941,6 +983,54 @@ def main():
                       f"{ts * 1e3:.1f} / {ta * 1e3:.1f} ms)")
         torch.cuda.empty_cache()
     print(f"[1] gen band cases passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # K8 on the band kernel at its edges, bit for bit; at dyadic 6 its
+    # one-block kernel
+    t_phase = time.perf_counter()
+    for cname, P, M, N, D, dy, W in CKPT_BAND_CASES:
+        cuda_solver.CKPT_WINDOW = W
+        X64 = make_paths(gen, P, M, D, F64)
+        Y64 = make_paths(gen, P, N, D, F64)
+        R = (min(M, N) - 1) * 2 ** dy
+        kernel = cuda_solver.ckpt_kernel(dy, W)
+        for dtype in (F64, F32):
+            inc = double_difference(skt.RBFKernel(1.0).batch_kernel(
+                X64.to(dtype), Y64.to(dtype))).contiguous()
+            glimit = GRAD_F64 if dtype == F64 else GRAD_F32
+            key = "one_block" if kernel == "one_block" else name[dtype]
+            for naive in (False,) if R > 1000 else (False, True):
+                label = (f"{cname} {name[dtype]} ({P} pairs, {M} x {N}, "
+                         f"dyadic {dy}, R {R}, W {W}, "
+                         f"{-(-R // cuda_blocked.BAND_ROWS)} bands a pair, "
+                         f"{'naive' if naive else 'order-2'})")
+                _, sparse = cuda_solver.inc_solve_sparse(inc, dy, naive)
+                before = dict(cuda_solver.CKPT_COUNTS)
+                ct, t8 = synced(lambda: cuda_solver.inc_adjoint_ckpt(
+                    inc, sparse, dy, naive))
+                launched = {k: v - before[k]
+                            for k, v in cuda_solver.CKPT_COUNTS.items()}
+                check(launched == {k: int(k == key) for k in launched},
+                      f"K8 {label}: launches {launched}, not one of the "
+                      f"{kernel} kernel")
+                pct = cuda_solver.inc_adjoint_ckpt_plain(inc, sparse, dy,
+                                                         naive)
+                compare_max("adj_ckpt", dtype, ct, pct, glimit,
+                            f"K8 {label}")
+                check(torch.equal(ct, pct), f"K8 {label}: not bit-equal")
+                del sparse, pct
+                _, stk = cuda_solver.inc_solve_stack(inc, dy, naive)
+                check(torch.equal(ct, cuda_solver.inc_adjoint(
+                    inc, stk, dy, naive)),
+                      f"K8 {label}: differs from K3<inc>")
+                del stk, ct
+                print(f"[1] {label}: K8 ({kernel.replace('_', '-')} kernel) "
+                      f"bit-equal to its plain version and to K3<inc> "
+                      f"({t8 * 1e3:.1f} ms)")
+            del inc
+        torch.cuda.empty_cache()
+    cuda_solver.CKPT_WINDOW = window
+    print(f"[1] ckpt band cases passed in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
     # ---- phases 2-4: the forward main path, counted ---------------------
@@ -1679,7 +1769,23 @@ def main():
         timed("adj_ckpt", dtype,
               lambda: cuda_solver.inc_adjoint_ckpt(inc, sparse, 1),
               lambda: cuda_solver.inc_adjoint_ckpt_plain(inc, sparse, 1),
-              compare_max, glimit, ns + (0, W), at)
+              compare_bits, glimit, ns + (0, W), at)
+        del sparse, inc
+        # K8 at phase 12's shape (len 1,024, dyadic 2, dim 5: R 4,092)
+        X5 = make_paths(gen, P, L12, D12, dtype)
+        Y5 = make_paths(gen, P, L12, D12, dtype)
+        inc = double_difference(rbf.batch_kernel(X5, Y5)).contiguous()
+        del X5, Y5
+        _, sparse = cuda_solver.inc_solve_sparse(inc, dy12)
+        c = PLAIN_CKPT_CHUNK
+        timed("adj_ckpt", dtype,
+              lambda: cuda_solver.inc_adjoint_ckpt(inc, sparse, dy12),
+              lambda: torch.cat([cuda_solver.inc_adjoint_ckpt_plain(
+                  inc[s:s + c], sparse[s:s + c], dy12)
+                  for s in range(0, P, c)]),
+              compare_bits, glimit, (P, L12, L12, D12, 2 ** dy12, 0, W),
+              f"{P} pairs, len {L12}, dyadic {dy12}, dim {D12} (phase 12's "
+              f"frame; the plain version {c} pairs a call)", tag="phase 12")
         del sparse, inc
         nlimit = F64_RTOL if dtype == F64 else NEW_F32
         timed("lgen", dtype,

@@ -3,10 +3,13 @@
 // per diagonal. Its users: K7 and K7-stack (stripe_wavefront.cu), K3<inc,
 // boundary> for f <= 32 (adjoint_collapse.cu), K1 and K1-stack
 // (rbf_gen_wavefront.cu), which sweep a pair's whole frame with increments
-// generated from its paths, and K3<gen> for f <= 32 (adjoint_collapse.cu),
-// the reverse sweep of that whole frame. wavefront.cuh's `sweep` (one block
-// a pair, a barrier a diagonal) stays for K2, K3<inc>, K5, K6 and K8, and
-// adjoint.cuh for K3<inc, boundary> and K3<gen> at f > 32.
+// generated from its paths, K3<gen> for f <= 32 (adjoint_collapse.cu), the
+// reverse sweep of that whole frame, and K8 for f <= 32 (adjoint_ckpt.cu),
+// the same reverse sweep over a base increment grid with the forward values
+// recomputed from the sparse stack (kBandCkpt, below). wavefront.cuh's
+// `sweep` (one block a pair, a barrier a diagonal) stays for K2, K3<inc>,
+// K5 and K6, and adjoint.cuh for K3<inc, boundary>, K3<gen> and K8 at f >
+// 32.
 //
 // Decomposition. The stripe's rows 1 .. rows (row 0 is the north boundary
 // bd) are cut into bands of kBandRows = 128 rows, one block of four warps a
@@ -109,6 +112,40 @@
 // at or past the frame's R / f (padding) write nothing; ct is in the
 // pairs' own frame, transposed when Mb > Nb. Each base cell is add(ct,
 // sum), the sum started at 0: bit for bit the plain version's ct += sums.
+//
+// The sparse-checkpoint adjoint (kBandCkpt, K8): kBandAdjoint over the
+// whole reverse frame from 1s (row0 0, rows R) with CkptSource, a
+// GridSource walked with flip, whose forward values come from no full
+// stack: the sparse stack (wavefront.cuh) holds only diagonals e = w W and
+// e + 1 of each window w, and each warp recomputes the others at its own
+// rows. Since a warp's lanes share one forward diagonal p at each step, the
+// warp walks the windows p / W downward and needs, for window w, the
+// values of diagonals e .. e + W - 1 at its forward rows a = rows - i0 - t.
+// Diagonals e and e + 1 are rows 2 w and 2 w + 1 of the sparse stack (the
+// lanes read neighbouring addresses); diagonal d = e + k, k = 2 .. W - 1,
+// is recomputed as the forward computed it: scheme(K[a-1][d-a-1],
+// K[a-1][d-a], K[a][d-a-1], inc(a - 1, d - a - 1)), the forward's operands
+// and op order, inside the frame, and wavefront.cuh's edge value outside
+// it, so every value is the forward's bit for bit. Row a - 1 is lane t +
+// 1's, taken by a shuffle; for lane 31, the warp's top row a_lo, it is the
+// next warp's, which runs later in the pipeline and cannot hand it on. The
+// window bounds the dependence: diagonal e + k at row a needs rows down to
+// a - (k - 1) of the stored pair only. So each warp also recomputes a halo
+// of the W - 2 rows a_lo - 1 .. a_lo - (W - 2) above it, one a lane (lane t
+// < W - 2 holds row a_lo - 1 - t as a second row): at step k halo lane t
+// is right while t + k <= W - 2, and every value the main rows read is
+// right. Rows before the frame (a < 0, a short last warp) take no load.
+// A window's W values a lane go to one of two buffers a warp in shared
+// memory (each lane reads back only what it wrote). Interleaved (float,
+// kCkptInterleave), the warp prepares window w - 1 one unit a step (the
+// stored pair's loads, their shuffles, then one diagonal a step; CkptWarp)
+// while it consumes window w, so that each step carries two independent
+// chains and every load is issued a step before its use; otherwise
+// (double) a window is prepared all at once when the walk enters it, which
+// takes more registers (128 against 108 at f 2) and ran 4-6 % faster on an
+// H100 in double, where float ran up to 4 % slower. The band scratch and
+// counters are those of the other modes; no bound on rows or columns
+// applies.
 #pragma once
 
 #include "wavefront.cuh"
@@ -123,10 +160,20 @@ constexpr int kRing = kChunk * kRingChunks;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // What a band sweep writes: the bottom row (K7; the corner with a whole
-// frame, K1), the bottom row and the stack (K7-stack; K1-stack), or the
+// frame, K1), the bottom row and the stack (K7-stack; K1-stack), the
 // reverse stripe's product with a forward stack, collapsed into the base
-// cotangent (K3<inc, boundary>).
-enum BandMode : int { kBandBottom = 0, kBandStack = 1, kBandAdjoint = 2 };
+// cotangent (K3<inc, boundary>; K3<gen>), or the same with the forward
+// values recomputed from a sparse stack (K8).
+enum BandMode : int {
+  kBandBottom = 0, kBandStack = 1, kBandAdjoint = 2, kBandCkpt = 3
+};
+
+// kBandCkpt: prepare the next window while the current one is consumed
+// (see above), or each window all at once when the walk enters it: in
+// float the first, in double the second, each the faster on an H100
+// (sigkernel_tpu_torch/probes/k8_probe.py).
+template <typename T>
+constexpr bool kCkptInterleave = sizeof(T) == 4;
 
 template <typename T>
 struct BandShared {
@@ -220,6 +267,114 @@ struct GridSource {
   }
 };
 
+// K8's source (kBandCkpt): GridSource's increments over the whole frame
+// from 1s, and the window W of the sparse stack that band_stripe's `stack`
+// points to.
+template <typename T>
+struct CkptSource : GridSource<T> {
+  static constexpr bool kStripe = false;
+  int W;
+};
+
+// kBandCkpt's window buffers: two a warp, W diagonals x 32 lanes each.
+template <typename T>
+constexpr size_t ckpt_window_bytes(int W) {
+  return sizeof(T) * kBandWarps * 2 * static_cast<size_t>(W) * 32;
+}
+
+// kBandCkpt: one warp's forward values, a window at a time (see above).
+// Lane t holds forward row a and, for t < W - 2, halo row ah (else -1).
+// Window w's values go to buffer w & 1 of `win`, diagonal-major, one per
+// lane. Its W units, one a step when interleaved: k = 0 loads the stored
+// pair (diagonals e and e + 1), k = 1 writes it to the buffer and shuffles
+// in row a - 1's values, k = 2 .. W - 1 recompute diagonal e + k; k = W:
+// the window is ready. Each load is used a unit after it was issued: the
+// stored pair's, and each recomputed cell's increment.
+template <typename T, int kF>
+struct CkptWarp {
+  const T* sparse;  // this pair's sparse stack, (2 ckpt_pairs, R + 1)
+  const T* g;       // this pair's base grid, in the pairs' frame
+  T* win;           // this warp's two window buffers
+  int R, C, W, Nb, transpose, lane, a, ah;
+  bool naive;
+  int w = -1, k = 0;  // the window being prepared, and its next unit
+  // the last diagonal's values at rows a and ah (cur, hcur), rows a - 1's
+  // and ah - 1's at the last two diagonals (n, nn; hn, hnn), and the
+  // increments of the next diagonal's cells at rows a and ah (u, hu)
+  T cur = T(0), n = T(0), nn = T(0), hcur = T(0), hn = T(0), hnn = T(0);
+  T u = T(0), hu = T(0);
+
+  // the increment that forward cell (row, d - row) reads, by IncGrid's
+  // arithmetic (wavefront.cuh); 0 for a cell the sweep does not compute
+  __device__ __forceinline__ T inc(int row, int d) const {
+    constexpr int lg = log2_of(kF);
+    if (row < d - C || row < 1 || row > d - 1 || row > R) return T(0);
+    const int rb = (row - 1) >> lg, cb = (d - row - 1) >> lg;
+    const int64_t at = transpose ? static_cast<int64_t>(cb) * Nb + rb
+                                 : static_cast<int64_t>(rb) * Nb + cb;
+    return __ldg(g + at) * (T(1) / T(kF * kF));
+  }
+
+  // forward cell (row, b = d - row) from K[row-1][b-1] (k00), K[row-1][b]
+  // (k01) and K[row][b-1] (k10) and its increment, as wavefront.cuh's
+  // sweep computes it; outside the frame its edge value
+  __device__ __forceinline__ T cell(int row, int d, T k00, T k01, T k10,
+                                    T uu) const {
+    if (row < d - C || row < 1 || row > d - 1 || row > R) {
+      return edge<T>(row, d, C);
+    }
+    return scheme(k00, k01, k10, uu, naive);
+  }
+
+  // row a - 1's value at every lane: lane t + 1's, and for lane 31 lane
+  // 0's halo row
+  __device__ __forceinline__ T below(T v, T hv) const {
+    return __shfl_sync(kFullMask, lane == 0 ? hv : v, (lane + 1) & 31);
+  }
+
+  __device__ __forceinline__ void start(int window) {
+    w = window;
+    k = 0;
+  }
+
+  __device__ __forceinline__ void unit() {  // uniform over the warp
+    const int e = w * W;
+    if (k == 0) {  // the stored pair, into nn, cur (rows a) and hnn, hcur
+      const T* s0 = sparse + 2 * static_cast<int64_t>(w) * (R + 1);
+      const T* s1 = s0 + (R + 1);
+      nn = a >= 0 ? __ldg(s0 + a) : T(0);
+      cur = a >= 0 ? __ldg(s1 + a) : T(0);
+      hnn = ah >= 0 ? __ldg(s0 + ah) : T(0);
+      hcur = ah >= 0 ? __ldg(s1 + ah) : T(0);
+      u = inc(a, e + 2);
+      hu = inc(ah, e + 2);
+    } else if (k == 1) {
+      T* buf = win + (w & 1) * W * 32;
+      buf[lane] = nn;
+      buf[32 + lane] = cur;
+      const T n0 = below(nn, hnn), hn0 = __shfl_down_sync(kFullMask, hnn, 1);
+      n = below(cur, hcur);
+      hn = __shfl_down_sync(kFullMask, hcur, 1);
+      nn = n0;
+      hnn = hn0;
+    } else {
+      const int d = e + k;
+      const T v = cell(a, d, nn, n, cur, u);
+      const T hv = cell(ah, d, hnn, hn, hcur, hu);
+      win[(w & 1) * W * 32 + k * 32 + lane] = v;
+      nn = n;
+      hnn = hn;
+      n = below(v, hv);
+      hn = __shfl_down_sync(kFullMask, hv, 1);
+      cur = v;
+      hcur = hv;
+      u = inc(a, d + 1);
+      hu = inc(ah, d + 1);
+    }
+    ++k;
+  }
+};
+
 // Sweep one stripe (see above). src: the increments (GridSource: the pairs'
 // base grids (P, Mb, Nb)); bd, bottom: (P, C + 1) (a whole frame: no bd,
 // bottom (P,) the corners); stack: (P, rows + C + 1, rows + 1), written
@@ -227,9 +382,11 @@ struct GridSource {
 // counters: P * nbands progress counters then the ticket, all zero at
 // launch; ct (kBandAdjoint): (P, Mb, Nb). Mb, Nb: the base frame in the
 // pairs' own orientation, which sets ct's (K1 passes its oriented frame,
-// Mb <= Nb; K3<gen> the pairs' own, transposed when Mb > Nb). kF: with
-// kBandAdjoint, f (1 .. 32) fixed at compile time, so that the collapse
-// over a group's f lanes unrolls; the other modes read f at run time.
+// Mb <= Nb; K3<gen> and K8 the pairs' own, transposed when Mb > Nb). kF:
+// with kBandAdjoint and kBandCkpt, f (1 .. 32) fixed at compile time, so
+// that the collapse over a group's f lanes unrolls; the other modes read f
+// at run time. kBandCkpt: stack is the sparse stack (P, 2 ckpt_pairs(rows,
+// C, src.W), rows + 1) and Src a CkptSource.
 template <typename T, int kMode, int kF = 1, typename Src = GridSource<T>>
 __global__ void __launch_bounds__(kBandRows)
 band_stripe(const Src src, const T* __restrict__ bd,
@@ -237,7 +394,8 @@ band_stripe(const Src src, const T* __restrict__ bd,
             int* counters, T* __restrict__ ct, int64_t P, int nbands, int Mb,
             int Nb, int f, int row0, int rows, int flip, int naive) {
   constexpr bool kStack = kMode == kBandStack;
-  constexpr bool kAdjoint = kMode == kBandAdjoint;
+  constexpr bool kCkpt = kMode == kBandCkpt;
+  constexpr bool kAdjoint = kMode == kBandAdjoint || kCkpt;
   constexpr bool kStripe = Src::kStripe;  // else a whole frame from 1s
   constexpr int kStage = Src::kStage;
   __shared__ BandShared<T> sh;
@@ -298,7 +456,11 @@ band_stripe(const Src src, const T* __restrict__ bd,
                        ? nullptr : counters + pair * nbands + band;
   if (kStripe && bottom_lane >= 0 && lane == out_lane) out[0] = T(1);
 
-  T* stk = kStack || kAdjoint ? stack + pair * stack_elems(rows, C) : nullptr;
+  int W = 0;  // kBandCkpt's window
+  if constexpr (kCkpt) W = src.W;
+  T* stk = !kStack && !kAdjoint ? nullptr
+           : stack + pair * (kCkpt ? sparse_elems(rows, C, W)
+                                   : stack_elems(rows, C));
   const int64_t stride = rows + 1;
   if constexpr (kStack) {
     for (int p = 0; p <= i0 + 31; ++p) {  // left of and at column 0
@@ -351,7 +513,24 @@ band_stripe(const Src src, const T* __restrict__ bd,
   // the two open base cells, and ct's value of hi's, read when hi opened so
   // that the add at its close does not wait on memory
   T hi = T(0), lo = T(0), ct_hi = T(0);
-  if constexpr (kAdjoint) prefetch(0);
+  if constexpr (kAdjoint && !kCkpt) prefetch(0);
+  // kBandCkpt: the warp's recompute; the first diagonal of the window the
+  // walk is in (none yet: past every p), and this lane's slot of that
+  // window's buffer
+  [[maybe_unused]] auto ck = [&] {
+    if constexpr (kCkpt) {
+      const int a_lo = rows - i0 - 31;  // the warp's top forward row
+      return CkptWarp<T, kF>{
+          stk, src.inc + pair * static_cast<int64_t>(Mb) * Nb,
+          reinterpret_cast<T*>(band_smem) + warp * 2 * W * 32, rows, C, W,
+          Nb, transpose, lane, rows - i, lane < W - 2 ? a_lo - 1 - lane : -1,
+          naive != 0};
+    } else {
+      return 0;
+    }
+  }();
+  [[maybe_unused]] int e_cur = rows + C;
+  [[maybe_unused]] const T* fwd = nullptr;
 
   T cur = T(1);                         // K[i][c - 1]; column 0 is 1
   // K[i - 1][c - 1] (lane 0's start; bd[0] is the west corner, 1)
@@ -372,6 +551,20 @@ band_stripe(const Src src, const T* __restrict__ bd,
         more = true;
       }
     }
+    // kBandCkpt: forward diagonal p's window, ready before the wait below
+    // so that its loads are in flight meanwhile (see above)
+    if constexpr (kCkpt) {
+      const int p = rows + C - i0 - s;
+      if (p >= 0 && p < e_cur) {  // uniform: the walk enters window p / W
+        const int w = p / W;
+        if (ck.w != w) ck.start(w);
+        while (ck.k < W) ck.unit();
+        e_cur = w * W;
+        fwd = ck.win + (w & 1) * W * 32 + lane;
+        if (kCkptInterleave<T> && w > 0) ck.start(w - 1);
+      }
+      if (kCkptInterleave<T> && ck.k < W) ck.unit();
+    }
     if (j == 0 && s <= C) {  // uniform: the next chunk of north values
       const int k = (s - 1) / kChunk;
       if (north_ready != nullptr) {
@@ -390,7 +583,7 @@ band_stripe(const Src src, const T* __restrict__ bd,
         }
       }
     }
-    if constexpr (kAdjoint) {
+    if constexpr (kAdjoint && !kCkpt) {
       if (js == 0) {  // this stage's forward values are in; fetch the next
         prefetch((s - 1) / kStage + 1);
         wait_async<1>();
@@ -403,7 +596,9 @@ band_stripe(const Src src, const T* __restrict__ bd,
     T term = T(0);
     if (c >= 1 && c <= C) {
       const T v = scheme(nw, n, cur, u, naive != 0);
-      if constexpr (kAdjoint) {
+      if constexpr (kCkpt) {
+        if (has_inc) term = mul(fwd[(rows + C - i0 - s - e_cur) * 32], nw);
+      } else if constexpr (kAdjoint) {
         if (has_inc) {
           term = mul(stage[(((s - 1) / kStage) & 1) * kStage * 32 + js * 32 +
                            lane], nw);

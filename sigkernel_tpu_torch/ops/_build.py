@@ -87,6 +87,12 @@ _SIGNATURES = {
                             _P],
     "sk_adjoint_ckpt_f64": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
                             _P],
+    # inc, sparse, ct, scratch, counters, P, Mb, Nb, f, W, nbands, naive,
+    # device, stream
+    "sk_adjoint_ckpt_band_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                                 _I, _I, _I, _P],
+    "sk_adjoint_ckpt_band_f64": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                                 _I, _I, _I, _P],
     # rows, cols, ri, ci, stack, ct, P, Lr, Lc, D, f, sigma, transpose,
     # naive, device, stream
     "sk_adjoint_gen_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _D,

@@ -26,31 +26,45 @@ every :data:`CKPT_WINDOW` diagonals (the ckpt output of
 ``pallas_adjoint.py``'s ``_product_ckpt_kernel``: K3<inc> with the skipped
 forward diagonals recomputed in-kernel, window by window, bit for bit as
 the forward computed them. The pair serves the backward when full stacks
-would not fill the card (``routes.resolve_inc_tier``).
+would not fill the card (``routes.resolve_inc_tier``). K8 has two kernels,
+chosen by shape (:func:`ckpt_kernel`): while a base row's ``f`` refined rows
+fit one warp (``f <= 32``) and a window's halo of ``W - 2`` rows fits one
+(``W <= 34``), the band-pipelined wavefront of ``csrc/band_sweep.cuh``
+(kBandCkpt: the reverse frame swept in bands of
+:data:`.cuda_blocked.BAND_ROWS` rows, each warp recomputing its rows'
+forward values a window at a time from the sparse stack, with a halo of
+``W - 2`` rows above it; :func:`inc_adjoint_ckpt_banded_plain` emulates
+it); past that the one-block kernel (a block a pair, a barrier a diagonal,
+within the row bound).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (``*_plain``) only for CPU tensors. ``COUNTS``, ``STACK_COUNTS``,
 ``ADJOINT_COUNTS``, ``SPARSE_COUNTS`` and ``CKPT_COUNTS`` hold the kernel
-launches per dtype and the calls of the plain versions.
+launches per dtype and the calls of the plain versions;
+``CKPT_COUNTS["one_block"]`` counts K8's one-block launches, which the
+dtype keys leave out.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build, scan_solver
+from . import _build, cuda_blocked, scan_solver
 from ..utils import dyadic_refine
 
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 STACK_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 ADJOINT_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 SPARSE_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
-CKPT_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
+CKPT_COUNTS = {"float32": 0, "float64": 0, "one_block": 0, "plain": 0}
 
 # K8's window: diagonals between stored pairs, at least 2. The sparse stack
-# is W / 2 times smaller than the full one; K8's per-block scratch of W
-# diagonals stays in L2 for one wave (csrc/adjoint_ckpt.cu). Read at call
-# time.
+# is W / 2 times smaller than the full one; the band kernel's warps
+# recompute W - 2 diagonals a window with a halo of W - 2 rows
+# (csrc/band_sweep.cuh). Read at call time.
 CKPT_WINDOW = 8
+# K8's band kernel: the most blocks one launch may hold (its ticket counter
+# is a 32-bit int); more pairs take more launches
+TICKETS = (1 << 31) - 1
 
 _FNS = {torch.float32: "sk_inc_wavefront_f32",
         torch.float64: "sk_inc_wavefront_f64"}
@@ -60,8 +74,10 @@ _ADJOINT_FNS = {torch.float32: "sk_adjoint_inc_f32",
                 torch.float64: "sk_adjoint_inc_f64"}
 _SPARSE_FNS = {torch.float32: "sk_inc_sparse_f32",
                torch.float64: "sk_inc_sparse_f64"}
-_CKPT_FNS = {torch.float32: "sk_adjoint_ckpt_f32",
-             torch.float64: "sk_adjoint_ckpt_f64"}
+_CKPT_FNS = {torch.float32: "sk_adjoint_ckpt_band_f32",
+             torch.float64: "sk_adjoint_ckpt_band_f64"}
+_CKPT_ONE_BLOCK_FNS = {torch.float32: "sk_adjoint_ckpt_f32",
+                       torch.float64: "sk_adjoint_ckpt_f64"}
 
 
 def stack_shape(P: int, MM: int, NN: int):
@@ -135,6 +151,114 @@ def inc_adjoint_ckpt_plain(inc: torch.Tensor, sparse: torch.Tensor,
     stack = scan_solver.sparse_to_stack(sparse, ref, window(), naive)
     return scan_solver.adjoint_from_stack(ref, stack, 2 ** dyadic_order,
                                           naive)
+
+
+def ckpt_warp_stack(sparse: torch.Tensor, u: torch.Tensor, W: int,
+                    naive: bool = False, halo=None,
+                    top_from_pair: bool = False) -> torch.Tensor:
+    """The forward values K8's band kernel reads, as its warps recompute
+    them (``csrc/band_sweep.cuh``, kBandCkpt), laid out as the full stack
+    ``(P, R + C + 1, R + 1)``: entry ``[p][a]`` is what the warp that owns
+    forward row ``a`` holds for diagonal ``p`` (NaN where no warp writes).
+    ``sparse``: the sparse stack at window ``W``; ``u (P, R, C)``: the
+    forward refined increments in the solve's frame (``u[:, r, c]`` feeds
+    cell ``(r + 1, c + 1)``). Warp ``k`` (reverse rows ``i0 = 32 k + 1``
+    on) owns forward rows ``a = R - i0 - t``, lane ``t`` = 0 .. 31, and
+    holds ``halo`` rows above its top row (default ``W - 2``). For each
+    window ``w`` it takes diagonals ``e = w W`` and ``e + 1`` at its rows
+    from the sparse stack alone and recomputes ``e + 2 .. e + W - 1`` in
+    the forward's operand order, row ``a - 1`` being the next row of the
+    warp's column (the halo's for the top row), and the wavefront's edge
+    value outside the frame. Rows before the frame and the neighbour of
+    the lowest halo row are NaN, so a value whose cone leaves what the
+    warp holds is NaN. The negative controls of the tests: a shorter
+    ``halo``, or ``top_from_pair`` (the top row's neighbour read from the
+    stored pair, not recomputed in the halo)."""
+    P, R, C = u.shape
+    halo = W - 2 if halo is None else halo
+    dev, nan = u.device, float("nan")
+    nwarps = -(-R // cuda_blocked.WARP)
+    i0 = torch.arange(nwarps, device=dev) * cuda_blocked.WARP + 1
+    lanes = torch.arange(cuda_blocked.WARP + halo, device=dev)
+    rows = (R - i0)[:, None] - lanes[None, :]  # (warps, 32 + halo)
+    held = rows >= 0
+    at = rows.clamp(min=0)
+    main = rows[:, :cuda_blocked.WARP]
+    owned = main >= 0
+    scheme = scan_solver.get_scheme(naive)
+    out = u.new_full((P, R + C + 1, R + 1), nan)
+    none = u.new_full((P, nwarps, 1), nan)
+    for w in range(sparse.shape[1] // 2):
+        e = w * W
+        vals = [torch.where(held, sparse[:, 2 * w + k][:, at], nan)
+                for k in (0, 1)]
+        for d in range(e + 2, e + W):
+            # row a - 1 is the next row of the column; the last has none
+            n2, n1 = (torch.cat([v[..., 1:], none], -1) for v in vals[-2:])
+            if top_from_pair:  # lane 31's neighbour: the halo's first row
+                top = cuda_blocked.WARP
+                n2[..., top - 1], n1[..., top - 1] = (vals[0][..., top],
+                                                      vals[1][..., top])
+            inside = (rows >= max(1, d - C)) & (rows <= min(R, d - 1))
+            uu = u[:, (rows - 1).clamp(0, max(R - 1, 0)),
+                   (d - rows - 1).clamp(0, C - 1)]
+            edge = ((rows >= d - C) & (rows <= d)).to(u.dtype)
+            vals.append(torch.where(
+                inside, scheme(n2, n1, vals[-1], uu),
+                torch.where(held, edge, nan)))
+        for k, v in enumerate(vals):
+            if e + k <= R + C:
+                out[:, e + k, main[owned]] = v[:, :, :cuda_blocked.WARP][
+                    :, owned]
+    return out
+
+
+def inc_adjoint_ckpt_banded_plain(inc: torch.Tensor, sparse: torch.Tensor,
+                                  dyadic_order: int = 0, naive: bool = False,
+                                  H=None, Wc=None, W=None, halo=None,
+                                  top_from_pair: bool = False) -> torch.Tensor:
+    """K8's band kernel in plain PyTorch, for the tests: the forward values
+    each warp recomputes from the sparse stack at window ``W`` (default
+    :func:`window`) with its halo (:func:`ckpt_warp_stack`, on the forward
+    increments by the kernel's index arithmetic), and the reverse frame
+    swept from a row 0 of 1s in bands of ``H`` rows and chunks of ``Wc``
+    columns (default: the kernel's, :data:`.cuda_blocked.BAND_ROWS` and
+    :data:`.cuda_blocked.CHUNK`), multiplied and collapsed by the kernel's
+    lane arithmetic (:func:`.cuda_blocked.banded_adjoint`) into ``ct (P,
+    Mb, Nb)``; then
+    the exact ``1 / f^2``. Bit for bit :func:`inc_adjoint_ckpt_plain` and
+    :func:`inc_adjoint_plain` on the full stack; no route runs it.
+    ``halo`` and ``top_from_pair``: :func:`ckpt_warp_stack`'s negative
+    controls."""
+    P, Mb, Nb = inc.shape
+    ct = torch.zeros_like(inc)
+    if P == 0 or Mb == 0 or Nb == 0:
+        return ct
+    f = 2 ** dyadic_order
+    if ckpt_kernel(dyadic_order, window() if W is None else W) != "band":
+        raise ValueError(f"K8's band kernel holds a base row's f = {f} rows "
+                         f"in one warp and a window's halo of W - 2 rows one "
+                         f"a lane of it")
+    R, C = cuda_blocked.frame(Mb, Nb, dyadic_order)
+    fwd = ckpt_warp_stack(
+        sparse, cuda_blocked._band_increments(inc, f, 0, R, False),
+        window() if W is None else W, naive, halo, top_from_pair)
+    out = ct.transpose(-1, -2) if Mb > Nb else ct  # the solve's frame
+    cuda_blocked.banded_adjoint(
+        cuda_blocked._band_increments(inc, f, 0, R, True), fwd,
+        inc.new_ones(P, C + 1), out, 0, R, f, naive,
+        H or cuda_blocked.BAND_ROWS, Wc or cuda_blocked.CHUNK)
+    return ct / (f * f)
+
+
+def ckpt_kernel(dyadic_order: int, W: int) -> str:
+    """K8's kernel at a refinement and window: ``"band"`` (the band kernel,
+    whose collapse holds a base row's ``f`` refined rows in one warp and
+    whose halo of ``W - 2`` rows one lane a row) while ``f <= 32`` and ``W
+    <= 34``, else ``"one_block"``."""
+    band = (cuda_blocked.stripe_adjoint_kernel(dyadic_order) == "band"
+            and W - 2 <= cuda_blocked.WARP)
+    return "band" if band else "one_block"
 
 
 def _check(inc: torch.Tensor, what: str) -> None:
@@ -249,7 +373,8 @@ def inc_adjoint_ckpt(inc: torch.Tensor, sparse: torch.Tensor,
     """K8: the gradient ``(P, Mb, Nb)`` of each pair's corner in its base
     increments from the sparse stack of :func:`inc_solve_sparse` (at the
     same :data:`CKPT_WINDOW`); equal to :func:`inc_adjoint` on the full
-    stack, bit for bit."""
+    stack, bit for bit. The kernel by :func:`ckpt_kernel`; the band kernel
+    in launches of at most :data:`TICKETS` blocks."""
     if inc.device.type == "cpu":
         return inc_adjoint_ckpt_plain(inc, sparse, dyadic_order, naive)
     _check(inc, "inc_adjoint_ckpt")
@@ -258,8 +383,10 @@ def inc_adjoint_ckpt(inc: torch.Tensor, sparse: torch.Tensor,
     f = 2 ** dyadic_order
     if Mb == 0 or Nb == 0 or P == 0:
         return torch.zeros_like(inc)
-    R = min(Mb, Nb) * f
-    _build.check_rows(R, inc.element_size(), "inc_adjoint_ckpt")
+    R, C = min(Mb, Nb) * f, max(Mb, Nb) * f
+    one_block = ckpt_kernel(dyadic_order, W) == "one_block"
+    if one_block:
+        _build.check_rows(R, inc.element_size(), "inc_adjoint_ckpt")
     want = sparse_shape(P, Mb * f, Nb * f)
     if (sparse.shape != want or sparse.dtype != inc.dtype
             or sparse.device != inc.device or not sparse.is_contiguous()):
@@ -267,8 +394,25 @@ def inc_adjoint_ckpt(inc: torch.Tensor, sparse: torch.Tensor,
                          f"contiguous {want} tensor of the grid's dtype and "
                          "device")
     ct = torch.zeros_like(inc)
-    scratch = torch.empty(P, W, R + 1, dtype=inc.dtype, device=inc.device)
-    _build.launch("adjoint_ckpt", _CKPT_FNS, CKPT_COUNTS, inc, inc.data_ptr(),
-                  sparse.data_ptr(), scratch.data_ptr(), ct.data_ptr(), P,
-                  Mb, Nb, f, W, int(naive))
+    if one_block:
+        scratch = torch.empty(P, W, R + 1, dtype=inc.dtype, device=inc.device)
+        _build.launch("adjoint_ckpt[one block]", _CKPT_ONE_BLOCK_FNS,
+                      CKPT_COUNTS, inc, inc.data_ptr(), sparse.data_ptr(),
+                      scratch.data_ptr(), ct.data_ptr(), P, Mb, Nb, f, W,
+                      int(naive), key="one_block")
+        return ct / (f * f)
+    nbands = -(-R // cuda_blocked.BAND_ROWS)
+    chunk = max(1, min(P, TICKETS // nbands))
+    _, scratch, counters = cuda_blocked._band_scratch(inc[:chunk], R, C)
+    size = inc.element_size()
+    per_grid, per_sparse = Mb * Nb * size, sparse[0].numel() * size
+    for s in range(0, P, chunk):
+        n = min(chunk, P - s)
+        counters.zero_()
+        _build.launch("adjoint_ckpt", _CKPT_FNS, CKPT_COUNTS, inc,
+                      inc.data_ptr() + per_grid * s,
+                      sparse.data_ptr() + per_sparse * s,
+                      ct.data_ptr() + per_grid * s, scratch.data_ptr(),
+                      counters.data_ptr(), n, Mb, Nb, f, W, nbands,
+                      int(naive))
     return ct / (f * f)

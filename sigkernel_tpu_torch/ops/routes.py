@@ -82,10 +82,12 @@ GRAD_SOLVERS = ("auto", "f32", "df64")
 # the increment grids it builds
 STACK_BYTES = 8 << 30
 # the ckpt gate: full stacks while a chunk holds at least this many pairs'
-# (one block a pair on the H100's 132 SMs); the sparse stack (K2-sparse, K8)
-# otherwise. The north star in double holds 128 (67 MB a pair), where the
-# full route's lincomb was 1.2x faster; at 47-128 pairs and dyadic 2 the
-# sparse route was 1.7-4.6x faster (chip_smoke.py phase 12, PERF.md).
+# (one block a pair on the H100's 132 SMs when it was set); the sparse
+# stack (K2-sparse, K8) otherwise. chip_smoke.py phase 12's gate sweep
+# times both routes at 17-128 full stacks a chunk; with K3<gen> and K8 on
+# the band kernel the full route is the faster at each of its points on an
+# H100 80GB HBM3 at 700 W (the ratios: PERF.md section 5), so the gate is
+# due to be reset from that sweep.
 CKPT_MIN_PAIRS = 128
 # base grids a pair that building one increment grid keeps alive: the
 # kernel's exponent and its exp (saved for autograd), the double difference
@@ -126,14 +128,20 @@ def _bwd_dtype(dtype: torch.dtype, grad_solver: str) -> torch.dtype:
 def tier_bytes(tier: str, shape, itemsize: int) -> int:
     """Bytes one pair keeps alive on an ``inc`` tier for a refined ``(MM,
     NN)`` grid: the full stack (``full``), the sparse stack and K8's
-    scratch (``ckpt``), one stripe's stack (``striped``; the stripe height
-    at most :data:`.cuda_blocked.ADJ_ROWS`); nothing on the forward tiers."""
+    scratch (``ckpt``: the band kernel's hand-off rows and counters, or the
+    one-block kernel's window of diagonals past f = 32, whichever is larger,
+    as the refined shape does not say which kernel runs), one stripe's
+    stack (``striped``; the stripe height at most
+    :data:`.cuda_blocked.ADJ_ROWS`); nothing on the forward tiers."""
     R, C = min(shape), max(shape)
     if tier == "full":
         n = math.prod(cuda_solver.stack_shape(1, R, C))
     elif tier == "ckpt":
-        n = (math.prod(cuda_solver.sparse_shape(1, R, C))
-             + cuda_solver.CKPT_WINDOW * (R + 1))
+        nbands = -(-R // cuda_blocked.BAND_ROWS)
+        band = (nbands - 1) * (C + 1) * itemsize + 4 * nbands
+        one_block = cuda_solver.CKPT_WINDOW * (R + 1) * itemsize
+        return (math.prod(cuda_solver.sparse_shape(1, R, C)) * itemsize
+                + max(band, one_block))
     elif tier == "striped":
         n = math.prod(cuda_solver.stack_shape(
             1, min(cuda_blocked.ADJ_ROWS, R), C))

@@ -144,14 +144,20 @@ def test_mmd_through_the_ckpt_tier_matches_jax(rng, tier_on_cpu, dtype,
 
 def test_stack_budget_sets_the_sparse_chunk(monkeypatch):
     """The sparse route's chunk keeps its sparse stacks and K8's scratch
-    within ``STACK_BYTES``: 127 pairs at length 1024, dyadic 2 in double
-    (67.3 MB a pair at the window of 8)."""
+    within ``STACK_BYTES``: 126 pairs at length 1024, dyadic 2 in double
+    (68.0 MB a pair at the window of 8: the sparse stack, and the band
+    kernel's hand-off rows between its 32 bands of 128 rows and their
+    counters, more than the one-block kernel's window of 8 diagonals)."""
     W = cuda_solver.CKPT_WINDOW
-    per_pair = (np.prod(cuda_solver.sparse_shape(1, 4092, 4092))
-                + W * 4093) * 8
+    band = 31 * 4093 * 8 + 4 * 32
+    assert band > W * 4093 * 8
+    per_pair = np.prod(cuda_solver.sparse_shape(1, 4092, 4092)) * 8 + band
     assert routes.tier_bytes("ckpt", (4092, 4092), 8) == per_pair
     assert routes.chunk_pairs(560, per_pair) == (
-        routes.STACK_BYTES // per_pair) == 127
+        routes.STACK_BYTES // per_pair) == 126
+    # one band (R <= 128) hands nothing on: the one-block window counts
+    assert routes.tier_bytes("ckpt", (100, 300), 4) == 4 * (
+        np.prod(cuda_solver.sparse_shape(1, 100, 300)) + W * 101)
     monkeypatch.setattr(routes, "STACK_BYTES", 3 * per_pair)
     assert routes.chunk_pairs(560, per_pair) == 3
 

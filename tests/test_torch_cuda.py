@@ -7,7 +7,8 @@ K3<gen> on its band kernel at the edges of the band decomposition and
 on its one-block kernel past f = 32, the stripe kernels K7,
 K7-stack and K3<inc, boundary> (its band kernel, and its one-block kernel
 past f = 32), the sparse-checkpoint pair K2-sparse and
-K8, and values and gradients through the estimators against the plain
+K8 (K8's band kernel at the edges of its decomposition, its one-block
+kernel past f = 32), and values and gradients through the estimators against the plain
 tier.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode); without one
@@ -631,6 +632,56 @@ def test_ckpt_kernels_match_plain(cuda, monkeypatch, dtype, naive, dyadic, W,
     assert torch.equal(ct, cuda_solver.inc_adjoint(inc, stack, dyadic, naive))
     assert torch.equal(ct, cuda_solver.inc_adjoint_ckpt_plain(
         inc, sparse, dyadic, naive))
+
+
+# K8 at the edges of its band decomposition (tests/test_torch_band_ckpt.py
+# emulates the same): (pairs, Mb, Nb, dyadic, W). Frames smaller than a
+# window, transposed grids, no diagonal recomputed (W 2), a warp whose halo
+# reaches row 0 (R 36), a short last warp and band (R 40, 70, 130: two bands
+# the second of 2 rows), dyadic 2 and 5, a tall transposed grid (R 598, five
+# bands), more blocks than the card holds at once (600 pairs x 2 bands), and
+# dyadic 6, where the one-block kernel runs
+CKPT_BAND_CASES = [
+    (2, 2, 3, 0, 8), (2, 3, 2, 0, 3), (3, 9, 14, 1, 8), (3, 14, 9, 1, 3),
+    (2, 10, 25, 0, 2), (2, 36, 45, 0, 8), (2, 40, 50, 0, 8),
+    (2, 33, 40, 0, 3), (2, 17, 12, 2, 8), (2, 70, 75, 0, 8),
+    (2, 130, 140, 0, 8), (2, 2, 3, 5, 8), (2, 3, 2, 5, 3),
+    (2, 400, 300, 1, 5), (600, 65, 70, 2, 8), (2, 2, 3, 6, 8),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_band_ckpt_matches_plain(cuda, monkeypatch, dtype):
+    """K8 at ``CKPT_BAND_CASES``, both schemes: one launch of the band
+    kernel under the dtype's key (of the one-block kernel under
+    ``"one_block"`` at dyadic 6), bit for bit its plain version, K3<inc> on
+    the full stack, and at a few pairs the CPU emulation of the band
+    kernel."""
+    key = str(dtype).removeprefix("torch.")
+    for P, Mb, Nb, dyadic, W in CKPT_BAND_CASES:
+        monkeypatch.setattr(cuda_solver, "CKPT_WINDOW", W)
+        X = _paths(P, Mb + 1, 3, 60 + Mb + dyadic, cuda, dtype)
+        Y = _paths(P, Nb + 1, 3, 61 + Nb, cuda, dtype)
+        inc = double_difference(skt.RBFKernel(0.5).batch_kernel(
+            X, Y)).contiguous()
+        want_key = ("one_block" if cuda_solver.ckpt_kernel(dyadic, W)
+                    == "one_block" else key)
+        for naive in (False, True):
+            _, sparse = cuda_solver.inc_solve_sparse(inc, dyadic, naive)
+            before = dict(cuda_solver.CKPT_COUNTS)
+            got = cuda_solver.inc_adjoint_ckpt(inc, sparse, dyadic, naive)
+            assert _launched(cuda_solver.CKPT_COUNTS, before) == {
+                k: int(k == want_key) for k in before}
+            assert torch.equal(got, cuda_solver.inc_adjoint_ckpt_plain(
+                inc, sparse, dyadic, naive))
+            _, stack = cuda_solver.inc_solve_stack(inc, dyadic, naive)
+            assert torch.equal(got, cuda_solver.inc_adjoint(
+                inc, stack, dyadic, naive))
+            del stack
+            if P <= 3 and max(Mb, Nb) * 2 ** dyadic < 200 and dyadic < 6:
+                assert torch.equal(got, cuda_solver.
+                                   inc_adjoint_ckpt_banded_plain(
+                                       inc, sparse, dyadic, naive))
 
 
 @pytest.mark.parametrize("tier", ["stripes", "ckpt"])
