@@ -37,7 +37,13 @@ Phases (any failure raises and the script exits non-zero):
    the columns backward) bit for bit at the edges of their band
    decomposition (``GEN_BAND_CASES``: frames of 1 to 4,092 rows, transposed
    pairs, D 1 and 5, dyadic 0-3 and 5, 3,000 pairs), and at dyadic 6
-   K3<gen> on its one-block kernel, by its counter; then K8 on its band
+   K3<gen> on its one-block kernel, by its counter; then K5 on its band
+   kernel (three states a row, the hand-offs carrying three values a
+   column) bit for bit at the edges of its band decomposition
+   (``DERIV_BAND_CASES``: frames of 1 to 192 rows and, in float64, one
+   pair of 8,184 rows past the earlier one-block kernel's bound, transposed
+   pairs, D 1 and 5, dyadic 0-3, 5 and 6, 3,000 pairs; K5 on the problems
+   above is checked bit for bit too); then K8 on its band
    kernel (each warp recomputing its rows' forward values from the sparse
    stack, with a halo) bit for bit against its plain version and K3<inc>
    at the edges of its decomposition (``CKPT_BAND_CASES``: frames smaller
@@ -63,8 +69,8 @@ Phases (any failure raises and the script exits non-zero):
 7. The derivative Gram at the north-star size: ``compute_kernel_and_
    derivatives_Gram(X, Y, gamma, max_batch=16)`` of ``SigKernel(RBFKernel
    (1.0), dyadic_order=1)``, float64 and float32 (K5); and one float64
-   pair of length 1024 at dyadic 3, past K5's row bound, which ``"auto"``
-   sends to the plain sweep (no K5 launch, equal to ``solver="scan"``).
+   pair of length 1024 at dyadic 3 (8,184 refined rows, past the earlier
+   one-block kernel's bound), on K5 too, equal to ``solver="scan"``.
 8. ``sig_chsic`` at the long-path stress configuration: m = 50 paths of
    length 1024, dim 5, dyadic 2, float64 (three ``sym`` Grams through K1).
 9. The Linear Gram at the north-star size: ``SigKernel(LinearKernel(1.0),
@@ -86,14 +92,17 @@ Phases (any failure raises and the script exits non-zero):
     one: 560 pairs), float64, through K2 and K2-sparse -> K8; float32 paths
     of length 2,049 (X 8, y 1) on the same route; X 100 paths, whose
     5,050-pair sym tile at the default ``max_batch`` is built and solved
-    chunk by chunk. Then, uncounted, the same float64 call on the
-    full-stack routes (the gate's pair count patched to 1: the generator,
+    chunk by chunk. The generator's ckpt gate would send these to the
+    full-stack route, so the counted runs patch both gates
+    (``SPARSE_GATE``). Then, uncounted, the same float64 call on the
+    full-stack routes (the gates' pair counts patched to 1: the generator,
     K1-stack -> K3<gen> -> K4, and the increment grid, K2-stack -> K3<inc>)
-    and the sparse route again, with times and peaks; and the gate's
-    crossover (``gate_sweep``): the scoring rule and a 32 x 32 lincomb at
-    lengths where one chunk holds 17 to 128 full stacks, and phase 5's
-    float64-grade lincomb, each on the full generator route and the sparse
-    route in turns.
+    and the sparse route again, with times and peaks; and the gates'
+    crossovers (``gate_sweep``): the scoring rule and a 32 x 32 lincomb at
+    lengths where one chunk holds 5 to 128 full stacks, and phase 5's
+    float64-grade lincomb, each on the sparse route and the full generator
+    route in turns, and on the full increment-grid route too where a chunk
+    holds ``GATE_INC_FROM`` full stacks or more.
 
 The launch counters are zeroed before phases 2-4 and before each later
 phase, and read after each: every kernel of the phase must have launched
@@ -233,6 +242,31 @@ EARLIER_MS = {("gen", "float32"): 18.009, ("gen", "float64"): 26.026,
               ("adj_gen", "float64"): 41.361,
               ("adj_ckpt", "float32"): 28.313,
               ("adj_ckpt", "float64"): 34.390}
+# phase 1, K5 on the band kernel (a whole frame a pair, bands of 128 rows
+# from a row 0 of (1, 0, 0), the three states of a row in registers and the
+# hand-offs carrying three values a column) at its edges, bit for bit
+# against its plain version: name, pairs, M, N, dim, dyadic order, dtypes.
+# The frame's rows R = (min(M, N) - 1) 2^dyadic: 1, 31, 32, 33, 128, 129
+# and, in float64, 8,184 (phase 7's long pair, past the earlier one-block
+# kernel's 4,840); a transposed pair; D 1 and 5; dyadic 0-3, 5 and 6 (f 64:
+# no bound on f); 3,000 pairs, more blocks than are resident. R 1,023,
+# 2,046 (the timed shape) and 4,092 are PROBLEMS' 8 pairs of length 1024,
+# whose K5 is checked bit for bit too
+DERIV_BAND_CASES = [
+    ("R 1", 3, 2, 6, 2, 0, ("float64", "float32")),
+    ("R 31", 3, 32, 40, 3, 0, ("float64", "float32")),
+    ("R 32, D 1", 3, 33, 40, 1, 0, ("float64", "float32")),
+    ("R 33, D 5", 3, 34, 50, 5, 0, ("float64", "float32")),
+    ("R 128: one full band", 3, 65, 70, 3, 1, ("float64", "float32")),
+    ("R 129: a band of one row", 3, 130, 140, 3, 0, ("float64", "float32")),
+    ("a transposed pair (M > N)", 3, 70, 40, 3, 1, ("float64", "float32")),
+    ("dyadic 3", 3, 9, 12, 5, 3, ("float64", "float32")),
+    ("dyadic 5, transposed", 3, 9, 7, 3, 5, ("float64", "float32")),
+    ("dyadic 6", 3, 4, 5, 3, 6, ("float64", "float32")),
+    ("3,000 pairs", 3000, 17, 17, 3, 2, ("float64", "float32")),
+    ("R 8,184: past the one-block bound", 1, 1024, 1024, 3, 3,
+     ("float64",)),
+]
 # phase 1, K8 at the edges of its band decomposition (the reverse frame in
 # bands of 128 rows, each warp recomputing its rows' forward values a
 # window at a time from the sparse stack, with a halo of W - 2 rows), bit
@@ -259,8 +293,8 @@ CKPT_BAND_CASES = [
 # kernel, by its counter), as BAND_CASES
 ONE_BLOCK_CASE = ("dyadic 6: the one-block kernel", 2, 5, 4, 3, 6, 0, 192,
                   False, True)
-# phase 7: one pair past K5's row bound under solver="auto" (float64: 8,184
-# refined rows against 4,840), which takes the plain sweep as JAX does
+# phase 7: one float64 pair past the earlier one-block K5's row bound (8,184
+# refined rows against 4,840), on K5's band kernel
 DERIV_LONG = (1024, 3)
 # phases 10-11: length, dim, dyadic order of the long paths (a 20,000 x
 # 20,000 refined grid); Gram batch, MMD batch, max_batch of phase 10; pairs
@@ -276,10 +310,20 @@ CKPT = (32, 1024, 5, 2)
 CKPT_F32 = (8, 2049)
 CKPT_WIDE = 100  # phase 12: X batch of one run at the default max_batch
 # phase 12, the ckpt gate's crossover: path length (dyadic 2) and dtype; in
-# double a chunk of 8 GiB holds 17, 47, 64, 96 and 128 full stacks, in
+# double a chunk of 8 GiB holds 5, 8, 13, 17, 64 and 128 full stacks, in
 # float 64
-GATE_SWEEP = ((1400, "float64"), (837, "float64"), (724, "float64"),
-              (592, "float64"), (512, "float64"), (1024, "float32"))
+GATE_SWEEP = ((2400, "float64"), (2000, "float64"), (1600, "float64"),
+              (1400, "float64"), (724, "float64"), (512, "float64"),
+              (1024, "float32"))
+# phase 12's counted runs: a gate no chunk passes, so they take the sparse
+# route (K2-sparse -> K8) that the gate no longer picks at their size
+SPARSE_GATE = 1 << 40
+# seconds: a gate point whose runs all take longer is raced once, not twice
+GATE_ONE_ROUND = 1.5
+# full stacks a chunk from which the gate sweep races the increment grid's
+# full route (K2-stack -> K3<inc>) too: K3<inc> is one block a pair, and at
+# phase 12's 32 a chunk it takes about 3x the sparse route's time
+GATE_INC_FROM = 64
 TIMED_STRIPE_PAIRS = 16  # K7, K7-stack, K3<inc, boundary> at phase 10/11
 # K8's plain version at phase 12's shape (128 pairs, R 4,092): pairs a call,
 # so that its full stacks and grids (~1.1 GB a pair in double) fit the card
@@ -429,55 +473,83 @@ def deriv_grids(kernel, X, Y, gamma, ii, jj):
     return [double_difference(t).contiguous() for t in (G, dG, ddG)]
 
 
-def gate_sweep(gen, card, X5, Y5):
-    """The ckpt gate's crossover, uncounted: at each ``GATE_SWEEP`` length
-    (dyadic 2, dim 5; one chunk of ``routes.STACK_BYTES`` holds 17 to 128
+def set_gates(routes, pairs):
+    """Set both ckpt gates (``routes.CKPT_MIN_PAIRS``, K2-stack ->
+    K3<inc>'s, and ``routes.GEN_CKPT_MIN_PAIRS``, the generator's) to
+    ``pairs``, one count or a pair of them; return the pair they held."""
+    saved = (routes.CKPT_MIN_PAIRS, routes.GEN_CKPT_MIN_PAIRS)
+    routes.CKPT_MIN_PAIRS, routes.GEN_CKPT_MIN_PAIRS = (
+        pairs if isinstance(pairs, tuple) else (pairs, pairs))
+    return saved
+
+
+def gate_sweep(gen, card, X5, Y5, grid_cls):
+    """The ckpt gates' crossovers, uncounted: at each ``GATE_SWEEP`` length
+    (dyadic 2, dim 5; one chunk of ``routes.STACK_BYTES`` holds 5 to 128
     full stacks) the scoring rule (X 32, y 1) and a lincomb fwd+bwd (X, Y
     32, ``pair_chunk=128``), then phase 5's float64-grade north-star lincomb
-    (``X5``, ``Y5``: 128 full stacks a chunk), each on the full generator
-    route and the sparse route, twice in turns."""
+    (``X5``, ``Y5``: 128 full stacks a chunk), each on the sparse route and
+    the full generator route, and, from ``GATE_INC_FROM`` full stacks a
+    chunk, on the full increment-grid route (``grid_cls``, an RBF kernel
+    that takes the ``inc`` family), in turns: sparse first in round 0, the
+    reverse order in round 1 (no round 1 where every run took over
+    ``GATE_ONE_ROUND`` seconds)."""
     import torch
     import sigkernel_tpu_torch as skt
     from sigkernel_tpu_torch.ops import routes
 
     dev = torch.device(DEVICE)
-    saved = routes.CKPT_MIN_PAIRS
+    saved = (routes.CKPT_MIN_PAIRS, routes.GEN_CKPT_MIN_PAIRS)
 
-    def score(X, Y, s):
-        return skt.sig_scoring_rule(skt.RBFKernel(s), X, Y[:1],
-                                    dyadic_order=2)
+    def score(cls, X, Y, s):
+        return skt.sig_scoring_rule(cls(s), X, Y[:1], dyadic_order=2)
 
-    def lincomb(X, Y, s, dyadic_order=2):
+    def lincomb(cls, X, Y, s, dyadic_order=2):
         W = torch.full((X.shape[0], Y.shape[0]), 1.0 / Y.shape[0] ** 2,
                        dtype=X.dtype, device=dev)
-        return skt.sig_gram_lincomb(skt.RBFKernel(s), X, Y, W,
+        return skt.sig_gram_lincomb(cls(s), X, Y, W,
                                     dyadic_order=dyadic_order, pair_chunk=128)
 
-    def race(label, fn, X0, Y0, pairs):
-        times, outs = {"full": [], "sparse": []}, {}
+    def race(label, fn, X0, Y0, pairs, with_inc):
+        plan = [("sparse", skt.RBFKernel), ("full", skt.RBFKernel)]
+        if with_inc:
+            plan.append(("full K3<inc>", grid_cls))
+        times, outs = {route: [] for route, _ in plan}, {}
         for rnd in range(2):
-            for route, gate in (("full", 1), ("sparse", 1 << 40)):
-                routes.CKPT_MIN_PAIRS = gate
+            if rnd and min(min(t) for t in times.values()) > GATE_ONE_ROUND:
+                break  # long runs: a second round adds no warm-up
+            for route, cls in (plan if rnd == 0 else plan[::-1]):
+                set_gates(routes, SPARSE_GATE if route == "sparse" else 1)
                 X, Y = leaf(X0, X0.dtype), Y0.detach()
                 s = torch.tensor(1.0, dtype=X.dtype, device=dev,
                                  requires_grad=True)
                 torch.cuda.reset_peak_memory_stats()
-                _, sec = synced(lambda: fn(X, Y, s).backward())
+                _, sec = synced(lambda: fn(cls, X, Y, s).backward())
                 outs[route] = (X.grad, s.grad)
                 times[route].append(sec)
                 print(f"[12] gate: {label}, {route} route, round {rnd}: "
                       f"{sec:.3f} s, {pairs / sec:.1f} path-pairs/s, peak "
                       f"{torch.cuda.max_memory_allocated()} bytes ({card})")
-        routes.CKPT_MIN_PAIRS = saved
-        errs = [max_rel(g, w) for g, w in zip(outs["sparse"], outs["full"])]
-        full, sparse = min(times["full"]), min(times["sparse"])
-        print(f"[12] gate: {label}: best full {full:.3f} s, best sparse "
-              f"{sparse:.3f} s, sparse / full {sparse / full:.3f}; dX "
-              f"{errs[0]:.2e}, dsigma {errs[1]:.2e} apart")
-        for t in outs["full"] + outs["sparse"]:
-            check(bool(torch.isfinite(t).all()), f"[12] gate {label}")
-        if X0.dtype == torch.float64:
-            check(max(errs) <= CHAIN_F64, f"[12] gate {label}: gradients")
+        set_gates(routes, saved)
+        best = {route: min(t) for route, t in times.items()}
+        line = ", ".join(f"best {route} {t:.3f} s" for route, t in best.items())
+        print(f"[12] gate: {label}: {line}; sparse / full "
+              f"{best['sparse'] / best['full']:.3f}" + (
+                  f", sparse / full K3<inc> "
+                  f"{best['sparse'] / best['full K3<inc>']:.3f}"
+                  if with_inc else ""))
+        for route, out in outs.items():
+            for t in out:
+                check(bool(torch.isfinite(t).all()),
+                      f"[12] gate {label}, {route}")
+            if route == "full":
+                continue
+            errs = [max_rel(g, w) for g, w in zip(out, outs["full"])]
+            print(f"[12] gate: {label}: {route} vs full: dX {errs[0]:.2e}, "
+                  f"dsigma {errs[1]:.2e} apart")
+            if X0.dtype == torch.float64:
+                check(max(errs) <= CHAIN_F64,
+                      f"[12] gate {label}, {route}: gradients")
 
     for L, dname in GATE_SWEEP:
         dtype = getattr(torch, dname)
@@ -487,15 +559,19 @@ def gate_sweep(gen, card, X5, Y5):
         full = routes.chunk_pairs(1 << 40, routes.tier_bytes(
             "full", (R, R), torch.empty((), dtype=dtype).element_size()))
         at = (f"{dname} len {L} (R {R}, {full} full stacks a chunk, the "
-              f"gate takes {'full' if full >= saved else 'sparse'})")
-        race(f"sig_scoring_rule X 32, y 1, {at}", score, X, Y, 560)
-        race(f"sig_gram_lincomb 32 x 32, {at}", lincomb, X, Y, 1024)
+              f"generator's gate takes "
+              f"{'full' if full >= saved[1] else 'sparse'}, K3<inc>'s "
+              f"{'full' if full >= saved[0] else 'sparse'})")
+        with_inc = full >= GATE_INC_FROM
+        race(f"sig_scoring_rule X 32, y 1, {at}", score, X, Y, 560, with_inc)
+        race(f"sig_gram_lincomb 32 x 32, {at}", lincomb, X, Y, 1024,
+             with_inc)
         del X, Y
         torch.cuda.empty_cache()
     A = X5.shape[0]
     race("phase 5's float64-grade lincomb (len 1024, dyadic 1, 128 full "
-         "stacks a chunk)", lambda X, Y, s: lincomb(X, Y, s, 1), X5, Y5,
-         A * A)
+         "stacks a chunk)", lambda cls, X, Y, s: lincomb(cls, X, Y, s, 1),
+         X5, Y5, A * A, True)
     torch.cuda.empty_cache()
 
 
@@ -669,6 +745,7 @@ def main():
                                   for n, g, w in zip(("K_diff", "K_diffdiff"),
                                                      k5[1:], p5[1:]))
                         eq5 = all(torch.equal(g, w) for g, w in zip(k5, p5))
+                        check(eq5, f"K5 {label}: not bit-equal")
                         msg += (f"; K5 K rel {r5:.2e}, K_diff/K_diffdiff max "
                                 f"err / max ref {r5d:.2e} (bit-equal {eq5}, "
                                 f"{t5 * 1e3:.1f} ms)")
@@ -985,6 +1062,37 @@ def main():
     print(f"[1] gen band cases passed in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
+    # K5 on the band kernel at its edges, bit for bit
+    t_phase = time.perf_counter()
+    for dname, P, M, N, D, dy, dnames in DERIV_BAND_CASES:
+        A = max(P // 2, 2)
+        X64 = make_paths(gen, A, M, D, F64)
+        Y64 = make_paths(gen, A, N, D, F64)
+        G64 = make_paths(gamma_gen, A, M, D, F64)
+        ii = torch.randint(0, A, (P,), generator=gen, device=dev)
+        jj = torch.randint(0, A, (P,), generator=gen, device=dev)
+        R = (min(M, N) - 1) * 2 ** dy
+        for dtype in (getattr(torch, n) for n in dnames):
+            grids = deriv_grids(skt.RBFKernel(1.0), X64.to(dtype),
+                                Y64.to(dtype), G64.to(dtype), ii, jj)
+            nlimit = F64_RTOL if dtype == F64 else NEW_F32
+            label = (f"{dname} {name[dtype]} ({P} pairs, {M} x {N}, D {D}, "
+                     f"dyadic {dy}, R {R}, "
+                     f"{-(-R // cuda_blocked.BAND_ROWS)} bands a pair)")
+            k5, t5 = synced(lambda: cuda_deriv.deriv_solve_final(*grids, dy))
+            p5 = cuda_deriv.deriv_solve_final_plain(*grids, dy)
+            del grids
+            compare("deriv", dtype, k5[0], p5[0], nlimit, "K5 K " + label)
+            for n, g, w in zip(("K_diff", "K_diffdiff"), k5[1:], p5[1:]):
+                compare_max("deriv", dtype, g, w, nlimit, f"K5 {n} {label}")
+            check(all(torch.equal(g, w) for g, w in zip(k5, p5)),
+                  f"K5 {label}: not bit-equal")
+            print(f"[1] {label}: K5 bit-equal to its plain version "
+                  f"({t5 * 1e3:.1f} ms)")
+        torch.cuda.empty_cache()
+    print(f"[1] deriv band cases passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
     # K8 on the band kernel at its edges, bit for bit; at dyadic 6 its
     # one-block kernel
     t_phase = time.perf_counter()
@@ -1166,17 +1274,17 @@ def main():
               f"{A * A / sec:.1f} path-pairs/s ({A * A} pairs), peak memory "
               f"allocated {torch.cuda.max_memory_allocated()} bytes ({base} "
               "before the call)")
-    # one pair past K5's bound under "auto": the plain sweep, no K5 launch
+    # one pair past the earlier one-block K5's bound: K5's band kernel
     L7, dy7 = DERIV_LONG
     X7, Y7, G7 = (make_paths(gen, 1, L7, 3, F64) for _ in range(3))
     k5 = cuda_deriv.COUNTS["float64"]
     deriv_long, sec = synced(lambda: skt.sig_kernel_and_derivatives_gram(
         rbf, X7, Y7, G7, dyadic_order=dy7))
-    check(cuda_deriv.COUNTS["float64"] == k5,
-          "[7] K5 launched past its row bound")
+    check(cuda_deriv.COUNTS["float64"] == k5 + 1,
+          "[7] the long pair did not take one K5 launch")
     print(f"[7] float64 one pair, len {L7}, dyadic {dy7} ({(L7 - 1) * 2 ** dy7}"
-          f" refined rows, K5's bound {cuda_deriv.max_rows(8)}), solver='auto':"
-          f" {sec:.3f} s, no K5 launch")
+          f" refined rows; the one-block K5 held 4,840), solver='auto': "
+          f"{sec:.3f} s, one K5 launch ({card})")
     read_counters("7", [("deriv", F32), ("deriv", F64)])
 
     # ---- phase 8: CHSIC at the long-path stress size, counted -----------
@@ -1365,13 +1473,19 @@ def main():
               f"{dbar:.0e})")
         check(errs[0] <= kbar and max(errs[1:]) <= dbar,
               f"[7] {name[dtype]} derivative Gram vs plain tier")
-    want = skt.sig_kernel_and_derivatives_gram(rbf, X7, Y7, G7,
-                                               dyadic_order=dy7, solver="scan")
-    for got, w in zip(deriv_long, want):
-        check(got.shape == (1, 1) and bool(torch.isfinite(got).all())
-              and torch.equal(got, w),
-              "[7] the pair past K5's bound differs from solver='scan'")
-    print(f"[7] the pair past K5's bound equals solver='scan': K "
+    want, sec = synced(lambda: skt.sig_kernel_and_derivatives_gram(
+        rbf, X7, Y7, G7, dyadic_order=dy7, solver="scan"))
+    errs = [rel_err(deriv_long[0], want[0]), max_rel(deriv_long[1], want[1]),
+            max_rel(deriv_long[2], want[2])]
+    for got in deriv_long:
+        check(got.shape == (1, 1) and bool(torch.isfinite(got).all()),
+              "[7] the long pair: shape or non-finite")
+    check(max(errs) <= DERIV_F64, "[7] the long pair differs from "
+                                  "solver='scan'")
+    print(f"[7] the long pair on K5 vs solver='scan' ({sec:.3f} s): K rel "
+          f"{errs[0]:.2e}, K_diff {errs[1]:.2e}, K_diffdiff {errs[2]:.2e} "
+          f"(limit {DERIV_F64:.0e}; bit-equal "
+          f"{all(torch.equal(g, w) for g, w in zip(deriv_long, want))}): K "
           f"{float(deriv_long[0])}, K_diff {float(deriv_long[1])}, "
           f"K_diffdiff {float(deriv_long[2])}")
     del X7, Y7, G7, deriv_long, want
@@ -1620,6 +1734,15 @@ def main():
         return n * (n + 1) // 2 + n
 
     pairs12 = npairs(n12)
+    R12 = (L12 - 1) * 2 ** dy12
+    fam12 = routes.resolve_family(skt.RBFKernel(1.0), "cuda", "auto",
+                                  shape=(R12, R12), need_grad=True)
+    inc12 = routes.resolve_inc_tier((R12, R12), 8, backward=True)
+    saved_pairs = set_gates(routes, SPARSE_GATE)
+    print(f"[12] the gates (CKPT_MIN_PAIRS, GEN_CKPT_MIN_PAIRS = "
+          f"{saved_pairs}) take RBFKernel to the {fam12} family and the inc "
+          f"family to its {inc12} tier at this size; the counted runs patch "
+          f"both to the sparse route")
     zero_counters()
     (out12, sec, peak, base) = score(skt.RBFKernel, X12, y12)
     print(f"[12] float64 sig_scoring_rule X {n12} x len {L12} x dim {D12}, "
@@ -1641,6 +1764,7 @@ def main():
           f"path-pairs/s ({npairs(CKPT_WIDE)} pairs), peak memory allocated "
           f"{peakw} bytes ({basew} before the call) ({card})")
     del X12w
+    set_gates(routes, saved_pairs)
     read_counters("12", [(k, dt) for k in ("inc", "inc_sparse", "adj_ckpt")
                          for dt in (F32, F64)],
                   [(k, dt) for k in ("gen_stack", "inc_stack", "adj_gen",
@@ -1652,10 +1776,9 @@ def main():
         check(bool(out[1].abs().max() > 0) and bool(out[2].abs() > 0),
               f"[12] {name[dtype]}: zero gradient")
     del out12w
-    # the same float64 call on the full-stack routes (the gate's pair count
+    # the same float64 call on the full-stack routes (the gates' pair counts
     # set to 1), in turns with the sparse route; uncounted
-    saved_pairs = routes.CKPT_MIN_PAIRS
-    routes12 = {"sparse (K2-sparse -> K8)": (skt.RBFKernel, saved_pairs,
+    routes12 = {"sparse (K2-sparse -> K8)": (skt.RBFKernel, SPARSE_GATE,
                                              cuda_solver.CKPT_COUNTS),
                 "full, generator (K1-stack -> K3<gen> -> K4)":
                     (skt.RBFKernel, 1, cuda_gen.ADJOINT_COUNTS),
@@ -1665,7 +1788,7 @@ def main():
     res12 = {}
     for route in order:
         kern_cls, pairs, counts = routes12[route]
-        routes.CKPT_MIN_PAIRS = pairs
+        set_gates(routes, pairs)
         before = counts["float64"]
         out, sec, peak, base = score(kern_cls, X12, y12)
         check(counts["float64"] > before, f"[12] {route}: not taken")
@@ -1673,7 +1796,7 @@ def main():
         print(f"[12] float64 {route}: {sec:.3f} s, {pairs12 / sec:.3f} "
               f"path-pairs/s, peak memory allocated {peak} bytes ({base} "
               f"before the call) ({card})")
-    routes.CKPT_MIN_PAIRS = saved_pairs
+    set_gates(routes, saved_pairs)
     for route, out in res12.items():
         errs = [max_rel(g, w) for g, w in zip(out[1:], out12[1:])]
         print(f"[12] {route} vs the counted sparse run: value rel "
@@ -1685,7 +1808,7 @@ def main():
     torch.cuda.empty_cache()
 
     # the ckpt gate's crossover; uncounted
-    gate_sweep(gen, card, X64, Y64)
+    gate_sweep(gen, card, X64, Y64, GridRBF)
 
     # ---- kernel times beside their plain versions -----------------------
     timing = {}

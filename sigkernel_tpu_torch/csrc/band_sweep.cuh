@@ -6,10 +6,11 @@
 // generated from its paths, K3<gen> for f <= 32 (adjoint_collapse.cu), the
 // reverse sweep of that whole frame, and K8 for f <= 32 (adjoint_ckpt.cu),
 // the same reverse sweep over a base increment grid with the forward values
-// recomputed from the sparse stack (kBandCkpt, below). wavefront.cuh's
-// `sweep` (one block a pair, a barrier a diagonal) stays for K2, K3<inc>,
-// K5 and K6, and adjoint.cuh for K3<inc, boundary>, K3<gen> and K8 at f >
-// 32.
+// recomputed from the sparse stack (kBandCkpt, below), and K5
+// (deriv_wavefront.cu), whose sweep carries three states a cell (below).
+// wavefront.cuh's `sweep` (one block a pair, a barrier a diagonal) stays
+// for K2, K3<inc> and K6, and adjoint.cuh for K3<inc, boundary>, K3<gen>
+// and K8 at f > 32.
 //
 // Decomposition. The stripe's rows 1 .. rows (row 0 is the north boundary
 // bd) are cut into bands of kBandRows = 128 rows, one block of four warps a
@@ -146,7 +147,23 @@
 // H100 in double, where float ran up to 4 % slower. The band scratch and
 // counters are those of the other modes; no bound on rows or columns
 // applies.
+//
+// The state a cell (Src::State). Every source above sweeps one value a
+// cell, State = T. K5's DerivSource sweeps the derivative Gram's three,
+// Triple<T> = (K, K_diff, K_diffdiff), over three base grids whose
+// increments come as a Triple too: each register above (cur, nw, up, the
+// increments) holds one, the north values come by three shuffles, and the
+// hand-offs (ring and scratch) carry a Triple a column, its three values
+// side by side, so the ring is 3 x 256 values a warp and the scratch (P,
+// nbands - 1, C + 1, 3). Row 0 and column 0 are (1, 0, 0) (`lift`), and
+// each cell is `band_cell`: for T the scheme, for a Triple the scheme and
+// the product-rule recurrences of ops/scan_solver.py's
+// solve_derivatives_final in their op order. With State = T every helper
+// is the expression it replaces, so the one-value instances compile as
+// before.
 #pragma once
+
+#include <type_traits>
 
 #include "wavefront.cuh"
 
@@ -175,9 +192,101 @@ enum BandMode : int {
 template <typename T>
 constexpr bool kCkptInterleave = sizeof(T) == 4;
 
+// K5's state a cell: the kernel value and its first and second
+// directional derivatives.
 template <typename T>
+struct Triple {
+  T k, d, s;
+};
+
+// A value with zero derivatives, as the state type S holds it.
+template <typename S, typename T>
+__device__ __forceinline__ S lift(T v) {
+  if constexpr (std::is_same<S, T>::value) {
+    return v;
+  } else {
+    return S{v, T(0), T(0)};
+  }
+}
+
+// Lane src's value, and lane t - 1's (lane 0 keeps its own).
+template <typename T>
+__device__ __forceinline__ T shfl(T v, int src) {
+  return __shfl_sync(kFullMask, v, src);
+}
+template <typename T>
+__device__ __forceinline__ Triple<T> shfl(Triple<T> v, int src) {
+  return {shfl(v.k, src), shfl(v.d, src), shfl(v.s, src)};
+}
+template <typename T>
+__device__ __forceinline__ T shfl_up(T v) {
+  return __shfl_up_sync(kFullMask, v, 1);
+}
+template <typename T>
+__device__ __forceinline__ Triple<T> shfl_up(Triple<T> v) {
+  return {shfl_up(v.k), shfl_up(v.d), shfl_up(v.s)};
+}
+
+// Hand-off loads and stores, through volatile pointers.
+template <typename T>
+__device__ __forceinline__ T vload(const volatile T* p) {
+  return *p;
+}
+template <typename T>
+__device__ __forceinline__ Triple<T> vload(const volatile Triple<T>* p) {
+  return {p->k, p->d, p->s};
+}
+template <typename T>
+__device__ __forceinline__ void vstore(volatile T* p, T v) {
+  *p = v;
+}
+template <typename T>
+__device__ __forceinline__ void vstore(volatile Triple<T>* p, Triple<T> v) {
+  p->k = v.k;
+  p->d = v.d;
+  p->s = v.s;
+}
+
+// One cell from its north-west, north and west neighbours and its
+// increment: the scheme; for K5's Triple the scheme for K and the
+// product-rule recurrences f1..f4 / g1..g4 for the derivatives, in the op
+// order of ops/scan_solver.py's solve_derivatives_final (order 2 only).
+template <typename T>
+__device__ __forceinline__ T band_cell(T nw, T n, T w, T u, bool naive) {
+  return scheme(nw, n, w, u, naive);
+}
+template <typename T>
+__device__ __forceinline__ Triple<T> band_cell(Triple<T> nw, Triple<T> n,
+                                               Triple<T> w, Triple<T> inc,
+                                               bool) {
+  const T k00 = nw.k, k01 = n.k, k10 = w.k;
+  const T d00 = nw.d, d01 = n.d, d10 = w.d;
+  const T s00 = nw.s, s01 = n.s, s10 = w.s;
+  const T u = inc.k, ud = inc.d, us = inc.s;
+
+  const T k = scheme(k00, k01, k10, u, false);
+
+  const T f1 = add(mul(k00, ud), mul(d00, u));
+  const T f2 = add(mul(k01, ud), mul(d01, u));
+  const T f3 = add(mul(k10, ud), mul(d10, u));
+  const T dsum = sub(add(d01, d10), d00);
+  const T f4 = add(mul(k, ud), mul(add(dsum, f1), u));
+  const T d = add(dsum, mul(T(0.25), add(add(add(f1, f2), f3), f4)));
+
+  const T two = T(2);
+  const T g1 = add(add(mul(k00, us), mul(mul(two, d00), ud)), mul(s00, u));
+  const T g2 = add(add(mul(k01, us), mul(mul(two, d01), ud)), mul(s01, u));
+  const T g3 = add(add(mul(k10, us), mul(mul(two, d10), ud)), mul(s10, u));
+  const T ssum = sub(add(s01, s10), s00);
+  const T g4 = add(add(mul(k, us), mul(mul(two, d), ud)),
+                   mul(add(ssum, g1), u));
+  const T s = add(ssum, mul(T(0.25), add(add(add(g1, g2), g3), g4)));
+  return {k, d, s};
+}
+
+template <typename S>
 struct BandShared {
-  T ring[kBandWarps - 1][kRing];
+  S ring[kBandWarps - 1][kRing];
   int ready[kBandWarps - 1];     // chunks warp w has published to warp w + 1
   int consumed[kBandWarps - 1];  // chunks warp w + 1 has loaded
   int ticket;
@@ -235,6 +344,7 @@ __host__ __device__ constexpr int log2_of(int f) {
 // arithmetic; a stripe from a north boundary.
 template <typename T>
 struct GridSource {
+  using State = T;
   static constexpr bool kStripe = true;
   static constexpr bool kAligned = false;  // read at each lane's wrap
   static constexpr int kStage = 32;  // kBandAdjoint's stage, in steps
@@ -264,6 +374,44 @@ struct GridSource {
     return Lane{inc + pair * static_cast<int64_t>(Mb) * Nb, ra, Nb,
                 transpose ? Mb : Nb, flip, transpose, has_inc,
                 T(1) / T(f * f)};
+  }
+};
+
+// K5's source: three base grids (P, Mb, Nb), the derivative Gram's
+// increments of K, K_diff and K_diffdiff, each read with GridSource's
+// arithmetic (zero past the frame, transposed when Mb > Nb, the exact 1 /
+// f^2) over the whole frame from 1s, the three values of a base cell asked
+// together a whole base column ahead of their use.
+template <typename T>
+struct DerivSource {
+  using State = Triple<T>;
+  static constexpr bool kStripe = false;
+  static constexpr bool kAligned = false;  // read at each lane's wrap
+  static constexpr int kStage = 32;  // unused: no adjoint mode
+  const T* inc;
+  const T* inc_d;
+  const T* inc_dd;
+
+  struct Lane {
+    const T *g, *gd, *gs;
+    int ra, Nb, Cb, transpose;
+    bool has_inc;
+    T scale;
+    __device__ __forceinline__ State col(int q) {
+      if (!has_inc || q >= Cb) return {T(0), T(0), T(0)};
+      const int64_t at = transpose ? static_cast<int64_t>(q) * Nb + ra
+                                   : static_cast<int64_t>(ra) * Nb + q;
+      return {__ldg(g + at) * scale, __ldg(gd + at) * scale,
+              __ldg(gs + at) * scale};
+    }
+  };
+
+  __device__ __forceinline__ Lane lane(int64_t pair, int ra, bool has_inc,
+                                       int Mb, int Nb, int f, int) const {
+    const int transpose = Mb > Nb;
+    const int64_t off = pair * static_cast<int64_t>(Mb) * Nb;
+    return Lane{inc + off, inc_d + off, inc_dd + off, ra, Nb,
+                transpose ? Mb : Nb, transpose, has_inc, T(1) / T(f * f)};
   }
 };
 
@@ -379,6 +527,7 @@ struct CkptWarp {
 // base grids (P, Mb, Nb)); bd, bottom: (P, C + 1) (a whole frame: no bd,
 // bottom (P,) the corners); stack: (P, rows + C + 1, rows + 1), written
 // with kBandStack, read with kBandAdjoint; scratch: (P, nbands - 1, C + 1);
+// bd, bottom and scratch hold Src::State values (K5: Triples);
 // counters: P * nbands progress counters then the ticket, all zero at
 // launch; ct (kBandAdjoint): (P, Mb, Nb). Mb, Nb: the base frame in the
 // pairs' own orientation, which sets ct's (K1 passes its oriented frame,
@@ -389,16 +538,18 @@ struct CkptWarp {
 // C, src.W), rows + 1) and Src a CkptSource.
 template <typename T, int kMode, int kF = 1, typename Src = GridSource<T>>
 __global__ void __launch_bounds__(kBandRows)
-band_stripe(const Src src, const T* __restrict__ bd,
-            T* __restrict__ bottom, T* __restrict__ stack, T* scratch,
-            int* counters, T* __restrict__ ct, int64_t P, int nbands, int Mb,
-            int Nb, int f, int row0, int rows, int flip, int naive) {
+band_stripe(const Src src, const typename Src::State* __restrict__ bd,
+            typename Src::State* __restrict__ bottom, T* __restrict__ stack,
+            typename Src::State* scratch, int* counters, T* __restrict__ ct,
+            int64_t P, int nbands, int Mb, int Nb, int f, int row0, int rows,
+            int flip, int naive) {
+  using S = typename Src::State;
   constexpr bool kStack = kMode == kBandStack;
   constexpr bool kCkpt = kMode == kBandCkpt;
   constexpr bool kAdjoint = kMode == kBandAdjoint || kCkpt;
   constexpr bool kStripe = Src::kStripe;  // else a whole frame from 1s
   constexpr int kStage = Src::kStage;
-  __shared__ BandShared<T> sh;
+  __shared__ BandShared<S> sh;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (threadIdx.x < kBandWarps - 1) {
@@ -419,7 +570,7 @@ band_stripe(const Src src, const T* __restrict__ bd,
   const int Cb = C / f;
   const int i = i0 + lane;
   const bool live = i <= rows;
-  const T* bd_p = kStripe ? bd + pair * (C + 1) : nullptr;
+  const S* bd_p = kStripe ? bd + pair * (C + 1) : nullptr;
 
   // this row's base increments, in the order the sweep meets them
   int r = flip ? rows - i : i - 1;
@@ -430,7 +581,7 @@ band_stripe(const Src src, const T* __restrict__ bd,
 
   // where the north values come from: bd, the ring of the warp above, or
   // the global row of the band above
-  const volatile T* north = nullptr;  // none: row 0 of a whole frame, 1s
+  const volatile S* north = nullptr;  // none: row 0 of a whole frame, 1s
   const volatile int* north_ready = nullptr;
   bool north_ring = false;
   if (warp > 0) {
@@ -448,13 +599,15 @@ band_stripe(const Src src, const T* __restrict__ bd,
   const int bottom_lane = rows - i0 < 32 ? rows - i0 : -1;
   const int out_lane = bottom_lane < 0 ? 31 : kAdjoint ? -1 : bottom_lane;
   const bool out_ring = bottom_lane < 0 && warp < kBandWarps - 1;
-  T* out = bottom_lane >= 0
+  S* out = bottom_lane >= 0
                ? (kAdjoint || !kStripe ? nullptr : bottom + pair * (C + 1))
            : out_ring ? nullptr
                       : scratch + (pair * (nbands - 1) + band) * (C + 1);
   int* out_ready = bottom_lane >= 0 || out_ring
                        ? nullptr : counters + pair * nbands + band;
-  if (kStripe && bottom_lane >= 0 && lane == out_lane) out[0] = T(1);
+  if (kStripe && bottom_lane >= 0 && lane == out_lane) {
+    out[0] = lift<S>(T(1));
+  }
 
   int W = 0;  // kBandCkpt's window
   if constexpr (kCkpt) W = src.W;
@@ -532,14 +685,14 @@ band_stripe(const Src src, const T* __restrict__ bd,
   [[maybe_unused]] int e_cur = rows + C;
   [[maybe_unused]] const T* fwd = nullptr;
 
-  T cur = T(1);                         // K[i][c - 1]; column 0 is 1
+  S cur = lift<S>(T(1));                // K[i][c - 1]; column 0 is 1
   // K[i - 1][c - 1] (lane 0's start; bd[0] is the west corner, 1)
-  T nw = kStripe && i == 1 ? bd_p[0] : T(1);
-  T up = T(0);                          // lane j: north of column s + j
-  T u = incs.col(0), u_next = incs.col(1);
+  S nw = kStripe && i == 1 ? bd_p[0] : lift<S>(T(1));
+  S up = lift<S>(T(0));                 // lane j: north of column s + j
+  S u = incs.col(0), u_next = incs.col(1);
   // Src::kAligned: the lanes generate together, on the steps that are
   // multiples of f, the column after u_next into u_more (see above)
-  T u_more = T(0);
+  S u_more = lift<S>(T(0));
   bool more = false;
   int q = 0, m = 0;                     // base column, refined within it
   for (int s = 1; s <= C + 31; ++s) {
@@ -572,9 +725,9 @@ band_stripe(const Src src, const T* __restrict__ bd,
         if (north_ring) __threadfence_block(); else __threadfence();
       }
       const int c = s + lane;
-      up = c > C ? T(0)
-           : north_ring ? north[(c - 1) & (kRing - 1)]
-           : kStripe || north != nullptr ? north[c] : T(1);
+      up = c > C ? lift<S>(T(0))
+           : north_ring ? vload(north + ((c - 1) & (kRing - 1)))
+           : kStripe || north != nullptr ? vload(north + c) : lift<S>(T(1));
       if (north_ring) {
         __syncwarp();
         if (lane == 0) {
@@ -589,13 +742,13 @@ band_stripe(const Src src, const T* __restrict__ bd,
         wait_async<1>();
       }
     }
-    const T from_up = __shfl_sync(kFullMask, up, j);
-    T n = __shfl_up_sync(kFullMask, cur, 1);
+    const S from_up = shfl(up, j);
+    S n = shfl_up(cur);
     if (lane == 0) n = from_up;
     const int c = s - lane;
     T term = T(0);
     if (c >= 1 && c <= C) {
-      const T v = scheme(nw, n, cur, u, naive != 0);
+      const S v = band_cell(nw, n, cur, u, naive != 0);
       if constexpr (kCkpt) {
         if (has_inc) term = mul(fwd[(rows + C - i0 - s - e_cur) * 32], nw);
       } else if constexpr (kAdjoint) {
@@ -623,17 +776,17 @@ band_stripe(const Src src, const T* __restrict__ bd,
         const int k = (c - 1) / kChunk;
         const bool last = (c & (kChunk - 1)) == 0 || c == C;
         if (out_ring) {
-          volatile T* ring = sh.ring[warp];
+          volatile S* ring = sh.ring[warp];
           if (((c - 1) & (kChunk - 1)) == 0 && k >= kRingChunks) {
             wait_for(sh.consumed + warp, k - kRingChunks + 1);
           }
-          ring[(c - 1) & (kRing - 1)] = v;
+          vstore(ring + ((c - 1) & (kRing - 1)), v);
           if (last) {
             __threadfence_block();
             *(volatile int*)(sh.ready + warp) = k + 1;
           }
         } else if (kStripe || out != nullptr) {
-          *(volatile T*)(out + c) = v;
+          vstore(static_cast<volatile S*>(out + c), v);
           if (last && out_ready != nullptr) {
             __threadfence();
             *(volatile int*)out_ready = k + 1;

@@ -82,6 +82,7 @@ struct RbfGen {
 // increment, rounds exactly as RbfGen::inc and gen_increments round it.
 template <typename T, int kD>
 struct RbfSource {
+  using State = T;
   static constexpr bool kStripe = false;  // the whole frame, from 1s
   static constexpr bool kAligned = true;  // generated on uniform steps
   static constexpr int kStage = 16;  // kBandAdjoint's stage, in steps

@@ -110,11 +110,12 @@ _SIGNATURES = {
                           _D, _I, _P],
     "sk_rbf_dd_vjp_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                           _D, _I, _P],
-    # inc, inc_d, inc_dd, out_k, out_d, out_s, P, Mb, Nb, f, device, stream
+    # inc, inc_d, inc_dd, out, scratch, counters, P, Mb, Nb, f, nbands,
+    # device, stream
     "sk_deriv_wavefront_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                               _P],
+                               _I, _P],
     "sk_deriv_wavefront_f64": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
-                               _P],
+                               _I, _P],
     # rows, cols, ri, ci, out, P, Lr, Lc, D, f, naive, device, stream
     "sk_linear_gen_wavefront_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                                     _I, _I, _P],

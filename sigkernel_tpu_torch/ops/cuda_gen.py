@@ -342,8 +342,9 @@ def _oriented(X, Y, ii, jj, dyadic_order, what, bounded=False):
 def gen_chunk(P: int, R: int, C: int, itemsize: int) -> int:
     """Pairs a K1 launch: all ``P`` while one band holds the frame's ``R``
     rows (no scratch), else as many as keep the bands' hand-off scratch
-    and the launch's counters (an int a block, and the ticket) within
-    :data:`SCRATCH_BYTES` (at least one)."""
+    (``itemsize`` bytes a column of a hand-off row: K5 passes its three
+    values') and the launch's counters (an int a block, and the ticket)
+    within :data:`SCRATCH_BYTES` (at least one)."""
     nbands = -(-R // cuda_blocked.BAND_ROWS)
     if nbands <= 1:
         return max(P, 1)

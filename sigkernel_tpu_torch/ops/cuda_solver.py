@@ -25,8 +25,8 @@ every :data:`CKPT_WINDOW` diagonals (the ckpt output of
 (:func:`inc_adjoint_ckpt`, ``csrc/adjoint_ckpt.cu``) replaces
 ``pallas_adjoint.py``'s ``_product_ckpt_kernel``: K3<inc> with the skipped
 forward diagonals recomputed in-kernel, window by window, bit for bit as
-the forward computed them. The pair serves the backward when full stacks
-would not fill the card (``routes.resolve_inc_tier``). K8 has two kernels,
+the forward computed them. The pair serves the backward when a chunk
+would hold too few full stacks (the ckpt gate, ``routes.resolve_inc_tier``). K8 has two kernels,
 chosen by shape (:func:`ckpt_kernel`): while a base row's ``f`` refined rows
 fit one warp (``f <= 32``) and a window's halo of ``W - 2`` rows fits one
 (``W <= 34``), the band-pipelined wavefront of ``csrc/band_sweep.cuh``

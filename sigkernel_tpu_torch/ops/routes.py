@@ -24,7 +24,8 @@ family    computation                            kernels (forward; adjoint)
 
 The generators (``gen``, ``lgen``) hold only while the shorter refined side
 fits one block (:func:`._build.max_rows`) and, when a gradient is wanted,
-while the full stacks of one backward chunk fill the card (the ckpt gate,
+while one backward chunk holds enough full stacks (the ckpt gates,
+:data:`GEN_CKPT_MIN_PAIRS` and :data:`CKPT_MIN_PAIRS`, by
 :func:`resolve_inc_tier`); otherwise the tile takes ``inc``, as JAX's RBF
 route leaves the generator past its gates (``sigkernel.py:290-316``). With
 a gradient, the ``inc`` family builds each chunk's increment grid and drops
@@ -46,13 +47,11 @@ Every decision is made from shapes before any launch; nothing catches a
 kernel's failure to try another route. The memory policy is here too:
 :data:`STACK_BYTES` bounds what one chunk of pairs keeps alive
 (:func:`tier_bytes` a pair, :func:`chunk_pairs` pairs a chunk), and
-:data:`CKPT_MIN_PAIRS` is the ckpt gate.
+:data:`CKPT_MIN_PAIRS` and :data:`GEN_CKPT_MIN_PAIRS` are the ckpt gates.
 
 The derivative Gram (:func:`resolve_derivatives`) has its own two routes:
-``cuda``, K5 ``cuda_deriv`` (forward only, within its shared-memory row
-bound), and ``scan``, the plain triple sweep, which autograd
-differentiates and which ``"auto"`` takes past K5's bound, as JAX's
-``sig_kernel_and_derivatives_gram`` leaves Pallas for its scan tier.
+``cuda``, K5 ``cuda_deriv`` (forward only, at any length), and ``scan``, the
+plain triple sweep, which autograd differentiates.
 
 The backward's dtype (``grad_solver``): ``"auto"`` and ``"df64"`` give
 gradients at the input precision (on Hopper, ``df64`` is native double);
@@ -68,7 +67,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, cuda_blocked, cuda_deriv, cuda_solver
+from . import _build, cuda_blocked, cuda_solver
 from .. import kernels as _kernels
 
 SOLVERS = ("auto", "scan", "cuda")
@@ -81,14 +80,23 @@ GRAD_SOLVERS = ("auto", "f32", "df64")
 # what one chunk of pairs keeps alive: its forward stacks, and separately
 # the increment grids it builds
 STACK_BYTES = 8 << 30
-# the ckpt gate: full stacks while a chunk holds at least this many pairs'
-# (one block a pair on the H100's 132 SMs when it was set); the sparse
-# stack (K2-sparse, K8) otherwise. chip_smoke.py phase 12's gate sweep
-# times both routes at 17-128 full stacks a chunk; with K3<gen> and K8 on
-# the band kernel the full route is the faster at each of its points on an
-# H100 80GB HBM3 at 700 W (the ratios: PERF.md section 5), so the gate is
-# due to be reset from that sweep.
+# the ckpt gates: a full backward while a chunk holds at least this many
+# pairs' full stacks; the sparse stack (K2-sparse, K8) otherwise. Each full
+# backward has its own gate, as chip_smoke.py phase 12 times each against
+# the sparse route (f64, dyadic 2; PERF.md section 5, on an H100 80GB HBM3
+# at 700 W).
+# CKPT_MIN_PAIRS: K2-stack -> K3<inc> (the inc family and lgen). K3<inc> is
+# one block a pair, so the gate asks for a chunk that fills the card's 132
+# SMs. The sweep found the sparse route the faster even so, at every point
+# to 128 full stacks a chunk (1.2-1.5x at 128, about 3x at 32): the gate is
+# too low, and is kept until K3<inc> is redesigned and swept past 128.
 CKPT_MIN_PAIRS = 128
+# GEN_CKPT_MIN_PAIRS: K1-stack -> K3<gen> -> K4 (the gen family), whose band
+# kernels fill the card at any pair count: the gate sweep found it the
+# faster at every point, 5 to 128 full stacks a chunk (by 1.16-2.83x), at a
+# lower peak. So the gate is the smallest point measured; below it (grids
+# whose C far exceeds R) the tile takes inc, on the sparse route, unmeasured.
+GEN_CKPT_MIN_PAIRS = 5
 # base grids a pair that building one increment grid keeps alive: the
 # kernel's exponent and its exp (saved for autograd), the double difference
 GRID_COPIES = 3
@@ -165,7 +173,8 @@ def chunk_pairs(P: int, per_pair: int) -> int:
     return max(1, min(P, STACK_BYTES // per_pair))
 
 
-def resolve_inc_tier(shape, itemsize: int, backward: bool = False) -> str:
+def resolve_inc_tier(shape, itemsize: int, backward: bool = False,
+                     min_pairs: int | None = None) -> str:
     """The ``inc`` family's tier for a refined ``(MM, NN)`` grid of
     ``itemsize``-byte values: forward ``"single"`` (K2) or ``"stripes"``
     (K7); backward ``"full"`` (K2-stack, K3<inc>), ``"ckpt"`` (K2-sparse,
@@ -173,15 +182,17 @@ def resolve_inc_tier(shape, itemsize: int, backward: bool = False) -> str:
 
     The ckpt gate is capacity only, as JAX's is (``ops/solve.py:386-395``):
     the full stack is taken while :data:`STACK_BYTES` holds at least
-    :data:`CKPT_MIN_PAIRS` pairs' full stacks, or for a length-1 path,
-    which stores nothing.
+    ``min_pairs`` pairs' full stacks (:data:`CKPT_MIN_PAIRS` when not
+    given), or for a length-1 path, which stores nothing.
     """
     if min(shape) > _build.max_rows(itemsize):
         return "striped" if backward else "stripes"
     if not backward:
         return "single"
+    if min_pairs is None:
+        min_pairs = CKPT_MIN_PAIRS
     if (min(shape) == 0 or STACK_BYTES // tier_bytes("full", shape, itemsize)
-            >= CKPT_MIN_PAIRS):
+            >= min_pairs):
         return "full"
     return "ckpt"
 
@@ -213,7 +224,9 @@ def resolve_family(static_kernel, device_type: str, solver: str,
       increment grid (``static_kernel=None``). Given the tile's refined
       ``shape`` ``(MM, NN)``, a generator holds only while the shorter side
       is within the row bound in ``dtype`` and, with ``need_grad``, while
-      the backward (in the grade's dtype) takes the ``"full"`` tier;
+      the backward (in the grade's dtype) takes the ``"full"`` tier at the
+      family's gate (:data:`GEN_CKPT_MIN_PAIRS` for ``"gen"``,
+      :data:`CKPT_MIN_PAIRS` for ``"lgen"``, whose backward is K3<inc>);
       otherwise the tile takes ``"inc"``.
     - Other devices: ``"auto"`` takes the plain tier; ``"cuda"`` raises.
 
@@ -233,10 +246,11 @@ def resolve_family(static_kernel, device_type: str, solver: str,
         return "inc"
     if shape is None:
         return family
+    gate = GEN_CKPT_MIN_PAIRS if family == "gen" else CKPT_MIN_PAIRS
     if resolve_inc_tier(shape, dtype.itemsize) != "single" or (
             need_grad and resolve_inc_tier(
                 shape, _bwd_dtype(dtype, grad_solver).itemsize,
-                backward=True) != "full"):
+                backward=True, min_pairs=gate) != "full"):
         return "inc"
     return family
 
@@ -244,23 +258,13 @@ def resolve_family(static_kernel, device_type: str, solver: str,
 def resolve_derivatives(device_type: str, solver: str, needs_grad: bool,
                         shape, itemsize: int) -> str:
     """The derivative Gram's route for a refined ``(MM, NN)`` grid of
-    ``itemsize``-byte values: ``"cuda"`` (K5) for CUDA tensors while the
-    shorter side is within :func:`.cuda_deriv.max_rows`, ``"scan"`` on the
-    CPU, when asked, or under ``"auto"`` past K5's bound (JAX takes its scan
-    tier there, ``sigkernel.py:935-939``); ``solver="cuda"`` past the bound
-    raises. K5 is forward only, as the JAX package's Pallas tier is:
-    ``needs_grad`` (an input requires a gradient) on the ``"cuda"`` route
-    raises rather than return a detached value."""
+    ``itemsize``-byte values: ``"cuda"`` (K5) for CUDA tensors, at any
+    shape and itemsize (K5 holds nothing of the grid in shared memory, so
+    no row bound applies, unlike JAX's Pallas tier, ``sigkernel.py:935-939``);
+    ``"scan"`` on the CPU or when asked. K5 is forward only, as the JAX
+    package's Pallas tier is: ``needs_grad`` (an input requires a gradient)
+    on the ``"cuda"`` route raises rather than return a detached value."""
     if _plain_tier(device_type, solver):
-        return "scan"
-    bound = cuda_deriv.max_rows(itemsize)
-    if min(shape) > bound:
-        if solver == "cuda":
-            raise ValueError(
-                f"solver='cuda': the derivative Gram's refined grid {shape[0]}"
-                f" x {shape[1]} has a shorter side past K5's bound of {bound} "
-                f"rows ({itemsize}-byte values); solver='auto' takes the "
-                "plain sweep there")
         return "scan"
     if needs_grad:
         raise ValueError("the derivative Gram's CUDA route (K5) is forward "

@@ -125,15 +125,40 @@ def solve_stripe_grid(inc: torch.Tensor, bd: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def derivative_cell(nw, n, w, inc):
+    """One cell of the triple sweep: ``(K, K_diff, K_diffdiff)`` from the
+    triples of its north-west, north and west neighbours and its three
+    increments ``(u, ud, us)``, each unpacked along its first axis. ``K``
+    takes the order-2 scheme, the derivatives the product-rule recurrences
+    f1..f4 / g1..g4 in this op order (K5 rounds as this does)."""
+    (k00, d00, s00), (k01, d01, s01), (k10, d10, s10) = nw, n, w
+    u, ud, us = inc
+    k = _update_order2(k00, k01, k10, u)
+
+    f1 = k00 * ud + d00 * u
+    f2 = k01 * ud + d01 * u
+    f3 = k10 * ud + d10 * u
+    dsum = d01 + d10 - d00
+    f4 = k * ud + (dsum + f1) * u
+    d = dsum + 0.25 * (f1 + f2 + f3 + f4)
+
+    g1 = k00 * us + 2.0 * d00 * ud + s00 * u
+    g2 = k01 * us + 2.0 * d01 * ud + s01 * u
+    g3 = k10 * us + 2.0 * d10 * ud + s10 * u
+    ssum = s01 + s10 - s00
+    g4 = k * us + 2.0 * d * ud + (ssum + g1) * u
+    s = ssum + 0.25 * (g1 + g2 + g3 + g4)
+    return k, d, s
+
+
 def solve_derivatives_final(inc: torch.Tensor, inc_d: torch.Tensor,
                             inc_dd: torch.Tensor):
     """Sweep ``(K, K_diff, K_diffdiff)`` over refined increment grids
     ``(..., MM, NN)`` of the kernel and its first and second directional
     derivatives; returns the three corners, each with the batch shape.
 
-    ``K`` takes the order-2 scheme; the derivative states take the
-    product-rule recurrences f1..f4 / g1..g4 of
-    :func:`sigkernel_tpu.ops.scan_solver.solve_derivatives_final`, in its op
+    Each cell is :func:`derivative_cell`, the recurrences of
+    :func:`sigkernel_tpu.ops.scan_solver.solve_derivatives_final` in its op
     order (the K5 kernel rounds as this loop does). Boundary ``K = 1``,
     ``K_diff = K_diffdiff = 0``; a length-1 path gives ``(1, 0, 0)``. Each
     diagonal is a new tensor (no in-place update), so autograd
@@ -152,26 +177,11 @@ def solve_derivatives_final(inc: torch.Tensor, inc_d: torch.Tensor,
     for p in range(2, MM + NN + 1):
         lo, hi = max(1, p - NN), min(MM, p - 1)
         i = rows[lo:hi + 1]
-        u, ud, us = (g[:, i - 1, p - 1 - i] for g in flat)
-        k00, k01, k10 = k2[:, lo - 1:hi], k1[:, lo - 1:hi], k1[:, lo:hi + 1]
-        d00, d01, d10 = d2[:, lo - 1:hi], d1[:, lo - 1:hi], d1[:, lo:hi + 1]
-        s00, s01, s10 = s2[:, lo - 1:hi], s1[:, lo - 1:hi], s1[:, lo:hi + 1]
-
-        k = _update_order2(k00, k01, k10, u)
-
-        f1 = k00 * ud + d00 * u
-        f2 = k01 * ud + d01 * u
-        f3 = k10 * ud + d10 * u
-        dsum = d01 + d10 - d00
-        f4 = k * ud + (dsum + f1) * u
-        d = dsum + 0.25 * (f1 + f2 + f3 + f4)
-
-        g1 = k00 * us + 2.0 * d00 * ud + s00 * u
-        g2 = k01 * us + 2.0 * d01 * ud + s01 * u
-        g3 = k10 * us + 2.0 * d10 * ud + s10 * u
-        ssum = s01 + s10 - s00
-        g4 = k * us + 2.0 * d * ud + (ssum + g1) * u
-        s = ssum + 0.25 * (g1 + g2 + g3 + g4)
+        k, d, s = derivative_cell(
+            (k2[:, lo - 1:hi], d2[:, lo - 1:hi], s2[:, lo - 1:hi]),
+            (k1[:, lo - 1:hi], d1[:, lo - 1:hi], s1[:, lo - 1:hi]),
+            (k1[:, lo:hi + 1], d1[:, lo:hi + 1], s1[:, lo:hi + 1]),
+            [g[:, i - 1, p - 1 - i] for g in flat])
 
         # rows outside lo..hi: the boundary values (row 0 and row p are
         # the grid's boundary; the others are never read)

@@ -539,10 +539,9 @@ def sig_kernel_and_derivatives_gram(static_kernel, X, Y, gamma,
     K_diff, K_diffdiff)`` in the input dtype. ``max_batch`` tiles the
     ``(bx, by)`` pair grid, ``max_batch**2`` pairs (three grids each) at a
     time. The route (:func:`.ops.routes.resolve_derivatives`): K5 for CUDA
-    tensors within its row bound, forward only (an input that requires a
-    gradient raises there); the plain sweep on the CPU, with
-    ``solver="scan"`` or, under ``"auto"``, past K5's bound, differentiable
-    by autograd.
+    tensors at any length, forward only (an input that requires a gradient
+    raises there); the plain sweep on the CPU or with ``solver="scan"``,
+    differentiable by autograd.
     """
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (X, Y, gamma) + _hyper(static_kernel))

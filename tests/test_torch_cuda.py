@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 forward kernels K1 and K2, their stack-emitting instances, the adjoint K3
 (gen and inc sources), the increment-chain VJP K4, the derivative Gram's
-triple wavefront K5, the Linear generator K6, K1 and K1-stack at the edges
-of their band decomposition and in launches split by the scratch bound,
+triple wavefront K5 (its band kernel, past the earlier row bound too), the
+Linear generator K6, K1 and K1-stack at the edges of their band
+decomposition and in launches split by the scratch bound,
 K3<gen> on its band kernel at the edges of the band decomposition and
 on its one-block kernel past f = 32, the stripe kernels K7,
 K7-stack and K3<inc, boundary> (its band kernel, and its one-block kernel
@@ -261,9 +262,12 @@ DERIV_BAR = {torch.float64: 1e-9, torch.float32: 1e-3}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dyadic", [0, 1, 2])
-@pytest.mark.parametrize("Mb,Nb", [(9, 19), (19, 9), (16, 16), (1, 7)])
+@pytest.mark.parametrize("dyadic", [0, 1, 2, 5, 6])
+@pytest.mark.parametrize("Mb,Nb", [(9, 19), (19, 9), (16, 16), (1, 7),
+                                   (130, 70), (33, 140)])
 def test_deriv_kernel_matches_plain(cuda, dtype, dyadic, Mb, Nb):
+    """K5's band kernel, bit for bit its plain version: one band to many
+    (R up to 4,480 at dyadic 5 and 6), both frames, a short last band."""
     gen = torch.Generator().manual_seed(Mb * 100 + Nb + dyadic)
     grids = [(0.3 * torch.randn(5, Mb, Nb, generator=gen, dtype=torch.float64)
               ).to(dtype).to(cuda) for _ in range(3)]
@@ -274,18 +278,18 @@ def test_deriv_kernel_matches_plain(cuda, dtype, dyadic, Mb, Nb):
     assert _rel(got[0], want[0]) <= RTOL[dtype]
     for g, w in zip(got[1:], want[1:]):
         assert _max_rel(g, w) <= DERIV_BAR[dtype]
+        assert torch.equal(g, w)
+    assert torch.equal(got[0], want[0])
 
 
-def test_deriv_kernel_bound_and_refusals(cuda):
-    bound = cuda_deriv.max_rows(8)  # a multiple of 4
-    assert bound >= 4092
-    at = torch.zeros(1, bound // 4, bound // 4 + 1, dtype=torch.float64,
-                     device=cuda)
-    past = torch.zeros(1, bound // 4 + 1, bound // 4 + 1,
-                       dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError, match=f"{bound} rows"):
-        cuda_deriv.deriv_solve_final(past, past, past, dyadic_order=2)
-    k, d, s = cuda_deriv.deriv_solve_final(at, at, at, dyadic_order=2)
+def test_deriv_kernel_has_no_row_bound_and_refuses(cuda):
+    """Past the earlier one-block kernel's 4,840 rows (double) K5 runs its
+    band kernel: zero grids give (1, 0, 0) at 8,184 rows; gradients are
+    refused (forward only)."""
+    past = torch.zeros(1, 1023, 1023, dtype=torch.float64, device=cuda)
+    before = cuda_deriv.COUNTS["float64"]
+    k, d, s = cuda_deriv.deriv_solve_final(past, past, past, dyadic_order=3)
+    assert cuda_deriv.COUNTS["float64"] == before + 1
     assert (float(k), float(d), float(s)) == (1.0, 0.0, 0.0)  # zero grids
     x = _paths(2, 6, 2, 17, cuda, torch.float64).requires_grad_()
     with pytest.raises(ValueError, match="forward only"):
@@ -689,14 +693,15 @@ def test_band_ckpt_matches_plain(cuda, monkeypatch, dtype):
 def test_long_path_routes_on_card_match_plain_tier(cuda, monkeypatch, tier,
                                                    dtype):
     """Values and gradients of the estimators on the stripe routes (the row
-    bound patched down to 12 rows) and on the sparse-checkpoint route (the
-    gate's pair count patched up) against solver='scan'."""
+    bound patched down to 12 rows) and on the sparse-checkpoint route (both
+    gates' pair counts patched up) against solver='scan'."""
     if tier == "stripes":
         monkeypatch.setattr(_build, "max_rows", lambda itemsize: 12)
         counts = [cuda_blocked.COUNTS, cuda_blocked.STACK_COUNTS,
                   cuda_blocked.ADJOINT_COUNTS]
     else:
         monkeypatch.setattr(routes, "CKPT_MIN_PAIRS", 1 << 40)
+        monkeypatch.setattr(routes, "GEN_CKPT_MIN_PAIRS", 1 << 40)
         counts = [cuda_solver.SPARSE_COUNTS, cuda_solver.CKPT_COUNTS]
     key = str(dtype).removeprefix("torch.")
     before = [c[key] for c in counts]
@@ -728,6 +733,8 @@ def test_long_path_routes_resolve_by_shape(cuda):
     assert routes.resolve_inc_tier((past, past), 8, backward=True) == (
         "striped")
     assert routes.resolve_inc_tier((4092, 4092), 8, backward=True) == "ckpt"
+    assert routes.resolve_family(skt.RBFKernel(1.0), "cuda", "auto",
+                                 shape=(4092, 4092), need_grad=True) == "gen"
     assert routes.resolve_inc_tier((2046, 2046), 8, backward=True) == "full"
     assert routes.resolve_family(skt.RBFKernel(1.0), "cuda", "auto",
                                  shape=(past, past)) == "inc"

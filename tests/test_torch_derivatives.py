@@ -198,9 +198,10 @@ def test_estimator_passes_the_refined_shape_and_itemsize(rng, monkeypatch,
                                                          dtype, dyadic):
     """``sig_kernel_and_derivatives_gram`` asks the resolver with the
     refined shape ``((Lx - 1) 2^d, (Ly - 1) 2^d)`` and the inputs'
-    itemsize; routed as if on CUDA past K5's bound (the bound patched to 3
-    rows) under "auto", it takes the plain sweep, launches nothing of K5 and
-    returns the scan tier's value, with a gradient too; "cuda" raises."""
+    itemsize; routed as if on CUDA, it takes K5's wrapper (here its plain
+    version, the tensors being on the CPU) at every shape, equal to
+    ``solver="scan"``; with a gradient it raises (K5 is forward only) under
+    "auto" and "cuda" alike."""
     seen = []
     resolve = routes.resolve_derivatives
 
@@ -209,36 +210,23 @@ def test_estimator_passes_the_refined_shape_and_itemsize(rng, monkeypatch,
         return resolve("cuda", solver, grad, shape, itemsize)
 
     monkeypatch.setattr(routes, "resolve_derivatives", spy)
-    monkeypatch.setattr(cuda_deriv, "max_rows", lambda itemsize: 3)
     X, Y, G = (torch.tensor(a, dtype=dtype) for a in _inputs(rng, 3))
     X = X[:, :5]
     G = G[:, :5]
-    before = dict(cuda_deriv.COUNTS)
-    x = X.clone().requires_grad_()
-    got = skt.sig_kernel_and_derivatives_gram(skt.RBFKernel(0.6), x, Y, G,
+    before = cuda_deriv.COUNTS["plain"]
+    got = skt.sig_kernel_and_derivatives_gram(skt.RBFKernel(0.6), X, Y, G,
                                               dyadic_order=dyadic)
     f = 2 ** dyadic
     assert seen == [((4 * f, (Y.shape[1] - 1) * f), dtype.itemsize)]
-    assert cuda_deriv.COUNTS == before
-    sum(t.sum() for t in got).backward()
-    assert torch.isfinite(x.grad).all()
+    assert cuda_deriv.COUNTS["plain"] == before + 1  # K5's wrapper, one tile
+    for solver in ("auto", "cuda"):
+        with pytest.raises(ValueError, match="forward only"):
+            skt.sig_kernel_and_derivatives_gram(
+                skt.RBFKernel(0.6), X.clone().requires_grad_(), Y, G,
+                dyadic_order=dyadic, solver=solver)
     monkeypatch.undo()
     want = skt.sig_kernel_and_derivatives_gram(skt.RBFKernel(0.6), X, Y, G,
                                                dyadic_order=dyadic,
                                                solver="scan")
     for g, w in zip(got, want):
-        assert torch.equal(g.detach(), w)
-    monkeypatch.setattr(routes, "resolve_derivatives", spy)
-    monkeypatch.setattr(cuda_deriv, "max_rows", lambda itemsize: 3)
-    with pytest.raises(ValueError, match="K5's bound of 3 rows"):
-        skt.sig_kernel_and_derivatives_gram(skt.RBFKernel(0.6), X, Y, G,
-                                            dyadic_order=dyadic,
-                                            solver="cuda")
-
-
-def test_shared_memory_bound_is_named():
-    assert cuda_deriv.max_rows(8) == 4840 >= 4092
-    assert cuda_deriv.max_rows(4) == 9683
-    cuda_deriv.check_rows(4840, 8, "probe")
-    with pytest.raises(ValueError, match="4840 rows"):
-        cuda_deriv.check_rows(4841, 8, "probe")
+        assert torch.equal(g, w)

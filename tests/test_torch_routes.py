@@ -84,36 +84,33 @@ def test_unknown_grad_solver_raises():
 
 
 # the derivative Gram: (device type, solver, an input needs a gradient,
-# refined shape, itemsize) -> route, or the error it raises. K5's bound is
-# 4,840 rows in double and 9,683 in float (cuda_deriv.max_rows); past it
-# "auto" takes the plain sweep, as JAX leaves Pallas for its scan tier.
+# refined shape, itemsize) -> route, or the error it raises. K5 has no row
+# bound: the shapes sit at and past the bounds of its earlier one-block
+# kernel (4,840 rows in double, 9,683 in float), and all route alike.
 _K5_ROWS = {8: 4840, 4: 9683}
 _SHAPES = [(_shape, _size) for _size, _b in _K5_ROWS.items()
            for _shape in ((2046, 2046), (_b, _b + 7), (_b + 7, _b),
                           (_b + 1, _b + 1), (_b + 1, 30000))]
 _DERIV = {}
 for _shape, _size in _SHAPES:
-    _past = min(_shape) > _K5_ROWS[_size]
     for _dev in ("cpu", "cuda"):
         for _grad in (False, True):
             _DERIV[(_dev, "scan", _grad, _shape, _size)] = "scan"
             _DERIV[(_dev, "cuda", _grad, _shape, _size)] = (
                 "CUDA tensors" if _dev == "cpu" else
-                "K5's bound" if _past else
                 "forward only" if _grad else "cuda")
             _DERIV[(_dev, "auto", _grad, _shape, _size)] = (
-                "scan" if _dev == "cpu" or _past else
+                "scan" if _dev == "cpu" else
                 "forward only" if _grad else "cuda")
 
 
 @pytest.mark.parametrize("device,solver,needs_grad",
                          sorted({k[:3] for k in _DERIV}))
 def test_resolve_derivatives_matrix(device, solver, needs_grad):
-    """K5 for CUDA tensors within its row bound, forward only: an input
-    that needs a gradient raises there rather than come back detached; past
-    the bound "auto" takes the plain sweep (with or without a gradient) and
-    "cuda" raises, naming the bound. Each refined shape at and one past the
-    bound, both orientations, both itemsizes."""
+    """K5 for CUDA tensors at every shape, forward only: an input that needs
+    a gradient raises there rather than come back detached; the plain sweep
+    on the CPU or when asked. Each refined shape at and one past the old
+    one-block bound, both orientations, 30,000 columns, both itemsizes."""
     for shape, itemsize in _SHAPES:
         want = _DERIV[(device, solver, needs_grad, shape, itemsize)]
         args = (device, solver, needs_grad, shape, itemsize)
@@ -122,23 +119,25 @@ def test_resolve_derivatives_matrix(device, solver, needs_grad):
         else:
             with pytest.raises(ValueError, match=want):
                 routes.resolve_derivatives(*args)
-        if want == "K5's bound":
-            with pytest.raises(ValueError,
-                               match=f"{_K5_ROWS[itemsize]} rows"):
-                routes.resolve_derivatives(*args)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_k5_bound_is_cuda_deriv_max_rows(itemsize):
-    """The matrix's bounds are K5's own, read from ``cuda_deriv``."""
+    """K5 has no row bound in either itemsize: ``cuda_deriv`` names none,
+    and past its earlier kernel's bound, up to 30,000 rows, the CUDA route
+    stays K5 without a gradient and raises (forward only) with one."""
     from sigkernel_tpu_torch.ops import cuda_deriv
 
+    assert not hasattr(cuda_deriv, "max_rows")
+    assert not hasattr(cuda_deriv, "check_rows")
     b = _K5_ROWS[itemsize]
-    assert cuda_deriv.max_rows(itemsize) == b
-    assert routes.resolve_derivatives("cuda", "auto", False, (b, b),
-                                      itemsize) == "cuda"
-    assert routes.resolve_derivatives("cuda", "auto", True, (b + 1, b + 1),
-                                      itemsize) == "scan"
+    for shape in ((b, b), (b + 1, b + 1), (30000, 30000)):
+        for solver in ("auto", "cuda"):
+            assert routes.resolve_derivatives("cuda", solver, False, shape,
+                                              itemsize) == "cuda"
+            with pytest.raises(ValueError, match="forward only"):
+                routes.resolve_derivatives("cuda", solver, True, shape,
+                                           itemsize)
 
 
 def test_resolve_derivatives_unknown_solver_lists_the_options():
@@ -148,8 +147,9 @@ def test_resolve_derivatives_unknown_solver_lists_the_options():
 
 # the inc family's tier on the card, by refined shape and the backward's
 # itemsize: (MM, NN, itemsize, backward) -> tier. The row bound is 9,684
-# rows in double and 19,369 in float; the ckpt gate takes the sparse stack
-# when STACK_BYTES (8 GiB) holds fewer than 128 pairs' full stacks.
+# rows in double and 19,369 in float; the ckpt gate of K2-stack -> K3<inc>
+# takes the sparse stack when STACK_BYTES (8 GiB) holds fewer than 128
+# pairs' full stacks.
 _TIERS = {
     (2046, 2046, 8, False): "single",     # the north star
     (2046, 2046, 8, True): "full",        # 67 MB a pair: 128 a chunk
@@ -177,6 +177,31 @@ def test_resolve_inc_tier_matrix(MM, NN, itemsize, backward):
     assert want in (routes.INC_BWD_TIERS if backward else routes.INC_TIERS)
 
 
+# the backward tier at the generator's ckpt gate (K1-stack -> K3<gen>: full
+# while STACK_BYTES holds at least 5 pairs' full stacks): (MM, NN, itemsize)
+# -> tier
+_GEN_TIERS = {
+    (2046, 2046, 8): "full",       # 128 a chunk
+    (4092, 4092, 8): "full",       # phase 12's size: 32 a chunk
+    (4092, 4092, 4): "full",
+    (8192, 8192, 4): "full",       # length 2,049, dyadic 2: 16
+    (9596, 9596, 8): "full",       # length 2,400, dyadic 2: 5
+    (9684, 12000, 8): "full",      # 1.68 GB: 5 a chunk
+    (9684, 13000, 8): "ckpt",      # 1.76 GB: 4 a chunk
+    (9685, 20000, 8): "striped",
+    (0, 20000, 8): "full",
+}
+
+
+@pytest.mark.parametrize("MM,NN,itemsize", sorted(_GEN_TIERS))
+def test_resolve_inc_tier_at_the_generator_gate(MM, NN, itemsize):
+    want = _GEN_TIERS[(MM, NN, itemsize)]
+    for shape in ((MM, NN), (NN, MM)):
+        assert routes.resolve_inc_tier(
+            shape, itemsize, backward=True,
+            min_pairs=routes.GEN_CKPT_MIN_PAIRS) == want
+
+
 # the generators on the card, by refined shape, input dtype, grade and
 # whether a gradient is wanted: (kernel, MM, NN, dtype, grade, need_grad)
 # -> family. Every shape that chip_smoke.py's phases 2-9 run keeps the
@@ -201,14 +226,20 @@ _GATED = {
     ("rbf", 4092, 4092, "f64", "auto", False): "gen",
     ("linear", 2046, 2046, "f64", "auto", False): "lgen",
     ("linear", 2046, 2046, "f32", "auto", False): "lgen",
-    # the long-path tier: the ckpt gate (phase 12) and the row bound
-    ("rbf", 4092, 4092, "f64", "auto", True): "inc",
-    ("rbf", 4092, 4092, "f64", "f32", True): "inc",
-    ("rbf", 4092, 4092, "f32", "auto", True): "inc",
+    # the long-path tier: the ckpt gates (the generator's, 5 full stacks a
+    # chunk, which phase 12's size passes with 32; Linear's backward is
+    # K2-stack -> K3<inc>, behind the gate of 128) and the row bound
+    ("rbf", 4092, 4092, "f64", "auto", True): "gen",
+    ("rbf", 4092, 4092, "f64", "f32", True): "gen",
+    ("rbf", 4092, 4092, "f32", "auto", True): "gen",
     ("rbf", 2044, 2044, "f64", "auto", True): "gen",    # 128 a chunk
-    ("rbf", 2364, 2364, "f64", "auto", True): "inc",    # 96 a chunk
-    ("rbf", 8192, 8192, "f32", "auto", True): "inc",
+    ("rbf", 2364, 2364, "f64", "auto", True): "gen",    # 96 a chunk
+    ("rbf", 9596, 9596, "f64", "auto", True): "gen",    # 5 a chunk
+    ("rbf", 9684, 13000, "f64", "auto", True): "inc",   # 4 a chunk
+    ("rbf", 8192, 8192, "f32", "auto", True): "gen",
     ("linear", 4092, 4092, "f64", "auto", True): "inc",
+    ("linear", 2364, 2364, "f64", "auto", True): "inc",   # 96 a chunk
+    ("linear", 2044, 2044, "f64", "auto", True): "lgen",  # 128 a chunk
     ("rbf", 20000, 20000, "f64", "auto", False): "inc",
     ("rbf", 20000, 20000, "f32", "auto", False): "inc",
     ("rbf", 20000, 20000, "f64", "f32", True): "inc",
