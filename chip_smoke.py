@@ -289,6 +289,27 @@ CKPT_BAND_CASES = [
     ("3,000 pairs", 3000, 17, 17, 3, 2, 8),
     ("dyadic 6: the one-block kernel", 2, 3, 4, 3, 6, 8),
 ]
+# phase 1, K4 (one pass over each pair's cells in bands of 64 rows, a warp
+# 128 columns of a chunk of 1024, 32 and 256 past D = 8) at its edges, bit for
+# bit against its emulation (incvjp.rbf_dd_vjp_pairs_tiled_plain), twice
+# (run-to-run identity), and against its plain version within GRAD_F64 /
+# GRAD_F32, on ct from the chain (K1-stack -> K3<gen>, dyadic 1): name,
+# pairs, M, N, dim, dtypes. A short last band and two warps of columns; M >
+# N and M < N with a second chunk of columns; M = 2 and N = 2; D 1, 3, 5, 8
+# and 300 (the wide kernel, past the earlier refusal at D 226 in double);
+# the main path's 16-pair tail chunk at length 1024. Pair indices drawn
+# with repeats.
+VJP_CASES = [
+    ("a short last band, two warps", 6, 70, 200, 3, ("float64", "float32")),
+    ("M > N, D 1", 6, 130, 40, 1, ("float64", "float32")),
+    ("M < N: a second chunk of columns, D 5", 4, 40, 1100, 5,
+     ("float64", "float32")),
+    ("M 2, D 8", 6, 2, 90, 8, ("float64", "float32")),
+    ("N 2", 6, 90, 2, 3, ("float64", "float32")),
+    ("D 300: the wide kernel", 3, 70, 300, 300, ("float64", "float32")),
+    ("the 16-pair tail chunk", 16, 1024, 1024, 3, ("float64", "float32")),
+]
+VJP_TAIL = 16  # pairs of the tail chunk K4 is also timed at
 # phase 1: K3<inc, boundary> at dyadic 6 (f = 64 > 32: the one-block
 # kernel, by its counter), as BAND_CASES
 ONE_BLOCK_CASE = ("dyadic 6: the one-block kernel", 2, 5, 4, 3, 6, 0, 192,
@@ -688,6 +709,17 @@ def main():
         for key, v in got.items():
             launches[key] += v
 
+    def vjp_bits(X, Y, ii, jj, sigma, ct, label):
+        """K4's per-pair outputs, twice, equal bit for bit to each other and
+        to its emulation."""
+        k = incvjp.rbf_dd_vjp_pairs(X, Y, ii, jj, sigma, ct)
+        again = incvjp.rbf_dd_vjp_pairs(X, Y, ii, jj, sigma, ct)
+        check(all(torch.equal(a, b) for a, b in zip(k, again)),
+              f"{label}: two launches differ")
+        e = incvjp.rbf_dd_vjp_pairs_tiled_plain(X, Y, ii, jj, sigma, ct)
+        check(all(torch.equal(a, b) for a, b in zip(k, e)),
+              f"{label}: not bit-equal to its emulation")
+
     # ---- phase 1: kernels against their plain versions ------------------
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     gamma_gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -791,6 +823,7 @@ def main():
                     rv = max(compare_max("vjp", dtype, g, w, glimit,
                                          f"K4 {label} output {n}")
                              for n, g, w in zip("s X Y".split(), got, want))
+                    vjp_bits(X, Y, ii, jj, sigma, ct, "K4 " + label)
                     _, stk2 = cuda_solver.inc_solve_stack(inc, dy, naive)
                     _, pstk2 = cuda_solver.inc_solve_stack_plain(inc, dy,
                                                                  naive)
@@ -1140,6 +1173,36 @@ def main():
     cuda_solver.CKPT_WINDOW = window
     print(f"[1] ckpt band cases passed in "
           f"{time.perf_counter() - t_phase:.1f} s")
+
+    # K4 at its edges: bit for bit against its emulation, run to run, and
+    # against its plain version
+    t_phase = time.perf_counter()
+    for vname, P, M, N, D, dnames in VJP_CASES:
+        X64 = make_paths(gen, 3, M, D, F64)
+        Y64 = make_paths(gen, 4, N, D, F64)
+        ii = torch.randint(0, 3, (P,), generator=gen, device=dev)
+        jj = torch.randint(0, 4, (P,), generator=gen, device=dev)
+        H, nb, _ = incvjp.partials(P, M, N, D, 8)
+        for dtype in (getattr(torch, n) for n in dnames):
+            X, Y = X64.to(dtype), Y64.to(dtype)
+            glimit = GRAD_F64 if dtype == F64 else GRAD_F32
+            label = (f"{vname} {name[dtype]} ({P} pairs, {M} x {N}, D {D}, "
+                     f"{nb} bands of {H} rows)")
+            _, stk = cuda_gen.rbf_gen_solve_stack(X, Y, ii, jj, 1.0, 1)
+            ct = cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, 1.0, stk, 1)
+            del stk
+            got, t4 = synced(lambda: incvjp.rbf_dd_vjp(X, Y, ii, jj, 1.0, ct))
+            want = incvjp.rbf_dd_vjp_plain(X, Y, ii, jj, 1.0, ct)
+            rv = max(compare_max("vjp", dtype, g, w, glimit,
+                                 f"K4 {label} output {n}")
+                     for n, g, w in zip("s X Y".split(), got, want))
+            vjp_bits(X, Y, ii, jj, 1.0, ct, "K4 " + label)
+            del got, want, ct
+            print(f"[1] {label}: K4 bit-equal to its emulation, two launches "
+                  f"identical, {rv:.2e} of max |plain| (limit {glimit:.0e}; "
+                  f"{t4 * 1e3:.1f} ms)")
+        torch.cuda.empty_cache()
+    print(f"[1] vjp cases passed in {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phases 2-4: the forward main path, counted ---------------------
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -1882,7 +1945,16 @@ def main():
               lambda: incvjp.rbf_dd_vjp(Xt, Yt, ar, ar, 1.0, ct)[1],
               lambda: incvjp.rbf_dd_vjp_plain(Xt, Yt, ar, ar, 1.0, ct)[1],
               compare_max, glimit, ns, at)
-        del ct
+        Pt, tail = VJP_TAIL, ar[:VJP_TAIL]
+        ctt = ct[:Pt].contiguous()
+        timed("vjp", dtype,
+              lambda: incvjp.rbf_dd_vjp(Xt, Yt, tail, tail, 1.0, ctt)[1],
+              lambda: incvjp.rbf_dd_vjp_plain(Xt, Yt, tail, tail, 1.0,
+                                              ctt)[1],
+              compare_max, glimit, (Pt,) + ns[1:],
+              f"{Pt} pairs (the tail chunk), len {L}, dyadic 1, dim 3",
+              tag="tail")
+        del ct, ctt
         W = cuda_solver.CKPT_WINDOW
         timed("inc_sparse", dtype,
               lambda: cuda_solver.inc_solve_sparse(inc, 1)[1],

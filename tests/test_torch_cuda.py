@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 forward kernels K1 and K2, their stack-emitting instances, the adjoint K3
-(gen and inc sources), the increment-chain VJP K4, the derivative Gram's
+(gen and inc sources), the increment-chain VJP K4 (bit for bit against its
+emulation, run to run, at any dimension), the derivative Gram's
 triple wavefront K5 (its band kernel, past the earlier row bound too), the
 Linear generator K6, K1 and K1-stack at the edges of their band
 decomposition and in launches split by the scratch bound,
@@ -253,6 +254,53 @@ def test_length_one_gradients_are_zero_without_launches(cuda):
                          ).backward()
     assert not X.grad.any() and not Y.grad.any()
     assert dict(cuda_gen.STACK_COUNTS) == before
+
+
+# ---- K4: one tiled pass, its sums in a fixed order ------------------------
+
+# pairs, M, N, D: a short last band (64 rows) and two warps of columns, M >
+# N, a second chunk of columns (1024), M = 2 and N = 2, D 1 to 8 in
+# registers and the wide kernel past it (D 40; D 300 in double below)
+_VJP_CASES = [(6, 7, 11, 2), (6, 70, 200, 3), (4, 130, 40, 1),
+              (4, 40, 1100, 5), (6, 2, 90, 8), (6, 90, 2, 3), (3, 70, 300, 40)]
+
+
+def _vjp_inputs(P, M, N, D, cuda, dtype, seed=20):
+    """Paths, pair indices with repeats, and ct from the chain (K1-stack ->
+    K3<gen>, dyadic 1)."""
+    X = _paths(3, M, D, seed, cuda, dtype)
+    Y = _paths(4, N, D, seed + 1, cuda, dtype)
+    g = torch.Generator().manual_seed(seed)
+    ii = torch.randint(0, 3, (P,), generator=g).to(cuda)
+    jj = torch.randint(0, 4, (P,), generator=g).to(cuda)
+    _, stack = cuda_gen.rbf_gen_solve_stack(X, Y, ii, jj, 0.5, 1)
+    return X, Y, ii, jj, cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, 0.5, stack, 1)
+
+
+def _vjp_checks(X, Y, ii, jj, ct, dtype):
+    got = incvjp.rbf_dd_vjp_pairs(X, Y, ii, jj, 0.5, ct)
+    again = incvjp.rbf_dd_vjp_pairs(X, Y, ii, jj, 0.5, ct)
+    want = incvjp.rbf_dd_vjp_pairs_tiled_plain(X, Y, ii, jj, 0.5, ct)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and torch.equal(g, w)
+    full = incvjp.rbf_dd_vjp(X, Y, ii, jj, 0.5, ct)
+    plain = incvjp.rbf_dd_vjp_plain(X, Y, ii, jj, 0.5, ct)
+    for g, w in zip(full, plain):
+        assert g.dtype == dtype and _max_rel(g, w) <= GRAD_BAR[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,M,N,D", _VJP_CASES)
+def test_vjp_kernel_is_its_emulation(cuda, dtype, P, M, N, D):
+    """K4 equals its emulation bit for bit, two launches equal each other,
+    and the wrapper is within the gradient bar of the plain version."""
+    _vjp_checks(*_vjp_inputs(P, M, N, D, cuda, dtype), dtype)
+
+
+def test_vjp_kernel_takes_any_dimension(cuda):
+    """D 300 in double (the earlier kernel refused D > 226)."""
+    _vjp_checks(*_vjp_inputs(3, 40, 70, 300, cuda, torch.float64),
+                torch.float64)
 
 
 # ---- K5 (derivative Gram) and K6 (Linear generator) -----------------------
