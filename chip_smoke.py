@@ -50,7 +50,15 @@ Phases (any failure raises and the script exits non-zero):
    than a window, W 2, 3, 5 and 8, a halo reaching row 0, a short last
    band, dyadic 0-2 and 5, 3,000 pairs), and at dyadic 6 K8 on its
    one-block kernel, by its counter; K8's timed calls (below) are checked
-   bit for bit too.
+   bit for bit too; then K2, K2-stack and K2-sparse on their band kernel
+   (a whole frame a pair over its base grid; K2-sparse writing the sparse
+   stack's stored diagonals) bit for bit against their plain versions,
+   their emulations and a second launch at the edges of its decomposition
+   (``INC_BAND_CASES``: frames of 1 to 212 rows, a transposed pair, R 37
+   against C 301, f 1 to 64, W 2, 3 and 8, 3,000 pairs, and K2 in float
+   at 19,376 rows, past the one-block bound). K2, K2-stack and K2-sparse
+   are checked bit for bit against their plain versions wherever phase 1
+   runs them.
 2. The forward main path at the north-star size: ``SigKernel(RBFKernel(1.0),
    dyadic_order=1)`` on X, Y of shape (100, 1024, 3), float64 and float32:
    ``compute_Gram(X, X, sym=True)``, ``compute_Gram(X, Y)``,
@@ -92,11 +100,11 @@ Phases (any failure raises and the script exits non-zero):
     one: 560 pairs), float64, through K2 and K2-sparse -> K8; float32 paths
     of length 2,049 (X 8, y 1) on the same route; X 100 paths, whose
     5,050-pair sym tile at the default ``max_batch`` is built and solved
-    chunk by chunk. The generator's ckpt gate would send these to the
-    full-stack route, so the counted runs patch both gates
-    (``SPARSE_GATE``). Then, uncounted, the same float64 call on the
-    full-stack routes (the gates' pair counts patched to 1: the generator,
-    K1-stack -> K3<gen> -> K4, and the increment grid, K2-stack -> K3<inc>)
+    chunk by chunk. The counted runs patch both ckpt gates (``SPARSE_GATE``)
+    so that they take the sparse route whatever the gates pick. Then,
+    uncounted, the same float64 call on the full-stack routes (the gates'
+    pair counts patched to 1: the generator, K1-stack -> K3<gen> -> K4,
+    and the increment grid, K2-stack -> K3<inc>)
     and the sparse route again, with times and peaks; and the gates'
     crossovers (``gate_sweep``): the scoring rule and a 32 x 32 lincomb at
     lengths where one chunk holds 5 to 128 full stacks, and phase 5's
@@ -110,9 +118,10 @@ and no plain version may have run. The checks of those phases against plain
 versions come after the counters are read, then each kernel is timed beside
 its plain version at 128 pairs, length 1024, dyadic 1, dim 3 (the stripe
 kernels at phase 10's grid; K7 at both the forward's and the adjoint's
-stripe height, two entries; K8 also at phase 12's shape, 128 pairs of
-length 1024, dyadic 2, dim 5, a second entry; K1, K1-stack, K3<gen> and K8
-beside their times before the band kernel). The last three
+stripe height, two entries; K2-sparse and K8 also at phase 12's shape, 128
+pairs of length 1024, dyadic 2, dim 5, a second entry each; K1, K1-stack,
+K3<gen>, K8, K2, K2-stack and K2-sparse beside their times before the band
+kernel). The last three
 lines of the output are the card's ``nvidia-smi`` line, one JSON object
 describing the kernels (each with its launches on the main path, its
 largest error against its plain version, its time and its plain version's,
@@ -232,16 +241,22 @@ GEN_BAND_CASES = [
     ("3,000 pairs", 3000, 17, 17, 3, 2),
     ("dyadic 6: K3<gen>'s one-block kernel", 3, 4, 5, 3, 6),
 ]
-# K1, K1-stack, K3<gen> and K8 at the timed shape in the one-block-a-pair
-# design that the band kernel replaced (this script's timing, NVIDIA H100
-# 80GB HBM3, 700.00 W), printed beside this run's
+# K1, K1-stack, K3<gen>, K8, K2, K2-stack and K2-sparse at the timed shape
+# in the one-block-a-pair design that the band kernel replaced (this
+# script's timing, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
+# run's
 EARLIER_MS = {("gen", "float32"): 18.009, ("gen", "float64"): 26.026,
               ("gen_stack", "float32"): 19.252,
               ("gen_stack", "float64"): 29.214,
               ("adj_gen", "float32"): 30.547,
               ("adj_gen", "float64"): 41.361,
               ("adj_ckpt", "float32"): 28.313,
-              ("adj_ckpt", "float64"): 34.390}
+              ("adj_ckpt", "float64"): 34.390,
+              ("inc", "float32"): 7.548, ("inc", "float64"): 7.634,
+              ("inc_stack", "float32"): 9.250,
+              ("inc_stack", "float64"): 10.368,
+              ("inc_sparse", "float32"): 8.423,
+              ("inc_sparse", "float64"): 8.789}
 # phase 1, K5 on the band kernel (a whole frame a pair, bands of 128 rows
 # from a row 0 of (1, 0, 0), the three states of a row in registers and the
 # hand-offs carrying three values a column) at its edges, bit for bit
@@ -289,6 +304,35 @@ CKPT_BAND_CASES = [
     ("3,000 pairs", 3000, 17, 17, 3, 2, 8),
     ("dyadic 6: the one-block kernel", 2, 3, 4, 3, 6, 8),
 ]
+# phase 1, K2, K2-stack and K2-sparse on the band kernel (a whole frame a
+# pair over its base increment grid, bands of 128 rows from a row 0 of 1s;
+# K2-sparse writing the sparse stack's stored diagonals) at its edges, bit
+# for bit against their plain versions and their emulations
+# (cuda_solver.inc_solve_*_banded_plain), and run to run: name, pairs, M,
+# N, dim, dyadic order, window W, dtypes. The frame's rows R = (min(M, N) -
+# 1) 2^dyadic: 1, 31, 129 (a second band of one row), 212 (a short last
+# band, transposed: M > N), R 37 against C 301; f = 1, 2, 4, 8 and 64 (the
+# band modes read f at run time); W 2, 3 and 8; 3,000 pairs, more blocks
+# than are resident; and, in float, 19,376 rows, past the one-block
+# kernel's bound of 19,369 (K2 alone, against its plain version: its
+# emulation would take minutes there)
+INC_BAND_CASES = [
+    ("R 1, W 2", 3, 2, 6, 2, 0, 2, ("float64", "float32")),
+    ("R 31, W 3", 3, 32, 40, 3, 0, 3, ("float64", "float32")),
+    ("R 129: a band of one row", 3, 130, 140, 3, 0, 8,
+     ("float64", "float32")),
+    ("R 212, transposed (M > N)", 2, 60, 54, 3, 2, 8, ("float64", "float32")),
+    ("R 37, C 301", 2, 38, 302, 3, 0, 8, ("float64", "float32")),
+    ("f 2, W 3", 3, 20, 25, 3, 1, 3, ("float64", "float32")),
+    ("f 8", 3, 9, 12, 5, 3, 2, ("float64", "float32")),
+    ("f 64", 2, 4, 5, 3, 6, 8, ("float64", "float32")),
+    ("3,000 pairs", 3000, 17, 17, 3, 2, 8, ("float64", "float32")),
+    ("R 19,376: past the one-block bound", 1, 4845, 4846, 2, 2, 8,
+     ("float32",)),
+]
+# the largest frame (rows) at which the K2 emulations run in phase 1
+# (order-2 only: the naive scheme changes no index arithmetic)
+INC_EMULATE_ROWS = 1000
 # phase 1, K4 (one pass over each pair's cells in bands of 64 rows, a warp
 # 128 columns of a chunk of 1024, 32 and 256 past D = 8) at its edges, bit for
 # bit against its emulation (incvjp.rbf_dd_vjp_pairs_tiled_plain), twice
@@ -337,7 +381,7 @@ GATE_SWEEP = ((2400, "float64"), (2000, "float64"), (1600, "float64"),
               (1400, "float64"), (724, "float64"), (512, "float64"),
               (1024, "float32"))
 # phase 12's counted runs: a gate no chunk passes, so they take the sparse
-# route (K2-sparse -> K8) that the gate no longer picks at their size
+# route (K2-sparse -> K8) whatever the gates pick at their size
 SPARSE_GATE = 1 << 40
 # seconds: a gate point whose runs all take longer is raced once, not twice
 GATE_ONE_ROUND = 1.5
@@ -753,6 +797,7 @@ def main():
                         inc, dy, naive))
                     p2 = cuda_solver.inc_solve_final_plain(inc, dy, naive)
                     r2 = compare("inc", dtype, k2, p2, limit, "K2 " + label)
+                    check(torch.equal(k2, p2), f"K2 {label}: not bit-equal")
                     torch.cuda.synchronize()
                     print(f"[1] {label}: K1 rel {r1:.2e} ({t1 * 1e3:.1f} ms),"
                           f" K2 rel {r2:.2e} ({t2 * 1e3:.1f} ms), "
@@ -830,6 +875,7 @@ def main():
                     rs2 = compare_max("inc_stack", dtype, stk2, pstk2,
                                       glimit, "K2-stack " + label)
                     eq2 = torch.equal(stk2, pstk2)
+                    check(eq2, f"K2-stack {label}: not bit-equal")
                     ct2 = cuda_solver.inc_adjoint(inc, stk2, dy, naive)
                     pct2 = cuda_solver.inc_adjoint_plain(inc, stk2, dy,
                                                          naive)
@@ -929,6 +975,8 @@ def main():
         compare_max("inc_sparse", dtype, sparse, psparse, glimit,
                     f"K2-sparse stack {label}")
         bits = [torch.equal(sparse, psparse)]
+        check(torch.equal(v, pv) and bits[0], f"K2-sparse {label}: not "
+                                              "bit-equal")
         ct = cuda_solver.inc_adjoint_ckpt(inc, sparse, dy, naive)
         pct = cuda_solver.inc_adjoint_ckpt_plain(inc, sparse, dy, naive)
         compare_max("adj_ckpt", dtype, ct, pct, glimit, f"K8 {label}")
@@ -1172,6 +1220,72 @@ def main():
         torch.cuda.empty_cache()
     cuda_solver.CKPT_WINDOW = window
     print(f"[1] ckpt band cases passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # K2, K2-stack and K2-sparse on the band kernel at its edges, bit for
+    # bit against their plain versions and emulations, and run to run
+    t_phase = time.perf_counter()
+    inc_runs = [
+        ("inc", "K2", cuda_solver.inc_solve_final,
+         cuda_solver.inc_solve_final_plain,
+         cuda_solver.inc_solve_final_banded_plain),
+        ("inc_stack", "K2-stack", cuda_solver.inc_solve_stack,
+         cuda_solver.inc_solve_stack_plain,
+         cuda_solver.inc_solve_stack_banded_plain),
+        ("inc_sparse", "K2-sparse", cuda_solver.inc_solve_sparse,
+         cuda_solver.inc_solve_sparse_plain,
+         cuda_solver.inc_solve_sparse_banded_plain)]
+    for iname, P, M, N, D, dy, W, dnames in INC_BAND_CASES:
+        cuda_solver.CKPT_WINDOW = W
+        X64 = make_paths(gen, P, M, D, F64)
+        Y64 = make_paths(gen, P, N, D, F64)
+        R = (min(M, N) - 1) * 2 ** dy
+        emulate = R <= INC_EMULATE_ROWS
+        for dtype in (getattr(torch, n) for n in dnames):
+            inc = double_difference(skt.RBFKernel(1.0).batch_kernel(
+                X64.to(dtype), Y64.to(dtype))).contiguous()
+            limit = (F64_RTOL if dtype == F64 else
+                     F32_RTOL_LONG if max(M, N) >= LONG else F32_RTOL_SMALL)
+            glimit = GRAD_F64 if dtype == F64 else GRAD_F32
+            past = R > _build.max_rows(inc.element_size())
+            for naive in (False, True) if emulate else (False,):
+                label = (f"{iname} {name[dtype]} ({P} pairs, {M} x {N}, "
+                         f"dyadic {dy}, R {R}, W {W}, "
+                         f"{-(-R // cuda_blocked.BAND_ROWS)} bands a pair, "
+                         f"{'naive' if naive else 'order-2'})")
+                ms = []
+                emulated = emulate and not naive
+                for kind, kname, kern, plain, banded in (
+                        inc_runs[:1] if past else inc_runs):
+                    got, t = synced(lambda: kern(inc, dy, naive))
+                    ms.append(f"{kname} {t * 1e3:.1f} ms")
+                    outs = {"plain": plain(inc, dy, naive),
+                            "second launch": kern(inc, dy, naive)}
+                    if emulated:
+                        outs["emulation"] = banded(inc, dy, naive)
+                    got = got if isinstance(got, tuple) else (got,)
+                    for what, want in outs.items():
+                        want = want if isinstance(want, tuple) else (want,)
+                        compare(kind, dtype, got[0], want[0], limit,
+                                f"{kname} {label} vs its {what}")
+                        for g, w in zip(got[1:], want[1:]):
+                            compare_max(kind, dtype, g, w, glimit,
+                                        f"{kname} {label} stack vs its {what}")
+                        check(all(torch.equal(g, w)
+                                  for g, w in zip(got, want)),
+                              f"{kname} {label}: not bit-equal to its {what}")
+                    del got, outs
+                said = ("K2 bit-equal to its plain version" if past else
+                        "K2, K2-stack and K2-sparse bit-equal to their plain "
+                        "versions")
+                if emulated:
+                    said += ", their emulations"
+                print(f"[1] {label}: {said} and a second launch "
+                      f"({', '.join(ms)})")
+            del inc
+        torch.cuda.empty_cache()
+    cuda_solver.CKPT_WINDOW = window
+    print(f"[1] inc band cases passed in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
     # K4 at its edges: bit for bit against its emulation, run to run, and
@@ -1971,8 +2085,15 @@ def main():
         Y5 = make_paths(gen, P, L12, D12, dtype)
         inc = double_difference(rbf.batch_kernel(X5, Y5)).contiguous()
         del X5, Y5
-        _, sparse = cuda_solver.inc_solve_sparse(inc, dy12)
         c = PLAIN_CKPT_CHUNK
+        timed("inc_sparse", dtype,
+              lambda: cuda_solver.inc_solve_sparse(inc, dy12)[1],
+              lambda: torch.cat([cuda_solver.inc_solve_sparse_plain(
+                  inc[s:s + c], dy12)[1] for s in range(0, P, c)]),
+              compare_bits, glimit, (P, L12, L12, D12, 2 ** dy12, 0, W),
+              f"{P} pairs, len {L12}, dyadic {dy12}, dim {D12} (phase 12's "
+              f"frame; the plain version {c} pairs a call)", tag="phase 12")
+        _, sparse = cuda_solver.inc_solve_sparse(inc, dy12)
         timed("adj_ckpt", dtype,
               lambda: cuda_solver.inc_adjoint_ckpt(inc, sparse, dy12),
               lambda: torch.cat([cuda_solver.inc_adjoint_ckpt_plain(

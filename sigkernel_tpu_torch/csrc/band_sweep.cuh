@@ -6,11 +6,13 @@
 // generated from its paths, K3<gen> for f <= 32 (adjoint_collapse.cu), the
 // reverse sweep of that whole frame, and K8 for f <= 32 (adjoint_ckpt.cu),
 // the same reverse sweep over a base increment grid with the forward values
-// recomputed from the sparse stack (kBandCkpt, below), and K5
-// (deriv_wavefront.cu), whose sweep carries three states a cell (below).
-// wavefront.cuh's `sweep` (one block a pair, a barrier a diagonal) stays
-// for K2, K3<inc> and K6, and adjoint.cuh for K3<inc, boundary>, K3<gen>
-// and K8 at f > 32.
+// recomputed from the sparse stack (kBandCkpt, below), K5
+// (deriv_wavefront.cu), whose sweep carries three states a cell (below),
+// and K2, K2-stack and K2-sparse (inc_wavefront.cu), a pair's whole frame
+// over its base increment grid (IncSource; K2-sparse writes the sparse
+// stack, kBandSparse, below). wavefront.cuh's `sweep` (one block a pair, a
+// barrier a diagonal) stays for K6 alone, and adjoint.cuh for K3<inc>, and
+// for K3<inc, boundary>, K3<gen> and K8 at f > 32.
 //
 // Decomposition. The stripe's rows 1 .. rows (row 0 is the north boundary
 // bd) are cut into bands of kBandRows = 128 rows, one block of four warps a
@@ -70,12 +72,24 @@
 // pair's paths and sweeps the whole frame (Src::kStripe false): row 0 is
 // the constant 1, read from no tensor, and the lane that owns row R writes
 // only the corner K[R][C], into `bottom` (P,), except in kBandAdjoint.
+// IncSource (K2, K2-stack, K2-sparse; below) reads a pair's base grid over
+// the whole frame the same way, kIncAhead base columns ahead of its use.
 //
 // The stack (kBandStack) is K2-stack's layout for the stripe: stack[p (rows
 // + 1) + i] = K[i][p - i], written in full. The lanes of one step share the
 // diagonal p = i + c, so their stores are neighbouring addresses. Each
 // warp also writes its rows' fixed entries (0 before column 0, 1 at it, 0
 // past column C), and band 0's first warp row 0 (bd, then 0).
+//
+// The sparse stack (kBandSparse, K2-sparse; a whole frame, window W =
+// Src::W >= 2) keeps the full stack's rows whose diagonal p has p % W < 2
+// and p / W < ckpt_pairs(rows, C, W) (wavefront.cuh's layout): diagonal p
+// in row 2 (p / W) + p % W. Lane t at step s sits on diagonal p = i0 + s,
+// one p for the warp, so whether the step's cells are stored is uniform
+// (the warp tracks p / W and p % W from step to step), and the lanes of a
+// stored step write neighbouring addresses. Each warp writes its rows'
+// fixed entries on the stored diagonals only, and band 0's first warp row 0
+// (1 to column C, then 0). The corner's diagonal rows + C is never stored.
 //
 // The adjoint (kBandAdjoint, always with flip: the reverse problem's stripe
 // from its boundary bd, forward stripe row0 .. row0 + rows - 1 in `stack`,
@@ -177,12 +191,14 @@ constexpr int kRing = kChunk * kRingChunks;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // What a band sweep writes: the bottom row (K7; the corner with a whole
-// frame, K1), the bottom row and the stack (K7-stack; K1-stack), the
-// reverse stripe's product with a forward stack, collapsed into the base
-// cotangent (K3<inc, boundary>; K3<gen>), or the same with the forward
-// values recomputed from a sparse stack (K8).
+// frame, K1, K5, K2), the bottom row and the stack (K7-stack; K1-stack,
+// K2-stack), the reverse stripe's product with a forward stack, collapsed
+// into the base cotangent (K3<inc, boundary>; K3<gen>), the same with the
+// forward values recomputed from a sparse stack (K8), or the corner and the
+// sparse stack (K2-sparse).
 enum BandMode : int {
-  kBandBottom = 0, kBandStack = 1, kBandAdjoint = 2, kBandCkpt = 3
+  kBandBottom = 0, kBandStack = 1, kBandAdjoint = 2, kBandCkpt = 3,
+  kBandSparse = 4
 };
 
 // kBandCkpt: prepare the next window while the current one is consumed
@@ -424,6 +440,66 @@ struct CkptSource : GridSource<T> {
   int W;
 };
 
+// K2's source (K2, K2-stack, K2-sparse): a pair's base grid (P, Mb, Nb)
+// over the whole frame from 1s, with GridSource's arithmetic (transposed
+// when Mb > Nb, the exact 1 / f^2 applied after the load), and the window W
+// of kBandSparse. Each lane keeps the next kIncAhead base columns of its
+// row in registers, unscaled: the load of column q + kIncAhead starts
+// when column q is taken, and its first use, the queue's shift, comes
+// kIncAhead wraps (kIncAhead f steps) later. GridSource scales each value as
+// it is loaded, so that its first use is the load's own multiply. A queue
+// of 1 ran K2 fastest on an H100: GridSource's pattern (as CkptSource, a
+// whole frame) took 22-27 % longer, a queue of 2 took 2-8 % longer and of
+// 4, whose registers cost occupancy, 9-23 %
+// (sigkernel_tpu_torch/probes/k2_probe.py).
+template <typename T>
+constexpr int kIncAhead = 1;
+
+template <typename T>
+struct IncSource {
+  using State = T;
+  static constexpr bool kStripe = false;
+  static constexpr bool kAligned = false;  // read at each lane's wrap
+  static constexpr int kStage = 32;  // unused: no adjoint mode
+  static constexpr int kAhead = kIncAhead<T>;
+  const T* inc;
+  int W;
+
+  struct Lane {
+    const T* g;  // base column 0 of this lane's row
+    int64_t step;  // elements from one base column to the next
+    int Cb, next;  // base columns; the next one to load
+    bool has_inc;
+    T scale;
+    T raw[kAhead];  // columns next - kAhead .. next - 1
+    __device__ __forceinline__ T load(int q) const {
+      return has_inc && q < Cb ? __ldg(g + q * step) : T(0);
+    }
+    // base column q of this lane's row; asked for in order, q = 0, 1, ...
+    __device__ __forceinline__ T col(int) {
+      const T v = raw[0] * scale;
+#pragma unroll
+      for (int k = 0; k + 1 < kAhead; ++k) raw[k] = raw[k + 1];
+      raw[kAhead - 1] = load(next++);
+      return v;
+    }
+  };
+
+  // the lane of pair `pair` whose frame base row is ra (has_inc false: a
+  // row past the frame, whose increments are 0)
+  __device__ __forceinline__ Lane lane(int64_t pair, int ra, bool has_inc,
+                                       int Mb, int Nb, int f, int) const {
+    const int transpose = Mb > Nb;
+    Lane l{inc + pair * static_cast<int64_t>(Mb) * Nb +
+               (transpose ? ra : static_cast<int64_t>(ra) * Nb),
+           transpose ? Nb : 1, transpose ? Mb : Nb, kAhead, has_inc,
+           T(1) / T(f * f), {}};
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) l.raw[k] = l.load(k);
+    return l;
+  }
+};
+
 // kBandCkpt's window buffers: two a warp, W diagonals x 32 lanes each.
 template <typename T>
 constexpr size_t ckpt_window_bytes(int W) {
@@ -535,7 +611,9 @@ struct CkptWarp {
 // with kBandAdjoint and kBandCkpt, f (1 .. 32) fixed at compile time, so
 // that the collapse over a group's f lanes unrolls; the other modes read f
 // at run time. kBandCkpt: stack is the sparse stack (P, 2 ckpt_pairs(rows,
-// C, src.W), rows + 1) and Src a CkptSource.
+// C, src.W), rows + 1) and Src a CkptSource. kBandSparse: stack is the
+// sparse stack (P, 2 ckpt_pairs(rows, C, src.W), rows + 1), written, and
+// Src an IncSource.
 template <typename T, int kMode, int kF = 1, typename Src = GridSource<T>>
 __global__ void __launch_bounds__(kBandRows)
 band_stripe(const Src src, const typename Src::State* __restrict__ bd,
@@ -546,6 +624,7 @@ band_stripe(const Src src, const typename Src::State* __restrict__ bd,
   using S = typename Src::State;
   constexpr bool kStack = kMode == kBandStack;
   constexpr bool kCkpt = kMode == kBandCkpt;
+  constexpr bool kSparse = kMode == kBandSparse;
   constexpr bool kAdjoint = kMode == kBandAdjoint || kCkpt;
   constexpr bool kStripe = Src::kStripe;  // else a whole frame from 1s
   constexpr int kStage = Src::kStage;
@@ -609,11 +688,11 @@ band_stripe(const Src src, const typename Src::State* __restrict__ bd,
     out[0] = lift<S>(T(1));
   }
 
-  int W = 0;  // kBandCkpt's window
-  if constexpr (kCkpt) W = src.W;
-  T* stk = !kStack && !kAdjoint ? nullptr
-           : stack + pair * (kCkpt ? sparse_elems(rows, C, W)
-                                   : stack_elems(rows, C));
+  int W = 0;  // kBandCkpt's and kBandSparse's window
+  if constexpr (kCkpt || kSparse) W = src.W;
+  T* stk = !kStack && !kAdjoint && !kSparse ? nullptr
+           : stack + pair * (kCkpt || kSparse ? sparse_elems(rows, C, W)
+                                              : stack_elems(rows, C));
   const int64_t stride = rows + 1;
   if constexpr (kStack) {
     for (int p = 0; p <= i0 + 31; ++p) {  // left of and at column 0
@@ -625,6 +704,35 @@ band_stripe(const Src src, const typename Src::State* __restrict__ bd,
     if (band == 0 && warp == 0) {
       for (int p = lane; p <= rows + C; p += 32) {
         stk[p * stride] = p > C ? T(0) : kStripe ? bd_p[p] : T(1);
+      }
+    }
+  }
+  // kBandSparse: the last stored pair, and this step's diagonal p = i0 + s
+  // as p / W and p % W (uniform)
+  [[maybe_unused]] int last_pair = 0, pq = 0, pw = 0;
+  if constexpr (kSparse) {
+    last_pair = ckpt_pairs(rows, C, W) - 1;
+    pq = (i0 + 1) / W;
+    pw = (i0 + 1) % W;
+    // the stored diagonals' entries left of and at column 0, past column C,
+    // and, by band 0's first warp, in row 0
+    for (int w = 0; w <= last_pair && w * W <= i0 + 31; ++w) {
+      for (int k = 0; k < 2; ++k) {
+        const int p = w * W + k;
+        if (live && p <= i) {
+          stk[(2 * w + k) * stride + i] = p == i ? T(1) : T(0);
+        }
+      }
+    }
+    for (int w = (i0 + C + 1) / W; w <= last_pair; ++w) {
+      for (int k = 0; k < 2; ++k) {
+        const int p = w * W + k;
+        if (live && p > i + C) stk[(2 * w + k) * stride + i] = T(0);
+      }
+    }
+    if (band == 0 && warp == 0) {
+      for (int r = lane; r <= 2 * last_pair + 1; r += 32) {
+        stk[r * stride] = (r >> 1) * W + (r & 1) > C ? T(0) : T(1);
       }
     }
   }
@@ -772,6 +880,11 @@ band_stripe(const Src src, const typename Src::State* __restrict__ bd,
       if constexpr (kStack) {
         if (live) stk[static_cast<int64_t>(i + c) * stride + i] = v;
       }
+      if constexpr (kSparse) {
+        if (live && pw < 2 && pq <= last_pair) {
+          stk[(2 * pq + pw) * stride + i] = v;
+        }
+      }
       if (lane == out_lane) {
         const int k = (c - 1) / kChunk;
         const bool last = (c & (kChunk - 1)) == 0 || c == C;
@@ -817,6 +930,12 @@ band_stripe(const Src src, const typename Src::State* __restrict__ bd,
       }
     }
     nw = n;
+    if constexpr (kSparse) {
+      if (++pw == W) {
+        pw = 0;
+        ++pq;
+      }
+    }
   }
   if constexpr (kAdjoint) {  // the two cells still open
     if (lead) {

@@ -1,43 +1,37 @@
-// Shared anti-diagonal sweep of the Goursat PDE for one path pair.
+// The one-block anti-diagonal sweep of the Goursat PDE (K6), and what the
+// kernels share: the scheme, the edge values, and the layouts of the stack
+// and the sparse stack.
 //
-// One thread block solves one pair. The diagonal axis is the shorter
-// refined side R (the recurrence is exactly transpose-covariant: k01 and
-// k10 enter only as a sum), the other side is C >= R. The last three
-// anti-diagonals live in a ring in shared memory, indexed by the row:
+// The sweep. One thread block solves one pair. The diagonal axis is the
+// shorter refined side R (the recurrence is exactly transpose-covariant:
+// k01 and k10 enter only as a sum), the other side is C >= R. The last
+// three anti-diagonals live in a ring in shared memory, indexed by the row:
 // ring[(p % 3) * (R + 1) + i] = K[i, p - i]. Threads stride over the cells
 // of a diagonal; one __syncthreads() per diagonal, reached by every thread,
 // separates the write of diagonal p from the overwrite of its slot by
 // diagonal p + 3 (the ring of three lets diagonal p + 1 write the slot of
-// p - 2 while nobody reads it any more).
+// p - 2 while nobody reads it any more). Only rows max(1, p - C) <= i <=
+// min(R, p - 1) are written, so row 0 and the not-yet-reached row p keep
+// the boundary value 1 they were set to. Its one user is K6
+// (linear_gen_wavefront.cu); every other wavefront runs on band_sweep.cuh.
 //
-// Only rows max(1, p - C) <= i <= min(R, p - 1) are written, so row 0 and
-// the not-yet-reached row p keep the boundary value 1 they were set to.
-//
-// The stack. With kFullStack the sweep also writes the whole solution, in
-// the solve's frame and diagonal-major: stack[p * (R + 1) + i] = K[i, p - i]
-// for 0 <= p <= R + C, 0 <= i <= R, with the boundary cells (value 1)
-// included and 0 where p - i lies outside [0, C]. That is (R + C + 1) x
-// (R + 1) values, about twice the (R + 1) x (C + 1) cells of a row-major
-// grid, bought for access: a diagonal's threads write neighbouring
-// addresses, and the adjoint (adjoint_collapse.cu), which walks the
-// diagonals in reverse, reads them the same way. A row-major grid would be
-// exact in size but strided by C + 1 between neighbouring threads on both
+// The stack (K2-stack, K1-stack, K7-stack write it; K3 reads it): the whole
+// solution, in the solve's frame and diagonal-major: stack[p * (R + 1) + i]
+// = K[i, p - i] for 0 <= p <= R + C, 0 <= i <= R, with the boundary cells
+// (value 1) included and 0 where p - i lies outside [0, C]. That is (R + C
+// + 1) x (R + 1) values, about twice the (R + 1) x (C + 1) cells of a
+// row-major grid, bought for access: the cells of a diagonal are
+// neighbouring addresses, for the forward sweep that writes them and for
+// the adjoint, which walks the diagonals in reverse. A row-major grid would
+// be exact in size but strided by C + 1 between neighbouring rows on both
 // sides.
 //
-// The sparse stack (kSparseStack, window W >= 2) keeps only the rows of the
-// full stack whose diagonal p has p % W < 2: pair w holds diagonals (w W,
-// w W + 1) at rows 2 w and 2 w + 1, for the ckpt_pairs(R, C, W) windows the
-// adjoint reads. Each pair anchors the recompute of its window's W - 2
-// other diagonals (adjoint_ckpt.cu), so the stack is about W / 2 times
-// smaller.
-//
-// A stripe (kStripe). The rows of a grid too tall for one block are cut
-// into stripes, each swept by this loop with the stripe's height as R: row
-// 0 is then not the constant 1 but the north boundary bd[0 .. C], the
-// bottom row of the stripe above (bd[0] = 1, the west corner), written into
-// row 0 of each diagonal's ring slot before that diagonal's barrier; and
-// the thread that computes row R writes it out as bottom[0 .. C], the next
-// stripe's boundary. Stack rows then hold bd in row 0.
+// The sparse stack (K2-sparse writes it, K8 reads it; window W >= 2) keeps
+// only the rows of the full stack whose diagonal p has p % W < 2: pair w
+// holds diagonals (w W, w W + 1) at rows 2 w and 2 w + 1, for the
+// ckpt_pairs(R, C, W) windows the adjoint reads. Each pair anchors the
+// recompute of its window's W - 2 other diagonals (adjoint_ckpt.cu), so the
+// stack is about W / 2 times smaller.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,8 +77,6 @@ __device__ __forceinline__ T edge(int i, int p, int C) {
   return (i >= p - C && i <= p) ? T(1) : T(0);
 }
 
-enum StackMode : int { kNoStack = 0, kFullStack = 1, kSparseStack = 2 };
-
 // Row pairs of the sparse stack of an R x C grid at window W: one per
 // window that the adjoint's diagonals 0 .. R + C - 2 touch.
 __host__ __device__ inline int ckpt_pairs(int R, int C, int W) {
@@ -93,39 +85,11 @@ __host__ __device__ inline int ckpt_pairs(int R, int C, int W) {
 
 // Sweep an R x C refined grid (R >= 1); inc(r, c) is the refined increment
 // of cell (r + 1, c + 1) in the solve's frame. Returns K[R, C] to every
-// thread. kStack: also write the full or the sparse stack (see above,
-// window W for the sparse one) to `stack`; kStripe: take row 0 from `bd`
-// and write row R to `bottom`. The value-only instance compiles to the
-// loop it always was.
-template <typename T, int kStack = kNoStack, bool kStripe = false,
-          typename Inc>
-__device__ T sweep(T* ring, int R, int C, bool naive, const Inc& inc,
-                   T* __restrict__ stack = nullptr, int W = 0,
-                   const T* __restrict__ bd = nullptr,
-                   T* __restrict__ bottom = nullptr) {
+// thread.
+template <typename T, typename Inc>
+__device__ T sweep(T* ring, int R, int C, bool naive, const Inc& inc) {
   const int stride = R + 1;
-  // the value of a cell the sweep does not compute on diagonal p
-  auto fixed = [&](int i, int p) -> T {
-    if constexpr (kStripe) {
-      if (i == 0) return p <= C ? bd[p] : T(0);
-    }
-    return edge<T>(i, p, C);
-  };
-  for (int k = threadIdx.x; k < 3 * stride; k += blockDim.x) {
-    ring[k] = kStripe && k == 0 ? fixed(0, 0)
-              : kStripe && k == stride ? fixed(0, 1) : T(1);
-  }
-  if constexpr (kStack != kNoStack) {
-    // diagonals 0 and 1 sit in rows 0 and 1 of both stacks
-    for (int i = threadIdx.x; i <= R; i += blockDim.x) {
-      stack[i] = fixed(i, 0);
-      stack[stride + i] = fixed(i, 1);
-    }
-  }
-  if constexpr (kStripe) {
-    if (threadIdx.x == 0) bottom[0] = T(1);  // K[R, 0], the west boundary
-  }
-  const int last_pair = kStack == kSparseStack ? ckpt_pairs(R, C, W) - 1 : 0;
+  for (int k = threadIdx.x; k < 3 * stride; k += blockDim.x) ring[k] = T(1);
   __syncthreads();
   for (int p = 2; p <= R + C; ++p) {
     T* cur = ring + (p % 3) * stride;
@@ -133,41 +97,9 @@ __device__ T sweep(T* ring, int R, int C, bool naive, const Inc& inc,
     const T* m2 = ring + ((p - 2) % 3) * stride;
     const int lo = p - C > 1 ? p - C : 1;
     const int hi = p - 1 < R ? p - 1 : R;
-    if constexpr (kStripe) {
-      if (threadIdx.x == 0 && p <= C) cur[0] = bd[p];
-    }
-    T* row = nullptr;  // this diagonal's stack row, if it keeps one
-    if constexpr (kStack == kFullStack) {
-      row = stack + static_cast<int64_t>(p) * stride;
-    } else if constexpr (kStack == kSparseStack) {
-      if (p % W < 2 && p / W <= last_pair) {
-        row = stack + static_cast<int64_t>(2 * (p / W) + p % W) * stride;
-      }
-    }
-    if (kStack != kNoStack && row != nullptr) {  // uniform over the block
-      for (int i = threadIdx.x; i <= R; i += blockDim.x) {
-        T v;
-        if (i >= lo && i <= hi) {
-          v = scheme(m2[i - 1], m1[i - 1], m1[i], inc(i - 1, p - i - 1),
-                     naive);
-          cur[i] = v;
-          if constexpr (kStripe) {
-            if (i == R) bottom[p - R] = v;
-          }
-        } else {
-          v = fixed(i, p);
-        }
-        row[i] = v;
-      }
-    } else {
-      for (int i = lo + threadIdx.x; i <= hi; i += blockDim.x) {
-        const T v = scheme(m2[i - 1], m1[i - 1], m1[i],
-                           inc(i - 1, p - i - 1), naive);
-        cur[i] = v;
-        if constexpr (kStripe) {
-          if (i == R) bottom[p - R] = v;
-        }
-      }
+    for (int i = lo + threadIdx.x; i <= hi; i += blockDim.x) {
+      cur[i] = scheme(m2[i - 1], m1[i - 1], m1[i], inc(i - 1, p - i - 1),
+                      naive);
     }
     __syncthreads();
   }
@@ -175,7 +107,8 @@ __device__ T sweep(T* ring, int R, int C, bool naive, const Inc& inc,
 }
 
 // A base increment grid (Mb, Nb) read in the solve's frame (transposed when
-// Mb > Nb), refined by an index shift and the exact 1 / f^2 (K2, K3<inc>).
+// Mb > Nb), refined by an index shift and the exact 1 / f^2 (K3<inc>, and
+// K8's one-block kernel).
 template <typename T>
 struct IncGrid {
   const T* g;
@@ -192,7 +125,7 @@ struct IncGrid {
 // of the frame, read as zero at and past the frame's R rows (the zero-row
 // padding of the striped adjoint, which copies rows exactly), and with
 // flip the stripe's increments reversed along both axes (the reverse
-// problem's stripe; K7, K3<inc, boundary>).
+// problem's stripe; K3<inc, boundary>'s one-block kernel).
 template <typename T>
 struct StripeGrid {
   IncGrid<T> grid;

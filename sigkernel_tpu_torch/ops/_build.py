@@ -35,21 +35,30 @@ SMEM_BYTES = 232448
 
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
-    # inc, out, P, Mb, Nb, f, naive, device, stream
-    "sk_inc_wavefront_f32": [_P, _P, _I64, _I, _I, _I, _I, _I, _P],
-    "sk_inc_wavefront_f64": [_P, _P, _I64, _I, _I, _I, _I, _I, _P],
+    # inc, out, scratch, counters, P, Mb, Nb, f, nbands, naive, device,
+    # stream
+    "sk_inc_wavefront_f32": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                             _P],
+    "sk_inc_wavefront_f64": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                             _P],
     # rows, cols, ri, ci, out, scratch, counters, P, Lr, Lc, D, f, sigma,
     # nbands, naive, device, stream
     "sk_rbf_gen_wavefront_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                                  _I, _D, _I, _I, _I, _P],
     "sk_rbf_gen_wavefront_f64": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                                  _I, _D, _I, _I, _I, _P],
-    # inc, out, stack, P, Mb, Nb, f, naive, device, stream
-    "sk_inc_stack_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
-    "sk_inc_stack_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
-    # inc, out, sparse, P, Mb, Nb, f, W, naive, device, stream
-    "sk_inc_sparse_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
-    "sk_inc_sparse_f64": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
+    # inc, out, stack, scratch, counters, P, Mb, Nb, f, nbands, naive,
+    # device, stream
+    "sk_inc_stack_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                         _P],
+    "sk_inc_stack_f64": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                         _P],
+    # inc, out, sparse, scratch, counters, P, Mb, Nb, f, W, nbands, naive,
+    # device, stream
+    "sk_inc_sparse_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
+    "sk_inc_sparse_f64": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
     # inc, bd, bottom, scratch, counters, P, Mb, Nb, f, row0, rows, nbands,
     # flip, naive, device, stream
     "sk_stripe_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I,
@@ -209,9 +218,11 @@ def library() -> ctypes.CDLL:
 
 
 def max_rows(itemsize: int) -> int:
-    """The one size bound of the wavefront kernels: the most rows whose ring
+    """The size bound of the one-block wavefront kernels (K3<inc>, K6, and
+    K3<gen>, K3<inc, boundary> and K8 past f = 32): the most rows whose ring
     of three diagonals fits one block's shared memory (9,684 in double,
-    19,369 in float). Past it the grid takes stripes (``cuda_blocked``)."""
+    19,369 in float). Past it the routes take stripes (``cuda_blocked``);
+    the band kernels have no such bound."""
     return SMEM_BYTES // (3 * itemsize) - 1
 
 

@@ -179,14 +179,15 @@ def _sweep_tile(north, west, u, scheme):
     return tile
 
 
-def _band_sweep(u, bd, naive, H, Wc, visit=None):
+def _band_sweep(u, bd, naive, H, Wc, visit=None, handoff=None):
     """The band decomposition in plain PyTorch: the refined increments ``u
     (P, rows, C)`` swept in bands of ``H`` rows, one after another, each in
     chunks of ``Wc`` columns, a chunk taking its north row from the band
     above's hand-off row (``bd`` for band 0) and its west column from the
     chunk before. Calls ``visit(i0, c0, tile)`` on each chunk's tile (its
     cell ``(r, q)`` is the stripe's ``(i0 - 1 + r, c0 - 1 + q)``) and
-    returns the bottom row ``(P, C + 1)``."""
+    returns the bottom row ``(P, C + 1)``. ``handoff`` (a negative control
+    of the tests) maps each hand-off row between two bands."""
     P, rows, C = u.shape
     scheme = scan_solver.get_scheme(naive)
     above = bd
@@ -203,7 +204,7 @@ def _band_sweep(u, bd, naive, H, Wc, visit=None):
             below[:, c0:c0 + w] = tile[:, -1, 1:]
             if visit is not None:
                 visit(i0, c0, tile)
-        above = below
+        above = below if handoff is None or i0 + h > rows else handoff(below)
     return above
 
 
@@ -228,11 +229,12 @@ def stripe_solve_banded_plain(inc, bd, row0, rows, dyadic_order=0,
     return banded_sweep(u, bd, naive, H, Wc, stack)
 
 
-def banded_sweep(u, bd, naive=False, H=BAND_ROWS, Wc=CHUNK, stack=False):
+def banded_sweep(u, bd, naive=False, H=BAND_ROWS, Wc=CHUNK, stack=False,
+                 handoff=None):
     """:func:`_band_sweep` of the refined increments ``u (P, rows, C)`` from
     the north boundary ``bd``: the bottom row ``(P, C + 1)``, with ``stack``
     also the stack ``(P, rows + C + 1, rows + 1)`` (row 0 = ``bd``) written
-    as the band kernel writes it."""
+    as the band kernel writes it; ``handoff``: :func:`_band_sweep`'s."""
     P, rows, C = u.shape
     stk = visit = None
     if stack:
@@ -244,7 +246,7 @@ def banded_sweep(u, bd, naive=False, H=BAND_ROWS, Wc=CHUNK, stack=False):
         def visit(i0, c0, tile):
             i, c = _tile_cells(i0, c0, tile)
             stk[:, i + c, i.expand(i.shape[0], c.shape[1])] = tile[:, 1:, 1:]
-    bottom = _band_sweep(u, bd, naive, H, Wc, visit)
+    bottom = _band_sweep(u, bd, naive, H, Wc, visit, handoff)
     return (bottom, stk) if stack else bottom
 
 

@@ -7,13 +7,18 @@ K2 replaces the value path of ``sigkernel_tpu/ops/pallas_solver.py``
 ``sigkernel_tpu/ops/pallas_df64.py`` (``_wavefront_df_kernel``,
 ``_wavefront_df_planes_kernel``): the corner ``K[MM, NN]`` of each pair's
 Goursat solve over a base increment grid ``(P, Mb, Nb)`` refined by
-``2^dyadic_order`` in the kernel. One block per pair; the ring of three
-anti-diagonals of the shorter refined side lives in shared memory. On the
-H100 it is bound by reading the increment grid from device memory; the
-kernel reads it at base resolution and never builds the refined grid.
+``2^dyadic_order`` in the kernel, in the solve's frame (transposed when
+``Mb > Nb``). It is the band-pipelined wavefront of ``csrc/band_sweep.cuh``
+over each pair's whole frame from 1s, with the grid as its increment
+source (``IncSource``): a block per (pair, band of
+:data:`.cuda_blocked.BAND_ROWS` rows), a lane a row, no row bound
+(:func:`inc_solve_final_banded_plain` emulates it). On the H100 its bound
+is reading the increment grid, which it reads at base resolution: the
+refined grid never exists.
 
 K2-stack (:func:`inc_solve_stack`) also writes the solution stack, the
-grid/stack outputs of those TPU kernels. K3<inc> (:func:`inc_adjoint`)
+grid/stack outputs of those TPU kernels, on the same band kernel
+(:func:`inc_solve_stack_banded_plain`). K3<inc> (:func:`inc_adjoint`)
 replaces ``pallas_adjoint.py``'s ``_product_kernel``,
 ``_product_collapse_kernel`` and ``_product_collapse_planes_kernel``: the
 reverse sweep, its product with the stack, and the dyadic collapse, giving
@@ -21,7 +26,8 @@ the base-resolution gradient of each corner in its increments.
 
 K2-sparse (:func:`inc_solve_sparse`) writes only the sparse stack, two of
 every :data:`CKPT_WINDOW` diagonals (the ckpt output of
-``pallas_df64.py``'s ``_wavefront_df_kernel``), and K8
+``pallas_df64.py``'s ``_wavefront_df_kernel``), on the band kernel's
+sparse-stack mode (:func:`inc_solve_sparse_banded_plain`), and K8
 (:func:`inc_adjoint_ckpt`, ``csrc/adjoint_ckpt.cu``) replaces
 ``pallas_adjoint.py``'s ``_product_ckpt_kernel``: K3<inc> with the skipped
 forward diagonals recomputed in-kernel, window by window, bit for bit as
@@ -37,10 +43,13 @@ forward values a window at a time from the sparse stack, with a halo of
 it); past that the one-block kernel (a block a pair, a barrier a diagonal,
 within the row bound).
 
-Each wrapper launches its kernel for CUDA tensors and takes its plain
-version (``*_plain``) only for CPU tensors. ``COUNTS``, ``STACK_COUNTS``,
-``ADJOINT_COUNTS``, ``SPARSE_COUNTS`` and ``CKPT_COUNTS`` hold the kernel
-launches per dtype and the calls of the plain versions;
+The three K2 wrappers launch the pairs in chunks that keep the bands'
+hand-off scratch within :data:`.cuda_gen.SCRATCH_BYTES` and a launch
+within :data:`TICKETS` blocks. Each wrapper launches its kernel for CUDA
+tensors and takes its plain version (``*_plain``) only for CPU tensors.
+``COUNTS``, ``STACK_COUNTS``, ``ADJOINT_COUNTS``, ``SPARSE_COUNTS`` and
+``CKPT_COUNTS`` hold the kernel launches per dtype and the calls of the
+plain versions;
 ``CKPT_COUNTS["one_block"]`` counts K8's one-block launches, which the
 dtype keys leave out.
 """
@@ -62,8 +71,9 @@ CKPT_COUNTS = {"float32": 0, "float64": 0, "one_block": 0, "plain": 0}
 # recompute W - 2 diagonals a window with a halo of W - 2 rows
 # (csrc/band_sweep.cuh). Read at call time.
 CKPT_WINDOW = 8
-# K8's band kernel: the most blocks one launch may hold (its ticket counter
-# is a 32-bit int); more pairs take more launches
+# the band kernels (K2, K2-stack, K2-sparse, K8): the most blocks one launch
+# may hold (the ticket counter is a 32-bit int); more pairs take more
+# launches
 TICKETS = (1 << 31) - 1
 
 _FNS = {torch.float32: "sk_inc_wavefront_f32",
@@ -119,6 +129,87 @@ def inc_solve_stack_plain(inc: torch.Tensor, dyadic_order: int = 0,
     grid = scan_solver.solve_grid(dyadic_refine(inc, dyadic_order), naive)
     # clone: a view of the corner would keep the whole grid alive
     return grid[..., -1, -1].clone(), scan_solver.grid_to_stack(grid)
+
+
+def inc_solve_final_banded_plain(inc: torch.Tensor, dyadic_order: int = 0,
+                                 naive: bool = False, H=None, Wc=None,
+                                 handoff=None) -> torch.Tensor:
+    """K2's band kernel in plain PyTorch, for the tests: the whole frame's
+    refined increments by the kernel's index arithmetic
+    (:func:`.cuda_blocked._band_increments`) swept from a row 0 of 1s in
+    bands of ``H`` rows and chunks of ``Wc`` columns (default: the
+    kernel's, :data:`.cuda_blocked.BAND_ROWS` and
+    :data:`.cuda_blocked.CHUNK`); the corners ``(P,)``. Bit for bit
+    :func:`inc_solve_final_plain`; no route runs it. ``handoff``: a
+    negative control (:func:`.cuda_blocked._band_sweep`)."""
+    P, Mb, Nb = inc.shape
+    if P == 0 or Mb == 0 or Nb == 0:
+        return inc.new_ones(P)
+    u, bd = _frame_increments(inc, dyadic_order)
+    return cuda_blocked.banded_sweep(
+        u, bd, naive, H or cuda_blocked.BAND_ROWS, Wc or cuda_blocked.CHUNK,
+        handoff=handoff)[:, -1].clone()
+
+
+def inc_solve_stack_banded_plain(inc: torch.Tensor, dyadic_order: int = 0,
+                                 naive: bool = False, H=None, Wc=None,
+                                 handoff=None):
+    """K2-stack's band kernel in plain PyTorch, for the tests: ``(values,
+    stack)`` as :func:`inc_solve_final_banded_plain` sweeps them, the stack
+    written as the kernel writes it (:func:`.cuda_blocked.banded_sweep`:
+    row 0 the constant 1 to column C, the swept cells on their diagonals,
+    1 at column 0, 0 outside). Bit for bit :func:`inc_solve_stack_plain`."""
+    u, bd = _frame_increments(inc, dyadic_order)
+    bottom, stack = cuda_blocked.banded_sweep(
+        u, bd, naive, H or cuda_blocked.BAND_ROWS, Wc or cuda_blocked.CHUNK,
+        stack=True, handoff=handoff)
+    return bottom[:, -1].clone(), stack
+
+
+def inc_solve_sparse_banded_plain(inc: torch.Tensor, dyadic_order: int = 0,
+                                  naive: bool = False, H=None, Wc=None,
+                                  W=None, handoff=None):
+    """K2-sparse's band kernel in plain PyTorch, for the tests: ``(values,
+    sparse stack)`` at window ``W`` (default :func:`window`), every entry
+    written as the kernel's sparse-stack mode writes it, into a stack of
+    NaN: row 0 the constant 1 to column C, then 0 (band 0's first warp);
+    each row's entries left of and at column 0 (1 at it) and past column C
+    (0) on the stored diagonals; and each swept cell whose diagonal ``p``
+    is stored (``p % W < 2``, ``p // W < ckpt_pairs``) in sparse row ``2
+    (p // W) + p % W``. Bit for bit :func:`inc_solve_sparse_plain`."""
+    P, Mb, Nb = inc.shape
+    W = window() if W is None else W
+    R, C = cuda_blocked.frame(Mb, Nb, dyadic_order)
+    pairs = scan_solver.ckpt_pairs(R, C, W)
+    dev = inc.device
+    p = torch.tensor(scan_solver.sparse_rows(R, C, W), device=dev)[:, None]
+    i = torch.arange(R + 1, device=dev)[None, :]
+    fixed = (i == 0) | (p <= i) | (p > i + C)
+    edge = torch.where(i == 0, p <= C, p == i).to(inc.dtype)
+    sparse = inc.new_full((P, 2 * pairs, R + 1), float("nan"))
+    sparse[:, fixed] = edge.expand_as(fixed)[fixed]
+
+    def visit(i0, c0, tile):
+        rows, cols = cuda_blocked._tile_cells(i0, c0, tile)
+        d = rows + cols  # each cell's diagonal
+        keep = (d % W < 2) & (d // W < pairs)
+        at = (2 * (d // W) + d % W)[keep]
+        sparse[:, at, rows.expand_as(d)[keep]] = tile[:, 1:, 1:][:, keep]
+
+    u, bd = _frame_increments(inc, dyadic_order)
+    bottom = cuda_blocked._band_sweep(
+        u, bd, naive, H or cuda_blocked.BAND_ROWS, Wc or cuda_blocked.CHUNK,
+        visit, handoff)
+    return bottom[:, -1].clone(), sparse
+
+
+def _frame_increments(inc, dyadic_order):
+    """The whole frame's refined increments ``(P, R, C)`` as the band
+    kernel's ``IncSource`` reads them, and its row 0, 1s ``(P, C + 1)``."""
+    P, Mb, Nb = inc.shape
+    R, C = cuda_blocked.frame(Mb, Nb, dyadic_order)
+    u = cuda_blocked._band_increments(inc, 2 ** dyadic_order, 0, R, False)
+    return u, inc.new_ones(P, C + 1)
 
 
 def inc_adjoint_plain(inc: torch.Tensor, stack: torch.Tensor,
@@ -276,6 +367,41 @@ def _check(inc: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: {inc.shape[0]} pairs exceed one launch")
 
 
+def _launch_band(what, fns, counts, inc, dyadic_order, naive, stack=None,
+                 W=None):
+    """K2 (no ``stack``), K2-stack or K2-sparse (``W``) on the band kernel
+    over the pairs of a ``(P, Mb, Nb)`` grid with ``P, Mb, Nb >= 1``, in
+    launches of at most :func:`.cuda_gen.gen_chunk` pairs (the bands'
+    hand-off scratch within :data:`.cuda_gen.SCRATCH_BYTES`) and
+    :data:`TICKETS` blocks, each with freshly zeroed counters (the scratch
+    and counters reused across the launches, on one stream). Returns the
+    corners ``(P,)``; ``stack`` (its pairs' stacks) is written."""
+    from . import cuda_gen  # cuda_gen imports this module
+
+    P, Mb, Nb = inc.shape
+    f = 2 ** dyadic_order
+    R, C = cuda_blocked.frame(Mb, Nb, dyadic_order)
+    nbands = -(-R // cuda_blocked.BAND_ROWS)
+    size = inc.element_size()
+    chunk = max(1, min(cuda_gen.gen_chunk(P, R, C, size), TICKETS // nbands))
+    scratch = torch.empty(chunk * (nbands - 1) * (C + 1), dtype=inc.dtype,
+                          device=inc.device)
+    counters = torch.empty(chunk * nbands + 1, dtype=torch.int32,
+                           device=inc.device)
+    out = torch.empty(P, dtype=inc.dtype, device=inc.device)
+    per_grid = Mb * Nb * size
+    per_stack = stack[0].numel() * size if stack is not None else 0
+    for s in range(0, P, chunk):
+        counters.zero_()
+        at = (inc.data_ptr() + per_grid * s, out.data_ptr() + size * s)
+        if stack is not None:
+            at += (stack.data_ptr() + per_stack * s,)
+        _build.launch(what, fns, counts, inc, *at, scratch.data_ptr(),
+                      counters.data_ptr(), min(chunk, P - s), Mb, Nb, f,
+                      *(() if W is None else (W,)), nbands, int(naive))
+    return out
+
+
 def inc_solve_final(inc: torch.Tensor, dyadic_order: int = 0,
                     naive: bool = False) -> torch.Tensor:
     """``K[MM, NN]`` for each pair of a ``(P, Mb, Nb)`` base increment grid."""
@@ -286,12 +412,8 @@ def inc_solve_final(inc: torch.Tensor, dyadic_order: int = 0,
     if P == 0 or Mb == 0 or Nb == 0:
         # no pairs, or a length-1 path (K is its boundary, 1): no launch
         return inc.new_ones(P)
-    f = 2 ** dyadic_order
-    _build.check_rows(min(Mb, Nb) * f, inc.element_size(), "inc_solve_final")
-    out = torch.empty(P, dtype=inc.dtype, device=inc.device)
-    _build.launch("inc_wavefront", _FNS, COUNTS, inc, inc.data_ptr(),
-                  out.data_ptr(), P, Mb, Nb, f, int(naive))
-    return out
+    return _launch_band("inc_wavefront", _FNS, COUNTS, inc, dyadic_order,
+                        naive)
 
 
 def inc_solve_stack(inc: torch.Tensor, dyadic_order: int = 0,
@@ -306,15 +428,12 @@ def inc_solve_stack(inc: torch.Tensor, dyadic_order: int = 0,
     if Mb == 0 or Nb == 0:
         raise ValueError("inc_solve_stack: a length-1 path has no stack")
     f = 2 ** dyadic_order
-    _build.check_rows(min(Mb, Nb) * f, inc.element_size(), "inc_solve_stack")
-    out = torch.empty(P, dtype=inc.dtype, device=inc.device)
     stack = torch.empty(stack_shape(P, Mb * f, Nb * f), dtype=inc.dtype,
                         device=inc.device)
-    if P:
-        _build.launch("inc_stack", _STACK_FNS, STACK_COUNTS, inc,
-                      inc.data_ptr(), out.data_ptr(), stack.data_ptr(), P, Mb,
-                      Nb, f, int(naive))
-    return out, stack
+    if P == 0:
+        return inc.new_ones(0), stack
+    return _launch_band("inc_wavefront[stack]", _STACK_FNS, STACK_COUNTS,
+                        inc, dyadic_order, naive, stack), stack
 
 
 def inc_adjoint(inc: torch.Tensor, stack: torch.Tensor,
@@ -356,15 +475,12 @@ def inc_solve_sparse(inc: torch.Tensor, dyadic_order: int = 0,
     if Mb == 0 or Nb == 0:
         raise ValueError("inc_solve_sparse: a length-1 path has no stack")
     f = 2 ** dyadic_order
-    _build.check_rows(min(Mb, Nb) * f, inc.element_size(), "inc_solve_sparse")
-    out = torch.empty(P, dtype=inc.dtype, device=inc.device)
     sparse = torch.empty(sparse_shape(P, Mb * f, Nb * f), dtype=inc.dtype,
                          device=inc.device)
-    if P:
-        _build.launch("inc_sparse", _SPARSE_FNS, SPARSE_COUNTS, inc,
-                      inc.data_ptr(), out.data_ptr(), sparse.data_ptr(), P,
-                      Mb, Nb, f, W, int(naive))
-    return out, sparse
+    if P == 0:
+        return inc.new_ones(0), sparse
+    return _launch_band("inc_wavefront[sparse]", _SPARSE_FNS, SPARSE_COUNTS,
+                        inc, dyadic_order, naive, sparse, W), sparse
 
 
 def inc_adjoint_ckpt(inc: torch.Tensor, sparse: torch.Tensor,

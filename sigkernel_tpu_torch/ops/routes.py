@@ -43,6 +43,10 @@ tier           when                       kernels
 ``striped``    R past the row bound       K7, K7-stack, K3<inc, boundary>
 =============  =========================  ===================================
 
+K2, K2-stack and K2-sparse run on the band kernel and have no row bound
+themselves; the tiers keep the bound for K3<inc>, whose ring of three
+diagonals sits in one block's shared memory.
+
 Every decision is made from shapes before any launch; nothing catches a
 kernel's failure to try another route. The memory policy is here too:
 :data:`STACK_BYTES` bounds what one chunk of pairs keeps alive
@@ -92,11 +96,13 @@ STACK_BYTES = 8 << 30
 # too low, and is kept until K3<inc> is redesigned and swept past 128.
 CKPT_MIN_PAIRS = 128
 # GEN_CKPT_MIN_PAIRS: K1-stack -> K3<gen> -> K4 (the gen family), whose band
-# kernels fill the card at any pair count: the gate sweep found it the
-# faster at every point, 5 to 128 full stacks a chunk (by 1.16-2.83x), at a
-# lower peak. So the gate is the smallest point measured; below it (grids
-# whose C far exceeds R) the tile takes inc, on the sparse route, unmeasured.
-GEN_CKPT_MIN_PAIRS = 5
+# kernels fill the card at any pair count. With K2 and K2-sparse on the
+# band kernel too, the gate sweep found the sparse route the faster at 5,
+# 8, 13 and 17 full stacks a chunk (by 1.12-1.69x) and the full route at
+# 64 and 128 (by 1.07-2.72x, at a lower peak): the gate is the smallest
+# point from which the full route won at every point measured. Between 17
+# and 64 it is unmeasured but at 32 (phase 12's scoring rule, a tie).
+GEN_CKPT_MIN_PAIRS = 64
 # base grids a pair that building one increment grid keeps alive: the
 # kernel's exponent and its exp (saved for autograd), the double difference
 GRID_COPIES = 3

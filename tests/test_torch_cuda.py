@@ -10,8 +10,10 @@ on its one-block kernel past f = 32, the stripe kernels K7,
 K7-stack and K3<inc, boundary> (its band kernel, and its one-block kernel
 past f = 32), the sparse-checkpoint pair K2-sparse and
 K8 (K8's band kernel at the edges of its decomposition, its one-block
-kernel past f = 32), and values and gradients through the estimators against the plain
-tier.
+kernel past f = 32), K2, K2-stack and K2-sparse on their band kernel at
+its edges (bit for bit against their plain versions and emulations, run
+to run, past the one-block row bound), and values and gradients through
+the estimators against the plain tier.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode); without one
 they skip. On a GPU machine, run them without the JAX-side conftest:
@@ -117,11 +119,16 @@ def test_launch_counters_count_launches(cuda):
 
 
 def test_shared_memory_bound_raises(cuda):
+    """K3<inc>, one block a pair, keeps the row bound of its ring in shared
+    memory; K2, on the band kernel since it has none, takes the grid."""
     rows = _build.SMEM_BYTES // (3 * 8)        # one row past the f64 bound
     inc = torch.zeros(1, rows // 4 + 1, rows // 4 + 1, dtype=torch.float64,
                       device=cuda)
     with pytest.raises(ValueError, match="shared"):
-        cuda_solver.inc_solve_final(inc, dyadic_order=2)
+        cuda_solver.inc_adjoint(inc, torch.empty(0, device=cuda),
+                                dyadic_order=2)
+    assert torch.equal(cuda_solver.inc_solve_final(inc, dyadic_order=2),
+                       torch.ones(1, dtype=torch.float64, device=cuda))
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -782,7 +789,59 @@ def test_long_path_routes_resolve_by_shape(cuda):
         "striped")
     assert routes.resolve_inc_tier((4092, 4092), 8, backward=True) == "ckpt"
     assert routes.resolve_family(skt.RBFKernel(1.0), "cuda", "auto",
-                                 shape=(4092, 4092), need_grad=True) == "gen"
+                                 shape=(4092, 4092), need_grad=True) == "inc"
+    assert routes.resolve_family(skt.RBFKernel(1.0), "cuda", "auto",
+                                 shape=(2892, 2892), need_grad=True) == "gen"
     assert routes.resolve_inc_tier((2046, 2046), 8, backward=True) == "full"
     assert routes.resolve_family(skt.RBFKernel(1.0), "cuda", "auto",
                                  shape=(past, past)) == "inc"
+
+
+# K2, K2-stack and K2-sparse on the band kernel (tests/test_torch_band_inc.py
+# emulates them): (pairs, Mb, Nb, dyadic, W). Frames of fewer than 32 rows,
+# transposed grids, a second band (R 130), R 37 against C 301, dyadic 3 and
+# 6 (f 64: the band modes read f at run time), W 2, 3 and 8, and more
+# blocks than the card holds at once (3,000 pairs)
+INC_BAND_CASES = [
+    (3, 5, 7, 1, 8), (3, 37, 20, 0, 3), (2, 130, 140, 0, 2),
+    (2, 37, 301, 0, 8), (3, 9, 12, 3, 3), (2, 3, 4, 6, 8), (2, 1, 40, 0, 2),
+    (3000, 16, 16, 2, 8),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("naive", [False, True])
+@pytest.mark.parametrize("P,Mb,Nb,dyadic,W", INC_BAND_CASES)
+def test_band_inc_matches_plain_and_emulation(cuda, monkeypatch, dtype, naive,
+                                              P, Mb, Nb, dyadic, W):
+    """Each K2 instance bit for bit its plain version and its emulation,
+    and two launches bit-identical."""
+    monkeypatch.setattr(cuda_solver, "CKPT_WINDOW", W)
+    inc = _grid(Mb, Nb, 60 + Mb + dyadic, cuda, dtype, P)
+    runs = [(cuda_solver.inc_solve_final, cuda_solver.inc_solve_final_plain,
+             cuda_solver.inc_solve_final_banded_plain),
+            (cuda_solver.inc_solve_stack, cuda_solver.inc_solve_stack_plain,
+             cuda_solver.inc_solve_stack_banded_plain),
+            (cuda_solver.inc_solve_sparse, cuda_solver.inc_solve_sparse_plain,
+             cuda_solver.inc_solve_sparse_banded_plain)]
+    for kernel, plain, banded in runs:
+        got, again = (kernel(inc, dyadic, naive) for _ in range(2))
+        want = [plain(inc, dyadic, naive)]
+        if P < 100:
+            want.append(banded(inc, dyadic, naive))
+        for w in want + [again]:
+            for g, v in zip(*(t if isinstance(t, tuple) else (t,)
+                              for t in (got, w))):
+                assert g.shape == v.shape and torch.equal(g, v)
+
+
+def test_band_inc_takes_rows_past_the_one_block_bound(cuda):
+    """K2 in float on a frame past the one-block row bound (19,376 rows
+    against 19,369), bit for bit its plain version."""
+    X = _paths(1, 4845, 2, 70, cuda, torch.float32)
+    Y = _paths(1, 4846, 2, 71, cuda, torch.float32)
+    inc = double_difference(skt.RBFKernel(0.7).batch_kernel(X, Y)).contiguous()
+    assert min(inc.shape[1:]) * 4 > _build.max_rows(4)
+    got = cuda_solver.inc_solve_final(inc, 2)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, cuda_solver.inc_solve_final_plain(inc, 2))

@@ -178,15 +178,17 @@ def test_resolve_inc_tier_matrix(MM, NN, itemsize, backward):
 
 
 # the backward tier at the generator's ckpt gate (K1-stack -> K3<gen>: full
-# while STACK_BYTES holds at least 5 pairs' full stacks): (MM, NN, itemsize)
-# -> tier
+# while STACK_BYTES holds at least 64 pairs' full stacks): (MM, NN,
+# itemsize) -> tier
 _GEN_TIERS = {
     (2046, 2046, 8): "full",       # 128 a chunk
-    (4092, 4092, 8): "full",       # phase 12's size: 32 a chunk
-    (4092, 4092, 4): "full",
-    (8192, 8192, 4): "full",       # length 2,049, dyadic 2: 16
-    (9596, 9596, 8): "full",       # length 2,400, dyadic 2: 5
-    (9684, 12000, 8): "full",      # 1.68 GB: 5 a chunk
+    (2895, 2895, 8): "full",       # 64 a chunk: the gate
+    (2896, 2896, 8): "ckpt",       # 63 a chunk
+    (4092, 4092, 8): "ckpt",       # phase 12's size: 32 a chunk
+    (4092, 4092, 4): "full",       # 64 a chunk
+    (8192, 8192, 4): "ckpt",       # length 2,049, dyadic 2: 16
+    (9596, 9596, 8): "ckpt",       # length 2,400, dyadic 2: 5
+    (9684, 12000, 8): "ckpt",      # 1.68 GB: 5 a chunk
     (9684, 13000, 8): "ckpt",      # 1.76 GB: 4 a chunk
     (9685, 20000, 8): "striped",
     (0, 20000, 8): "full",
@@ -226,17 +228,20 @@ _GATED = {
     ("rbf", 4092, 4092, "f64", "auto", False): "gen",
     ("linear", 2046, 2046, "f64", "auto", False): "lgen",
     ("linear", 2046, 2046, "f32", "auto", False): "lgen",
-    # the long-path tier: the ckpt gates (the generator's, 5 full stacks a
-    # chunk, which phase 12's size passes with 32; Linear's backward is
-    # K2-stack -> K3<inc>, behind the gate of 128) and the row bound
-    ("rbf", 4092, 4092, "f64", "auto", True): "gen",
+    # the long-path tier: the ckpt gates (the generator's, 64 full stacks a
+    # chunk, which phase 12's size fails with 32 in double and passes with
+    # 64 in float; Linear's backward is K2-stack -> K3<inc>, behind the gate
+    # of 128) and the row bound
+    ("rbf", 4092, 4092, "f64", "auto", True): "inc",
     ("rbf", 4092, 4092, "f64", "f32", True): "gen",
     ("rbf", 4092, 4092, "f32", "auto", True): "gen",
     ("rbf", 2044, 2044, "f64", "auto", True): "gen",    # 128 a chunk
     ("rbf", 2364, 2364, "f64", "auto", True): "gen",    # 96 a chunk
-    ("rbf", 9596, 9596, "f64", "auto", True): "gen",    # 5 a chunk
+    ("rbf", 2892, 2892, "f64", "auto", True): "gen",    # 64 a chunk
+    ("rbf", 2900, 2900, "f64", "auto", True): "inc",    # 63 a chunk
+    ("rbf", 9596, 9596, "f64", "auto", True): "inc",    # 5 a chunk
     ("rbf", 9684, 13000, "f64", "auto", True): "inc",   # 4 a chunk
-    ("rbf", 8192, 8192, "f32", "auto", True): "gen",
+    ("rbf", 8192, 8192, "f32", "auto", True): "inc",    # 16 a chunk
     ("linear", 4092, 4092, "f64", "auto", True): "inc",
     ("linear", 2364, 2364, "f64", "auto", True): "inc",   # 96 a chunk
     ("linear", 2044, 2044, "f64", "auto", True): "lgen",  # 128 a chunk
