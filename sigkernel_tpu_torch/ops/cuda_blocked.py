@@ -61,6 +61,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, cuda_solver, scan_solver
+from ..tracing import spanned
 from ..utils import dyadic_refine
 
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
@@ -402,6 +403,7 @@ def _band_scratch(inc, rows, C):
     return nbands, scratch, counters
 
 
+@spanned("sk.op.stripe_wavefront")
 def stripe_solve(inc, bd, row0, rows, dyadic_order=0, naive=False,
                  flip=False) -> torch.Tensor:
     """K7: the bottom row ``(P, C + 1)`` of the stripe of refined frame rows
@@ -424,6 +426,7 @@ def stripe_solve(inc, bd, row0, rows, dyadic_order=0, naive=False,
     return bottom
 
 
+@spanned("sk.op.stripe_wavefront[stack]")
 def stripe_solve_stack(inc, bd, row0, rows, dyadic_order=0, naive=False,
                        flip=False):
     """K7-stack: ``(bottom row, stack)``, the stack ``(P, rows + C + 1,
@@ -446,6 +449,7 @@ def stripe_solve_stack(inc, bd, row0, rows, dyadic_order=0, naive=False,
     return bottom, stack
 
 
+@spanned("sk.op.adjoint_collapse_stripe")
 def stripe_adjoint(inc, stack, bd, ct, row0, rows, dyadic_order=0,
                    naive=False) -> torch.Tensor:
     """K3<inc, boundary>: add the unscaled block sums of forward stripe

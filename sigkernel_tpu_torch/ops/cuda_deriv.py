@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, cuda_blocked, cuda_gen, scan_solver
+from ..tracing import spanned
 from ..utils import dyadic_refine
 
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
@@ -117,6 +118,7 @@ def _check(inc, inc_d, inc_dd) -> None:
                              f"only, and {name} requires a gradient")
 
 
+@spanned("sk.op.deriv_wavefront")
 def deriv_solve_final(inc, inc_d, inc_dd, dyadic_order: int = 0):
     """``(K, K_diff, K_diffdiff)`` corners, each ``(P,)``, of three
     ``(P, Mb, Nb)`` base increment grids."""

@@ -47,6 +47,7 @@ import torch
 
 from . import _build, cuda_blocked, scan_solver
 from .cuda_solver import stack_shape
+from ..tracing import host, spanned
 from ..utils import dyadic_refine
 
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
@@ -76,7 +77,7 @@ def sigma_value(sigma) -> float:
     """``sigma`` (a number or a 0-d tensor, which may require a gradient) as
     the double the kernels take by value."""
     if isinstance(sigma, torch.Tensor):
-        sigma = sigma.detach()
+        return float(host(sigma.detach().reshape(()), "sigma"))
     return float(sigma)
 
 
@@ -316,8 +317,8 @@ def check_pairs(X, Y, ii, jj, what):
     ii = ii.to(torch.int64).contiguous()
     jj = jj.to(torch.int64).contiguous()
     if ii.shape[0]:
-        lo_i, hi_i, lo_j, hi_j = torch.stack(
-            [ii.min(), ii.max(), jj.min(), jj.max()]).tolist()
+        lo_i, hi_i, lo_j, hi_j = host(torch.stack(
+            [ii.min(), ii.max(), jj.min(), jj.max()]), "index_bounds")
         if lo_i < 0 or lo_j < 0 or hi_i >= X.shape[0] or hi_j >= Y.shape[0]:
             raise ValueError(f"{what}: pair index out of range")
     return ii, jj
@@ -383,6 +384,7 @@ def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
                       sigma_value(sigma), nbands, *frame, int(naive))
 
 
+@spanned("sk.op.rbf_gen_wavefront")
 def rbf_gen_solve_final(X, Y, ii, jj, sigma, dyadic_order: int = 0,
                         naive: bool = False) -> torch.Tensor:
     """RBF signature kernel of the pairs ``(X[ii[p]], Y[jj[p]])`` -> ``(P,)``.
@@ -404,6 +406,7 @@ def rbf_gen_solve_final(X, Y, ii, jj, sigma, dyadic_order: int = 0,
     return out
 
 
+@spanned("sk.op.rbf_gen_stack")
 def rbf_gen_solve_stack(X, Y, ii, jj, sigma, dyadic_order: int = 0,
                         naive: bool = False):
     """K1-stack: ``(values (P,), stack)`` of the pairs ``(X[ii[p]],
@@ -427,6 +430,7 @@ def rbf_gen_solve_stack(X, Y, ii, jj, sigma, dyadic_order: int = 0,
     return out, stack
 
 
+@spanned("sk.op.adjoint_collapse_gen")
 def rbf_gen_adjoint(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
                     naive: bool = False) -> torch.Tensor:
     """K3<gen>: the gradient ``(P, M-1, N-1)`` of each pair's value in its

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, cuda_gen, scan_solver
+from ..tracing import spanned
 from ..utils import dyadic_refine
 
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
@@ -63,6 +64,7 @@ def linear_gen_solve_final_plain(X, Y, ii, jj, scale, dyadic_order: int = 0,
     return torch.cat(outs)
 
 
+@spanned("sk.op.linear_gen_wavefront")
 def linear_gen_solve_final(X, Y, ii, jj, scale, dyadic_order: int = 0,
                            naive: bool = False) -> torch.Tensor:
     """Linear signature kernel of the pairs ``(X[ii[p]], Y[jj[p]])`` ->

@@ -58,6 +58,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, cuda_blocked, scan_solver
+from ..tracing import spanned
 from ..utils import dyadic_refine
 
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
@@ -402,6 +403,7 @@ def _launch_band(what, fns, counts, inc, dyadic_order, naive, stack=None,
     return out
 
 
+@spanned("sk.op.inc_wavefront")
 def inc_solve_final(inc: torch.Tensor, dyadic_order: int = 0,
                     naive: bool = False) -> torch.Tensor:
     """``K[MM, NN]`` for each pair of a ``(P, Mb, Nb)`` base increment grid."""
@@ -416,6 +418,7 @@ def inc_solve_final(inc: torch.Tensor, dyadic_order: int = 0,
                         naive)
 
 
+@spanned("sk.op.inc_wavefront[stack]")
 def inc_solve_stack(inc: torch.Tensor, dyadic_order: int = 0,
                     naive: bool = False):
     """K2-stack: ``(values (P,), stack)`` of a ``(P, Mb, Nb)`` base grid;
@@ -436,6 +439,7 @@ def inc_solve_stack(inc: torch.Tensor, dyadic_order: int = 0,
                         inc, dyadic_order, naive, stack), stack
 
 
+@spanned("sk.op.adjoint_collapse_inc")
 def inc_adjoint(inc: torch.Tensor, stack: torch.Tensor,
                 dyadic_order: int = 0, naive: bool = False) -> torch.Tensor:
     """K3<inc>: the gradient ``(P, Mb, Nb)`` of each pair's corner in its
@@ -462,6 +466,7 @@ def inc_adjoint(inc: torch.Tensor, stack: torch.Tensor,
     return ct / (f * f)
 
 
+@spanned("sk.op.inc_wavefront[sparse]")
 def inc_solve_sparse(inc: torch.Tensor, dyadic_order: int = 0,
                      naive: bool = False):
     """K2-sparse: ``(values (P,), sparse stack)`` of a ``(P, Mb, Nb)`` base
@@ -483,6 +488,7 @@ def inc_solve_sparse(inc: torch.Tensor, dyadic_order: int = 0,
                         inc, dyadic_order, naive, sparse, W), sparse
 
 
+@spanned("sk.op.adjoint_ckpt")
 def inc_adjoint_ckpt(inc: torch.Tensor, sparse: torch.Tensor,
                      dyadic_order: int = 0,
                      naive: bool = False) -> torch.Tensor:

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, cuda_gen
+from ..tracing import spanned
 from ..utils import dd_transpose
 
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
@@ -281,6 +282,7 @@ def rbf_dd_vjp_pairs(X, Y, ii, jj, sigma, ct):
     return ds[0], dx, dy
 
 
+@spanned("sk.op.rbf_dd_vjp")
 def rbf_dd_vjp(X, Y, ii, jj, sigma, ct):
     """``(d sigma, dX, dY)`` of ``sum(ct * dd(exp(-|x - y|^2 / sigma)))``
     over the pairs ``(X[ii[p]], Y[jj[p]])``; ``ct``: ``(P, M-1, N-1)`` in

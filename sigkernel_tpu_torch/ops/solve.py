@@ -29,6 +29,7 @@ import math
 import torch
 
 from . import cuda_blocked, cuda_solver, routes, scan_solver
+from ..tracing import span
 from ..utils import dyadic_refine
 
 
@@ -60,18 +61,21 @@ def inc_route_bwd(inc: torch.Tensor, g: torch.Tensor, naive: bool,
     tier = routes.resolve_inc_tier((MM, NN), size, backward=True)
     chunk = routes.chunk_pairs(P, routes.tier_bytes(tier, (MM, NN), size))
     for s in range(0, P, chunk):
-        c = inc[s:s + chunk].contiguous()
-        if tier == "full":
-            _, stack = cuda_solver.inc_solve_stack(c, dyadic_order, naive)
-            ct = cuda_solver.inc_adjoint(c, stack, dyadic_order, naive)
-            del stack
-        elif tier == "ckpt":
-            _, sparse = cuda_solver.inc_solve_sparse(c, dyadic_order, naive)
-            ct = cuda_solver.inc_adjoint_ckpt(c, sparse, dyadic_order, naive)
-            del sparse
-        else:
-            ct = cuda_blocked.adjoint(c, dyadic_order, naive)
-        out[s:s + chunk] = ct * g[s:s + chunk, None, None].to(ct.dtype)
+        with span("sk.est.chunk"):
+            c = inc[s:s + chunk].contiguous()
+            if tier == "full":
+                _, stack = cuda_solver.inc_solve_stack(c, dyadic_order, naive)
+                ct = cuda_solver.inc_adjoint(c, stack, dyadic_order, naive)
+                del stack
+            elif tier == "ckpt":
+                _, sparse = cuda_solver.inc_solve_sparse(c, dyadic_order,
+                                                         naive)
+                ct = cuda_solver.inc_adjoint_ckpt(c, sparse, dyadic_order,
+                                                  naive)
+                del sparse
+            else:
+                ct = cuda_blocked.adjoint(c, dyadic_order, naive)
+            out[s:s + chunk] = ct * g[s:s + chunk, None, None].to(ct.dtype)
     return out
 
 

@@ -42,6 +42,7 @@ from torch import nn
 from . import kernels as _kernels
 from .ops import cuda_deriv, cuda_gen, cuda_lgen, incvjp, routes, scan_solver
 from .ops.solve import inc_route_bwd, inc_route_fwd, solve
+from .tracing import span, spanned
 from .utils import double_difference, dyadic_refine, pad_length
 
 
@@ -105,17 +106,18 @@ def _gen_backward(X, Y, ii, jj, sigma, g, bwd_dtype, dyadic_order, naive,
         P, routes.tier_bytes("full", ((M - 1) * f, (N - 1) * f),
                              Xb.element_size()))
     for s in range(0, P, chunk):
-        ic, jc = ii[s:s + chunk], jj[s:s + chunk]
-        stk = stack
-        if stk is None:
-            _, stk = cuda_gen.rbf_gen_solve_stack(Xb, Yb, ic, jc, sigma,
-                                                  dyadic_order, naive)
-        ct = cuda_gen.rbf_gen_adjoint(Xb, Yb, ic, jc, sigma, stk,
-                                      dyadic_order, naive)
-        del stk
-        ct = ct * g[s:s + chunk].to(bwd_dtype)[:, None, None]
-        e, dx, dy = incvjp.rbf_dd_vjp(Xb, Yb, ic, jc, sigma, ct)
-        ds, dX, dY = ds + e, dX + dx, dY + dy
+        with span("sk.est.chunk"):
+            ic, jc = ii[s:s + chunk], jj[s:s + chunk]
+            stk = stack
+            if stk is None:
+                _, stk = cuda_gen.rbf_gen_solve_stack(Xb, Yb, ic, jc, sigma,
+                                                      dyadic_order, naive)
+            ct = cuda_gen.rbf_gen_adjoint(Xb, Yb, ic, jc, sigma, stk,
+                                          dyadic_order, naive)
+            del stk
+            ct = ct * g[s:s + chunk].to(bwd_dtype)[:, None, None]
+            e, dx, dy = incvjp.rbf_dd_vjp(Xb, Yb, ic, jc, sigma, ct)
+            ds, dX, dY = ds + e, dX + dx, dY + dy
     return ds, dX, dY
 
 
@@ -177,9 +179,12 @@ class _GridPairs(torch.autograd.Function):
         chunk = _grid_chunk(X, Y, P)
         vals = [X.new_empty(0)]
         for s in range(0, P, chunk):
-            dd = double_difference(static_kernel.batch_kernel(
-                X[ii[s:s + chunk]], Y[jj[s:s + chunk]]))
-            vals.append(inc_route_fwd(dd.contiguous(), naive, dyadic_order))
+            with span("sk.est.chunk"):
+                with span("sk.grid"):
+                    dd = double_difference(static_kernel.batch_kernel(
+                        X[ii[s:s + chunk]], Y[jj[s:s + chunk]]))
+                vals.append(inc_route_fwd(dd.contiguous(), naive,
+                                          dyadic_order))
         return torch.cat(vals)
 
     @staticmethod
@@ -197,18 +202,20 @@ class _GridPairs(torch.autograd.Function):
         if P and X.shape[1] >= 2 and Y.shape[1] >= 2:
             chunk = _grid_chunk(X, Y, P)
             for s in range(0, P, chunk):
-                ic, jc = ii[s:s + chunk], jj[s:s + chunk]
-                with torch.enable_grad():
-                    dd = double_difference(
-                        static_kernel.batch_kernel(Xd[ic], Yd[jc]))
-                ct = inc_route_bwd(
-                    dd.detach().to(route.bwd_dtype).contiguous(),
-                    g[s:s + chunk], naive, dyadic_order)
-                grads = torch.autograd.grad(dd, [Xd, Yd] + want,
-                                            ct.to(dd.dtype), allow_unused=True)
-                for a, d in zip(acc, grads):
-                    if d is not None:
-                        a += d
+                with span("sk.est.chunk"):
+                    ic, jc = ii[s:s + chunk], jj[s:s + chunk]
+                    with torch.enable_grad(), span("sk.grid"):
+                        dd = double_difference(
+                            static_kernel.batch_kernel(Xd[ic], Yd[jc]))
+                    ct = inc_route_bwd(
+                        dd.detach().to(route.bwd_dtype).contiguous(),
+                        g[s:s + chunk], naive, dyadic_order)
+                    grads = torch.autograd.grad(dd, [Xd, Yd] + want,
+                                                ct.to(dd.dtype),
+                                                allow_unused=True)
+                    for a, d in zip(acc, grads):
+                        if d is not None:
+                            a += d
         dX, dY, *dh = acc
         dh = iter(dh)
         return (dX, dY, None, None, None,
@@ -253,10 +260,12 @@ def _pairs(static_kernel, X, Y, ii, jj, dyadic_order, naive, solver,
         return fn.apply(X, Y, ii, jj, cfg, *_hyper(static_kernel))
     x = X if ii is None else X[ii]
     y = Y if jj is None else Y[jj]
-    dd = double_difference(static_kernel.batch_kernel(x, y))
+    with span("sk.grid"):
+        dd = double_difference(static_kernel.batch_kernel(x, y))
     return solve(dd, naive, solver, dyadic_order, grad_solver)
 
 
+@spanned("sk.est.tile")
 def _gram_tile(static_kernel, x, y, dyadic_order, naive, solver,
                grad_solver):
     """One ``(a, b)`` Gram tile."""
@@ -269,10 +278,12 @@ def _gram_tile(static_kernel, x, y, dyadic_order, naive, solver,
         jj = torch.arange(b, device=x.device).repeat(a)
         return _pairs(static_kernel, x, y, ii, jj, dyadic_order, naive,
                       solver, grad_solver).reshape(a, b)
-    dd = double_difference(static_kernel.Gram_matrix(x, y))
+    with span("sk.grid"):
+        dd = double_difference(static_kernel.Gram_matrix(x, y))
     return solve(dd, naive, solver, dyadic_order, grad_solver)
 
 
+@spanned("sk.est.sig_kernel")
 def sig_kernel(static_kernel, X, Y, dyadic_order=0, naive=False,
                solver="auto", max_batch: Optional[int] = 100,
                length_bucket: Optional[int] = None, grad_solver="auto"):
@@ -298,15 +309,18 @@ def _gram_sym_triangle(static_kernel, X, dyadic_order, naive, solver,
     iu, ju = torch.triu_indices(A, A, device=X.device)
     P = iu.shape[0]
     chunk = P if max_batch is None else min(max(max_batch, 1) ** 2, P)
-    vals = torch.cat([X.new_empty(0)] + [
-        _pairs(static_kernel, X, X, iu[s:s + chunk], ju[s:s + chunk],
-               dyadic_order, naive, solver, grad_solver)
-        for s in range(0, P, chunk)])
+    vals = [X.new_empty(0)]
+    for s in range(0, P, chunk):
+        with span("sk.est.chunk"):
+            vals.append(_pairs(static_kernel, X, X, iu[s:s + chunk],
+                               ju[s:s + chunk], dyadic_order, naive, solver,
+                               grad_solver))
     K = X.new_zeros(A, A)
-    K[iu, ju] = vals
+    K[iu, ju] = torch.cat(vals)
     return K + K.T - torch.diag(torch.diag(K))
 
 
+@spanned("sk.est.sig_gram")
 def sig_gram(static_kernel, X, Y, dyadic_order=0, sym=False, naive=False,
              solver="auto", max_batch: Optional[int] = 100,
              length_bucket: Optional[int] = None, grad_solver="auto"):
@@ -351,9 +365,10 @@ def _lincomb_value(static_kernel, X, Y, ii, jj, w, cfg):
     acc_dtype = torch.promote_types(w.dtype, X.dtype)
     S = torch.zeros((), dtype=acc_dtype, device=X.device)
     for s in range(0, ii.shape[0], chunk):
-        v = _pairs(static_kernel, X, Y, ii[s:s + chunk], jj[s:s + chunk],
-                   dyadic_order, naive, solver, grad_solver)
-        S = S + torch.sum(w[s:s + chunk] * v.to(acc_dtype))
+        with span("sk.est.chunk"):
+            v = _pairs(static_kernel, X, Y, ii[s:s + chunk], jj[s:s + chunk],
+                       dyadic_order, naive, solver, grad_solver)
+            S = S + torch.sum(w[s:s + chunk] * v.to(acc_dtype))
     return S
 
 
@@ -378,20 +393,21 @@ def _chunk_grads_gen(static_kernel, X, Y, ic, jc, wc, route, cfg):
     ds, dX, dY = Xb.new_zeros(()), torch.zeros_like(Xb), torch.zeros_like(Yb)
     vals = [X.new_empty(0)]
     for s in range(0, ic.shape[0], sub):
-        i, j = ic[s:s + sub], jc[s:s + sub]
-        if bdt == X.dtype:
-            v, stack = cuda_gen.rbf_gen_solve_stack(X, Y, i, j, sigma,
-                                                    dyadic_order, naive)
-        else:
-            v = cuda_gen.rbf_gen_solve_final(X, Y, i, j, sigma,
-                                             dyadic_order, naive)
-            _, stack = cuda_gen.rbf_gen_solve_stack(Xb, Yb, i, j, sigma,
-                                                    dyadic_order, naive)
-        e, dx, dy = _gen_backward(Xb, Yb, i, j, sigma, wc[s:s + sub], bdt,
-                                  dyadic_order, naive, stack=stack)
-        del stack
-        vals.append(v)
-        ds, dX, dY = ds + e, dX + dx, dY + dy
+        with span("sk.est.chunk"):
+            i, j = ic[s:s + sub], jc[s:s + sub]
+            if bdt == X.dtype:
+                v, stack = cuda_gen.rbf_gen_solve_stack(X, Y, i, j, sigma,
+                                                        dyadic_order, naive)
+            else:
+                v = cuda_gen.rbf_gen_solve_final(X, Y, i, j, sigma,
+                                                 dyadic_order, naive)
+                _, stack = cuda_gen.rbf_gen_solve_stack(Xb, Yb, i, j, sigma,
+                                                        dyadic_order, naive)
+            e, dx, dy = _gen_backward(Xb, Yb, i, j, sigma, wc[s:s + sub], bdt,
+                                      dyadic_order, naive, stack=stack)
+            del stack
+            vals.append(v)
+            ds, dX, dY = ds + e, dX + dx, dY + dy
     return torch.cat(vals), dX, dY, (ds,)
 
 
@@ -436,19 +452,20 @@ class _GramLincomb(torch.autograd.Function):
         gh = [torch.zeros_like(h) for h in hyper]
         vals = []
         for s in range(0, ii.shape[0], chunk):
-            ic, jc, wc = ii[s:s + chunk], jj[s:s + chunk], w[s:s + chunk]
-            if route.family == "gen":
-                v, dX, dY, dh = _chunk_grads_gen(static_kernel, X, Y, ic, jc,
-                                                 wc, route, cfg)
-            else:
-                v, dX, dY, dh = _chunk_grads_autograd(static_kernel, X, Y, ic,
-                                                      jc, wc, hyper, cfg)
-            S = S + torch.sum(wc * v.to(acc_dtype))
-            gX += dX.to(X.dtype)
-            gY += dY.to(Y.dtype)
-            for acc, d in zip(gh, dh):
-                acc += d.to(acc)
-            vals.append(v)
+            with span("sk.est.chunk"):
+                ic, jc, wc = ii[s:s + chunk], jj[s:s + chunk], w[s:s + chunk]
+                if route.family == "gen":
+                    v, dX, dY, dh = _chunk_grads_gen(static_kernel, X, Y, ic,
+                                                     jc, wc, route, cfg)
+                else:
+                    v, dX, dY, dh = _chunk_grads_autograd(
+                        static_kernel, X, Y, ic, jc, wc, hyper, cfg)
+                S = S + torch.sum(wc * v.to(acc_dtype))
+                gX += dX.to(X.dtype)
+                gY += dY.to(Y.dtype)
+                for acc, d in zip(gh, dh):
+                    acc += d.to(acc)
+                vals.append(v)
         v = torch.cat([X.new_empty(0)] + vals).to(W.dtype)
         if sym:
             K = W.new_zeros(W.shape)
@@ -467,6 +484,7 @@ class _GramLincomb(torch.autograd.Function):
                 *[(g * h).to(h.dtype) for h in gh])
 
 
+@spanned("sk.est.sig_gram_lincomb")
 def sig_gram_lincomb(static_kernel, X, Y, W, dyadic_order=0, sym=False,
                      naive=False, solver="auto",
                      length_bucket: Optional[int] = None, grad_solver="auto",
@@ -493,6 +511,7 @@ def sig_gram_lincomb(static_kernel, X, Y, W, dyadic_order=0, sym=False,
     return _lincomb_value(static_kernel, X, Y, ii, jj, w, cfg)
 
 
+@spanned("sk.est.tile")
 def _derivatives_tile(static_kernel, X, Y, gamma, dyadic_order, eps,
                       route):
     """``(K, K_diff, K_diffdiff)`` of one ``(bx, by)`` tile: the Gram and
@@ -502,19 +521,20 @@ def _derivatives_tile(static_kernel, X, Y, gamma, dyadic_order, eps,
     def gram(x):
         return static_kernel.Gram_matrix(x, Y)
 
-    if eps is None:
-        def first(x):
-            return torch.func.jvp(gram, (x,), (gamma,))
+    with span("sk.grid"):
+        if eps is None:
+            def first(x):
+                return torch.func.jvp(gram, (x,), (gamma,))
 
-        (G, dG), (_, ddG) = torch.func.jvp(first, (X,), (gamma,))
-    else:
-        G = gram(X)
-        G1 = gram(X + eps * gamma)
-        G2 = gram(X + 2.0 * eps * gamma)
-        dG = (G1 - G) / eps
-        ddG = (G - 2.0 * G1 + G2) / (eps * eps)
-    grids = [double_difference(t) for t in (G, dG, ddG)]
-    del G, dG, ddG
+            (G, dG), (_, ddG) = torch.func.jvp(first, (X,), (gamma,))
+        else:
+            G = gram(X)
+            G1 = gram(X + eps * gamma)
+            G2 = gram(X + 2.0 * eps * gamma)
+            dG = (G1 - G) / eps
+            ddG = (G - 2.0 * G1 + G2) / (eps * eps)
+        grids = [double_difference(t) for t in (G, dG, ddG)]
+        del G, dG, ddG
     if route == "cuda":
         a, b = grids[0].shape[:2]
         flat = [t.reshape((a * b,) + t.shape[2:]).contiguous()
@@ -526,6 +546,7 @@ def _derivatives_tile(static_kernel, X, Y, gamma, dyadic_order, eps,
         *(dyadic_refine(t, dyadic_order) for t in grids))
 
 
+@spanned("sk.est.sig_kernel_and_derivatives_gram")
 def sig_kernel_and_derivatives_gram(static_kernel, X, Y, gamma,
                                     dyadic_order=0,
                                     eps: Optional[float] = None,
@@ -576,6 +597,7 @@ def _offdiag_w(n, dtype, device):
     return (1.0 - torch.eye(n, dtype=dtype, device=device)) / (n * (n - 1.0))
 
 
+@spanned("sk.est.sig_distance")
 def sig_distance(static_kernel, X, Y, dyadic_order=0, naive=False,
                  solver="auto", max_batch: Optional[int] = 100,
                  grad_solver="auto"):
@@ -609,6 +631,7 @@ def _scoring_core(static_kernel, X, Y2, dyadic_order, naive, solver,
     return _offdiag_mean(K_XX) - 2.0 * torch.mean(K_XY)
 
 
+@spanned("sk.est.sig_scoring_rule")
 def sig_scoring_rule(static_kernel, X, y, dyadic_order=0, naive=False,
                      solver="auto", max_batch: Optional[int] = 100,
                      grad_solver="auto", pair_chunk: int = 128):
@@ -618,6 +641,7 @@ def sig_scoring_rule(static_kernel, X, y, dyadic_order=0, naive=False,
                          max_batch, grad_solver, pair_chunk)
 
 
+@spanned("sk.est.sig_expected_scoring_rule")
 def sig_expected_scoring_rule(static_kernel, X, Y, dyadic_order=0,
                               naive=False, solver="auto",
                               max_batch: Optional[int] = 100,
@@ -627,6 +651,7 @@ def sig_expected_scoring_rule(static_kernel, X, Y, dyadic_order=0,
                          max_batch, grad_solver, pair_chunk)
 
 
+@spanned("sk.est.sig_mmd")
 def sig_mmd(static_kernel, X, Y, dyadic_order=0, naive=False,
             solver="auto", max_batch: Optional[int] = 100,
             grad_solver="auto", pair_chunk: int = 128):

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from .sigkernel import SigKernel, sig_gram, sig_mmd
+from .tracing import host, span, spanned
 
 
 def c_alpha(m: int, alpha: float) -> float:
@@ -34,7 +35,7 @@ def hypothesis_test(y_pred, y_test, static_kernel, confidence_level=0.99,
     # c_alpha takes the significance level alpha; the reference passed the
     # confidence level, making its threshold ~20x too small
     c = c_alpha(m, 1.0 - confidence_level)
-    rejected = bool(TU > c)
+    rejected = host(TU > c, "verdict")
     if verbose:
         if rejected:
             print(f"Hypothesis rejected: distribution are not equal with "
@@ -45,6 +46,7 @@ def hypothesis_test(y_pred, y_test, static_kernel, confidence_level=0.99,
     return rejected, TU, c
 
 
+@spanned("sk.est.sig_chsic")
 def sig_chsic(X, Y, Z, static_kernel, dyadic_order=1, eps=0.1,
               max_batch=100):
     """Signature conditional HSIC statistic of ``X`` and ``Y`` given ``Z``
@@ -71,7 +73,8 @@ def sig_chsic(X, Y, Z, static_kernel, dyadic_order=1, eps=0.1,
     K_Z_ = H @ K_Z @ H
 
     K_Z_e = K_Z_ + m * eps * eye
-    L = torch.linalg.cholesky(K_Z_e)
+    with span("sk.sync.cholesky"):   # it reads its error code on the host
+        L = torch.linalg.cholesky(K_Z_e)
     K_Z_e_inv = torch.cholesky_solve(eye, L)
     K_Z_e_inv2 = K_Z_e_inv @ K_Z_e_inv
 
