@@ -53,8 +53,10 @@
 // warp-uniform steps, and nothing of the frame sits in shared memory, so
 // no row bound applies. ct is in the pairs' own frame: the launcher passes
 // band_stripe that frame (Mb = Lx - 1, Nb = Ly - 1), so that its transpose
-// (Mb > Nb) is the wrapper's. Past f = 32 the one-block kernel stays,
-// within the row bound.
+// (Mb > Nb) is the wrapper's. Each base cell is closed once, so the kernel
+// stores it finished (RbfFoldSource): times 1 / f^2 and the pair's weight,
+// ct never read. Past f = 32 the one-block kernel stays, within the row
+// bound, adding into a zeroed ct.
 #include "adjoint.cuh"
 #include "band_sweep.cuh"
 #include "rbf_gen.cuh"
@@ -228,20 +230,22 @@ int launch_adjoint_band(const void* inc, const void* stack, const void* bd,
 }
 
 // K3<gen> on the band kernel: the reverse sweep of each pair's whole frame
-// with RbfSource walking the columns backward, times K1-stack's stack.
+// with RbfSource walking the columns backward, times K1-stack's stack; each
+// base cell stored scaled by 1 / f^2 and weighted by wt (RbfFoldSource).
 template <typename T, int kF, int kD>
 cudaError_t launch_gen_adjoint_band(const void* rows, const void* cols,
                                     const void* ri, const void* ci, void* ct,
-                                    const void* stack, void* scratch,
-                                    void* counters, int64_t P, int Lr,
-                                    int Lc, int D, double sigma, int nbands,
-                                    int transpose, int naive,
+                                    const void* wt, const void* stack,
+                                    void* scratch, void* counters, int64_t P,
+                                    int Lr, int Lc, int D, double sigma,
+                                    int nbands, int transpose, int naive,
                                     cudaStream_t stream) {
-  using Src = RbfSource<T, kD>;
-  const Src src{static_cast<const T*>(rows), static_cast<const T*>(cols),
-                static_cast<const int64_t*>(ri),
-                static_cast<const int64_t*>(ci), Lr, Lc, D,
-                static_cast<T>(sigma)};
+  using Src = RbfFoldSource<T, kD>;
+  const Src src{{static_cast<const T*>(rows), static_cast<const T*>(cols),
+                 static_cast<const int64_t*>(ri),
+                 static_cast<const int64_t*>(ci), Lr, Lc, D,
+                 static_cast<T>(sigma)},
+                static_cast<const T*>(wt), T(1) / T(kF * kF)};
   const size_t smem = band_stage_bytes<T, Src>();
   cudaError_t e = allow_smem(band_stripe<T, kBandAdjoint, kF, Src>, smem);
   if (e != cudaSuccess) return e;
@@ -275,9 +279,9 @@ decltype(&launch_gen_adjoint_band<T, kF, 0>) gen_adjoint_for(int D) {
 template <typename T>
 int launch_adjoint_gen_band(const void* rows, const void* cols,
                             const void* ri, const void* ci, void* ct,
-                            const void* stack, void* scratch, void* counters,
-                            int64_t P, int Lr, int Lc, int D, int f,
-                            double sigma, int nbands, int transpose,
+                            const void* wt, const void* stack, void* scratch,
+                            void* counters, int64_t P, int Lr, int Lc, int D,
+                            int f, double sigma, int nbands, int transpose,
                             int naive, int device, void* stream) {
   if (Lr < 2 || Lr > Lc || D < 1 || nbands != band_count((Lr - 1) * f) ||
       P * nbands >= (int64_t(1) << 31)) {
@@ -291,8 +295,8 @@ int launch_adjoint_gen_band(const void* rows, const void* cols,
       : f == 16 ? gen_adjoint_for<T, 16>(D)
       : f == 32 ? gen_adjoint_for<T, 32>(D) : nullptr;
   if (launch == nullptr) return cudaErrorInvalidValue;
-  return launch(rows, cols, ri, ci, ct, stack, scratch, counters, P, Lr, Lc,
-                D, sigma, nbands, transpose, naive,
+  return launch(rows, cols, ri, ci, ct, wt, stack, scratch, counters, P, Lr,
+                Lc, D, sigma, nbands, transpose, naive,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -324,30 +328,31 @@ int sk_adjoint_gen_f64(const void* rows, const void* cols, const void* ri,
                                                stream);
 }
 
-// K3<gen> on the band-pipelined wavefront (f <= 32): rows, cols, ri, ci,
-// ct and transpose as above; stack: (P, R + C + 1, R + 1), K1-stack's;
-// scratch: (P, nbands - 1, C + 1) values and counters: P * nbands + 1
-// zeroed ints, nbands = ceil((Lr - 1) f / 128), as K1's. Adds each base
-// cell's unscaled sum into ct.
+// K3<gen> on the band-pipelined wavefront (f <= 32): rows, cols, ri, ci
+// and transpose as above; ct: (P, Lx-1, Ly-1), written whole (need not be
+// zeroed); wt: (P,) per-pair weights, or null; stack: (P, R + C + 1, R +
+// 1), K1-stack's; scratch: (P, nbands - 1, C + 1) values and counters: P *
+// nbands + 1 zeroed ints, nbands = ceil((Lr - 1) f / 128), as K1's. Stores
+// each base cell's sum times 1 / f^2, times wt[p] when wt is given.
 int sk_adjoint_gen_band_f32(const void* rows, const void* cols,
                             const void* ri, const void* ci, void* ct,
-                            const void* stack, void* scratch, void* counters,
-                            int64_t P, int Lr, int Lc, int D, int f,
-                            double sigma, int nbands, int transpose,
+                            const void* wt, const void* stack, void* scratch,
+                            void* counters, int64_t P, int Lr, int Lc, int D,
+                            int f, double sigma, int nbands, int transpose,
                             int naive, int device, void* stream) {
   return sigkernel::launch_adjoint_gen_band<float>(
-      rows, cols, ri, ci, ct, stack, scratch, counters, P, Lr, Lc, D, f,
+      rows, cols, ri, ci, ct, wt, stack, scratch, counters, P, Lr, Lc, D, f,
       sigma, nbands, transpose, naive, device, stream);
 }
 
 int sk_adjoint_gen_band_f64(const void* rows, const void* cols,
                             const void* ri, const void* ci, void* ct,
-                            const void* stack, void* scratch, void* counters,
-                            int64_t P, int Lr, int Lc, int D, int f,
-                            double sigma, int nbands, int transpose,
+                            const void* wt, const void* stack, void* scratch,
+                            void* counters, int64_t P, int Lr, int Lc, int D,
+                            int f, double sigma, int nbands, int transpose,
                             int naive, int device, void* stream) {
   return sigkernel::launch_adjoint_gen_band<double>(
-      rows, cols, ri, ci, ct, stack, scratch, counters, P, Lr, Lc, D, f,
+      rows, cols, ri, ci, ct, wt, stack, scratch, counters, P, Lr, Lc, D, f,
       sigma, nbands, transpose, naive, device, stream);
 }
 

@@ -127,6 +127,16 @@
 // at or past the frame's R / f (padding) write nothing; ct is in the
 // pairs' own frame, transposed when Mb > Nb. Each base cell is add(ct,
 // sum), the sum started at 0: bit for bit the plain version's ct += sums.
+// A source with kFold set (K3<gen>'s RbfFoldSource, rbf_gen.cuh) closes each
+// base cell of the frame exactly once, so the lead lane stores
+// mul(mul(add(0, sum), scale), wt[pair]) (times 1, exact, when wt is
+// null) and ct is neither read nor zeroed: the zero fill, the division by
+// f^2 and the weighting that would otherwise run over ct in three passes.
+// The weight sits in a register from the start. A branch on wt at each
+// store took 7 more registers (103, not 96, in double at f = 2, D = 3: 4
+// blocks an SM, not 5) and 4.7 % more time on an H100; the weight kept in
+// shared memory took 3 % more, read from global memory at each store
+// (113 registers) 8 % more.
 //
 // The sparse-checkpoint adjoint (kBandCkpt, K8): kBandAdjoint over the
 // whole reverse frame from 1s (row0 0, rows R) with CkptSource, a
@@ -363,6 +373,7 @@ struct GridSource {
   using State = T;
   static constexpr bool kStripe = true;
   static constexpr bool kAligned = false;  // read at each lane's wrap
+  static constexpr bool kFold = false;     // the collapse adds into ct
   static constexpr int kStage = 32;  // kBandAdjoint's stage, in steps
   const T* inc;
 
@@ -403,6 +414,7 @@ struct DerivSource {
   using State = Triple<T>;
   static constexpr bool kStripe = false;
   static constexpr bool kAligned = false;  // read at each lane's wrap
+  static constexpr bool kFold = false;     // unused: no adjoint mode
   static constexpr int kStage = 32;  // unused: no adjoint mode
   const T* inc;
   const T* inc_d;
@@ -460,6 +472,7 @@ struct IncSource {
   using State = T;
   static constexpr bool kStripe = false;
   static constexpr bool kAligned = false;  // read at each lane's wrap
+  static constexpr bool kFold = false;     // unused: no adjoint mode
   static constexpr int kStage = 32;  // unused: no adjoint mode
   static constexpr int kAhead = kIncAhead<T>;
   const T* inc;
@@ -763,9 +776,22 @@ band_stripe(const Src src, const typename Src::State* __restrict__ bd,
     return ct_p + (transpose ? static_cast<int64_t>(b) * (R / f) + ga
                              : static_cast<int64_t>(ga) * Cb + b);
   };
-  // base cell b has all its terms: add them to ct's value `was`
+  // Src::kFold: the pair's weight (1 without weights), read once
+  [[maybe_unused]] const T weight = [&] {
+    if constexpr (Src::kFold) {
+      return lead && src.wt != nullptr ? __ldg(src.wt + pair) : T(1);
+    } else {
+      return T(1);
+    }
+  }();
+  // base cell b has all its terms: add them to ct's value `was`; with
+  // Src::kFold store them, scaled and weighted, without reading ct
   auto emit = [&](T acc, int b, T was) {
-    if (T* at = cell(b)) *at = add(was, acc);
+    if constexpr (Src::kFold) {
+      if (T* at = cell(b)) *at = mul(mul(add(T(0), acc), src.scale), weight);
+    } else {
+      if (T* at = cell(b)) *at = add(was, acc);
+    }
   };
   auto fetch = [&](int b) -> T {
     const T* at = cell(b);
@@ -915,7 +941,7 @@ band_stripe(const Src src, const typename Src::State* __restrict__ bd,
         const int b = ((C - s + gbase) >> lg) + 2;  // hi's column
         if (lead) {
           emit(hi, b, ct_hi);
-          ct_hi = fetch(b - 1);
+          if constexpr (!Src::kFold) ct_hi = fetch(b - 1);
         }
         hi = lo;
         lo = T(0);
@@ -941,7 +967,11 @@ band_stripe(const Src src, const typename Src::State* __restrict__ bd,
     if (lead) {
       const int b0 = gbase - 31;  // C - s + gbase after the last step
       emit(hi, (b0 >> lg) + 1, ct_hi);
-      emit(lo, b0 >> lg, fetch(b0 >> lg));
+      if constexpr (Src::kFold) {
+        emit(lo, b0 >> lg, T(0));
+      } else {
+        emit(lo, b0 >> lg, fetch(b0 >> lg));
+      }
     }
   }
 }

@@ -85,6 +85,7 @@ struct RbfSource {
   using State = T;
   static constexpr bool kStripe = false;  // the whole frame, from 1s
   static constexpr bool kAligned = true;  // generated on uniform steps
+  static constexpr bool kFold = false;    // K1's; K3<gen>: RbfFoldSource
   static constexpr int kStage = 16;  // kBandAdjoint's stage, in steps
   static constexpr int kN = kD > 0 ? kD : 1;
   const T* rows;
@@ -195,6 +196,19 @@ struct RbfSource {
     l.load(flip ? b0 - 1 : 1);
     return l;
   }
+};
+
+// K3<gen>'s source: RbfSource, with the collapse's epilogue folded into the
+// band kernel (kFold, band_sweep.cuh): each base cell is stored once as
+// mul(mul(add(0, sum), scale), wt[pair]), where scale is the exact 1 / f^2
+// and wt the launch's per-pair weights (null: a weight of 1). Bit for
+// bit the plain version's ct / f^2 * g; a type of its own, so that K1's
+// instances (RbfSource) keep their code.
+template <typename T, int kD>
+struct RbfFoldSource : RbfSource<T, kD> {
+  static constexpr bool kFold = true;
+  const T* wt;  // (P,) of the launch, or null
+  T scale;      // 1 / f^2
 };
 
 }  // namespace sigkernel

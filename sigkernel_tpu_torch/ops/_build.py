@@ -108,12 +108,12 @@ _SIGNATURES = {
                            _I, _I, _I, _P],
     "sk_adjoint_gen_f64": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _D,
                            _I, _I, _I, _P],
-    # rows, cols, ri, ci, ct, stack, scratch, counters, P, Lr, Lc, D, f,
+    # rows, cols, ri, ci, ct, wt, stack, scratch, counters, P, Lr, Lc, D, f,
     # sigma, nbands, transpose, naive, device, stream
-    "sk_adjoint_gen_band_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
-                                _I, _I, _D, _I, _I, _I, _I, _P],
-    "sk_adjoint_gen_band_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
-                                _I, _I, _D, _I, _I, _I, _I, _P],
+    "sk_adjoint_gen_band_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
+                                _I, _I, _I, _D, _I, _I, _I, _I, _P],
+    "sk_adjoint_gen_band_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
+                                _I, _I, _I, _D, _I, _I, _I, _I, _P],
     # X, Y, ii, jj, ct, dx, dy, part, es, dsigma, P, M, N, D, sigma, band,
     # chunk, device, stream
     "sk_rbf_dd_vjp_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,

@@ -252,7 +252,7 @@ def banded_sweep(u, bd, naive=False, H=BAND_ROWS, Wc=CHUNK, stack=False,
 
 
 def banded_adjoint(u, stack, bd, out, row0, R, f, naive=False, H=BAND_ROWS,
-                   Wc=CHUNK) -> None:
+                   Wc=CHUNK, fold=None) -> None:
     """The band kernel's adjoint mode (kBandAdjoint) in plain PyTorch, for
     the tests: its arithmetic on the reverse problem's refined increments
     ``u (P, rows, C)`` as its lanes meet them, whatever their source. The
@@ -267,7 +267,9 @@ def banded_adjoint(u, stack, bd, out, row0, R, f, naive=False, H=BAND_ROWS,
     into ``out`` and the two shift; after the last step both are added.
     ``out``: the cotangent in the solve's frame (a view, updated in place),
     whose base rows from ``row0 / f`` the stripe covers; base rows at or
-    past the frame's ``R / f`` write nothing."""
+    past the frame's ``R / f`` write nothing. ``fold = (scale, g)``
+    (K3<gen>'s RbfFoldSource): each closed cell is stored, not added, as
+    ``(0 + sum) * scale * g[p]`` (``g`` None: times 1)."""
     if f > WARP:
         raise ValueError(f"the band kernel's collapse holds a base row in one "
                          f"warp of {WARP} lanes; f = {f}")
@@ -297,7 +299,13 @@ def banded_adjoint(u, stack, bd, out, row0, R, f, naive=False, H=BAND_ROWS,
     def emit(acc, b):
         ok = lead & ((b >= 0) & (b < C // f))[None, :]
         w, g = ok.nonzero(as_tuple=True)
-        out[:, ga[w, g], b[g]] = out[:, ga[w, g], b[g]] + acc[:, w, g]
+        at = (slice(None), ga[w, g], b[g])
+        if fold is None:
+            out[at] = out[at] + acc[:, w, g]
+            return
+        scale, wt = fold
+        v = (torch.zeros_like(acc[:, w, g]) + acc[:, w, g]) * scale
+        out[at] = v * (1.0 if wt is None else wt[:, None])
 
     for s in range(1, C + WARP):
         rr = (C - s) & (f - 1)

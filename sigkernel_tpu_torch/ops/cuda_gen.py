@@ -40,6 +40,15 @@ version (``*_plain``) only for CPU tensors. ``COUNTS``, ``STACK_COUNTS`` and
 ``ADJOINT_COUNTS`` hold the kernel launches per dtype and the calls of the
 plain versions; ``ADJOINT_COUNTS["one_block"]`` counts K3<gen>'s one-block
 launches (``f > 32``), which the dtype keys leave out.
+
+K3<gen>'s band kernel finishes the cotangent itself: each base cell is
+closed once, so it stores the cell's sum times ``1 / f^2`` and times the
+caller's per-pair weight ``g`` into an uninitialised ``ct``, where the fill,
+the division and the weighting would otherwise be three passes over it.
+``FOLDED_EPILOGUES`` counts the calls of :func:`rbf_gen_adjoint` that launch
+a kernel by where that epilogue ran: ``"band"`` in the kernel,
+``"one_block"`` in PyTorch after it. Its name leaves it out of the launch
+tables (``*COUNTS``).
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ from ..utils import dyadic_refine
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 STACK_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 ADJOINT_COUNTS = {"float32": 0, "float64": 0, "one_block": 0, "plain": 0}
+FOLDED_EPILOGUES = {"band": 0, "one_block": 0}
 
 _FNS = {torch.float32: "sk_rbf_gen_wavefront_f32",
         torch.float64: "sk_rbf_gen_wavefront_f64"}
@@ -261,37 +271,43 @@ def rbf_gen_banded_stack_plain(X, Y, ii, jj, sigma, dyadic_order: int = 0,
 
 
 def rbf_gen_adjoint_plain(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
-                          naive: bool = False) -> torch.Tensor:
+                          naive: bool = False, g=None) -> torch.Tensor:
     """Plain version of K3<gen>: the increments regenerated from the paths,
-    then :func:`.scan_solver.adjoint_from_stack`."""
+    then :func:`.scan_solver.adjoint_from_stack` (which divides by
+    ``f^2``), then times the per-pair weights ``g (P,)`` if given."""
     ADJOINT_COUNTS["plain"] += 1
     inc = gen_increments(X[ii], Y[jj], sigma)
-    return scan_solver.adjoint_from_stack(dyadic_refine(inc, dyadic_order),
-                                          stack, 2 ** dyadic_order, naive)
+    ct = scan_solver.adjoint_from_stack(dyadic_refine(inc, dyadic_order),
+                                        stack, 2 ** dyadic_order, naive)
+    return ct if g is None else ct * g[:, None, None]
 
 
 def rbf_gen_adjoint_banded_plain(X, Y, ii, jj, sigma, stack,
                                  dyadic_order: int = 0, naive: bool = False,
                                  H=cuda_blocked.BAND_ROWS,
-                                 Wc=cuda_blocked.CHUNK) -> torch.Tensor:
+                                 Wc=cuda_blocked.CHUNK,
+                                 g=None) -> torch.Tensor:
     """K3<gen>'s band kernel in plain PyTorch, for the tests: the reverse
     increments generated lane by lane with the columns walked backward
     (:func:`_lane_increments` with ``flip``), swept from a row 0 of 1s in
     bands of ``H`` rows and chunks of ``Wc`` columns, multiplied with the
     forward ``stack`` and collapsed by the kernel's lane arithmetic
     (:func:`.cuda_blocked.banded_adjoint`) into ``ct (P, M-1, N-1)`` in the
-    pairs' own frame; then the exact ``1 / f^2``. Bit for bit
+    pairs' own frame, each base cell stored once as the kernel stores it:
+    its sum times the exact ``1 / f^2``, then times ``g[p]`` if given.
+    ``ct`` starts as NaN, as the kernel's may hold anything. Bit for bit
     :func:`rbf_gen_adjoint_plain`; no route runs it."""
     P, M, N = ii.shape[0], X.shape[1], Y.shape[1]
-    ct = X.new_zeros(P, max(M - 1, 0), max(N - 1, 0))
     if P == 0 or M < 2 or N < 2:
-        return ct
+        return X.new_zeros(P, max(M - 1, 0), max(N - 1, 0))
+    ct = X.new_full((P, M - 1, N - 1), float("nan"))
     f = 2 ** dyadic_order
     u = _lane_increments(X, Y, ii, jj, sigma, f, flip=True)
     out = ct.transpose(-1, -2) if M > N else ct  # the solve's frame
     cuda_blocked.banded_adjoint(u, stack, u.new_ones(P, u.shape[2] + 1), out,
-                                0, u.shape[1], f, naive, H, Wc)
-    return ct / (f * f)
+                                0, u.shape[1], f, naive, H, Wc,
+                                fold=(1.0 / (f * f), g))
+    return ct
 
 
 def check_pairs(X, Y, ii, jj, what):
@@ -354,11 +370,12 @@ def gen_chunk(P: int, R: int, C: int, itemsize: int) -> int:
 
 
 def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
-                   naive, out, stack=None, adjoint=False):
+                   naive, out, stack=None, adjoint=False, wt=None):
     """K1 (into ``out (P,)``), K1-stack (``stack`` given, written) or
-    K3<gen> (``adjoint``: ``stack`` read, ``out`` the cotangent) over the
-    pairs in launches of :func:`gen_chunk` pairs, each with its scratch and
-    freshly zeroed counters (reused across the launches, on one stream)."""
+    K3<gen> (``adjoint``: ``stack`` read, ``out`` the cotangent, ``wt``
+    the per-pair weights or None) over the pairs in launches of
+    :func:`gen_chunk` pairs, each with its scratch and freshly zeroed
+    counters (reused across the launches, on one stream)."""
     rows, ri, cols, ci, f, transposed = _oriented(X, Y, ii, jj, dyadic_order,
                                                   what)
     P, Lr, Lc = ii.shape[0], rows.shape[1], cols.shape[1]
@@ -377,6 +394,9 @@ def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
         counters.zero_()
         at = (rows.data_ptr(), cols.data_ptr(), ri.data_ptr() + 8 * s,
               ci.data_ptr() + 8 * s, out.data_ptr() + per_out * s)
+        if adjoint:
+            at += (None if wt is None
+                   else wt.data_ptr() + wt.element_size() * s,)
         if stack is not None:
             at += (stack.data_ptr() + per_stack * s,)
         _build.launch(what, fns, counts, X, *at, scratch.data_ptr(),
@@ -432,21 +452,27 @@ def rbf_gen_solve_stack(X, Y, ii, jj, sigma, dyadic_order: int = 0,
 
 @spanned("sk.op.adjoint_collapse_gen")
 def rbf_gen_adjoint(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
-                    naive: bool = False) -> torch.Tensor:
+                    naive: bool = False, g=None) -> torch.Tensor:
     """K3<gen>: the gradient ``(P, M-1, N-1)`` of each pair's value in its
     base RBF increments, given the forward ``stack`` of
-    :func:`rbf_gen_solve_stack` (unit upstream cotangent; the caller scales
-    by its ``g``). The band kernel while ``f <= 32``, else the one-block
-    kernel (:func:`.cuda_blocked.stripe_adjoint_kernel`)."""
+    :func:`rbf_gen_solve_stack`, times the pair's upstream cotangent ``g
+    (P,)`` if given (else 1). The band kernel while ``f <= 32``, which
+    writes the finished cotangent, else the one-block kernel
+    (:func:`.cuda_blocked.stripe_adjoint_kernel`) and the division by
+    ``f^2`` and the weighting after it."""
     if X.device.type == "cpu":
         return rbf_gen_adjoint_plain(X, Y, ii, jj, sigma, stack,
-                                     dyadic_order, naive)
+                                     dyadic_order, naive, g)
     ii, jj = check_pairs(X, Y, ii, jj, "rbf_gen_adjoint")
     P, M, N = ii.shape[0], X.shape[1], Y.shape[1]
-    ct = torch.zeros(P, max(M - 1, 0), max(N - 1, 0), dtype=X.dtype,
-                     device=X.device)
+    if g is not None:
+        if g.shape != (P,) or g.dtype != X.dtype or g.device != X.device:
+            raise ValueError(f"rbf_gen_adjoint: g must be a ({P},) tensor of "
+                             "the paths' dtype and device")
+        g = g.contiguous()
+    shape = (P, max(M - 1, 0), max(N - 1, 0))
     if P == 0 or M < 2 or N < 2:
-        return ct
+        return torch.zeros(shape, dtype=X.dtype, device=X.device)
     f = 2 ** dyadic_order
     want = stack_shape(P, (M - 1) * f, (N - 1) * f)
     if (stack.shape != want or stack.dtype != X.dtype
@@ -454,10 +480,14 @@ def rbf_gen_adjoint(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
         raise ValueError(f"rbf_gen_adjoint: stack must be a contiguous {want}"
                          " tensor of the paths' dtype and device")
     if cuda_blocked.stripe_adjoint_kernel(dyadic_order) == "band":
+        # every base cell is stored once, scaled and weighted: no fill
+        ct = torch.empty(shape, dtype=X.dtype, device=X.device)
         _launch_banded("adjoint_collapse_gen", _ADJOINT_FNS, ADJOINT_COUNTS,
                        X, Y, ii, jj, sigma, dyadic_order, naive, ct, stack,
-                       adjoint=True)
-        return ct / (f * f)
+                       adjoint=True, wt=g)
+        FOLDED_EPILOGUES["band"] += 1
+        return ct
+    ct = torch.zeros(shape, dtype=X.dtype, device=X.device)
     rows, ri, cols, ci, f, transposed = _oriented(
         X, Y, ii, jj, dyadic_order, "rbf_gen_adjoint", bounded=True)
     _build.launch("adjoint_collapse_gen[one block]", _ONE_BLOCK_FNS,
@@ -466,4 +496,6 @@ def rbf_gen_adjoint(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
                   ct.data_ptr(), P, rows.shape[1], cols.shape[1], X.shape[2],
                   f, sigma_value(sigma), transposed, int(naive),
                   key="one_block")
-    return ct / (f * f)
+    FOLDED_EPILOGUES["one_block"] += 1
+    ct = ct / (f * f)
+    return ct if g is None else ct * g[:, None, None]

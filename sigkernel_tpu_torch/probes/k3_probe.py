@@ -30,8 +30,17 @@ K3<inc, boundary>'s at f = 4.
 ``--parent DIR`` (a checkout of another commit, unpacked with ``git
 archive``) first builds that checkout's library and times K1, K1-stack,
 K3<gen> and K4 at the timed shape in both dtypes for the two checkouts,
-each in a process of its own, in the order parent, this, this, parent;
-then ``--kernels-only`` stops there.
+each in a process of its own, in the order parent, this, this, parent.
+It also times the cotangent weighted per pair, as the generator's backward
+asks for it (``rbf_gen_adjoint(..., g=w)`` where the wrapper takes ``g``,
+else the cotangent times ``w``), splits that call's device time
+(``torch.profiler``) into the band kernel's and the rest (PyTorch's fill,
+division and weighting), and checks that its output is the same bit for
+bit in every run (a hash of its bytes). Then it prints the registers and
+spills that ptxas reports for K3<gen>'s band instances (``band_stripe``
+in kBandAdjoint with an RBF source) in both builds, and whether the SASS
+of any other kernel differs from the parent's (``k5_probe.sass``,
+``cuobjdump -sass``). ``--kernels-only`` stops there.
 
 Run from the repository root on a machine with a CUDA card::
 
@@ -41,6 +50,8 @@ Run from the repository root on a machine with a CUDA card::
 from __future__ import annotations
 
 import argparse
+import hashlib
+import inspect
 import json
 import math
 import re
@@ -50,6 +61,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]  # the checkout holding this file
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 DEVICE = "cuda"
 PAIRS, LENGTH = 128, 1024
 STRIPE = (16, 5001, 5, 2)  # pairs, length, dim, dyadic of K3<inc, boundary>
@@ -80,8 +92,9 @@ VARIANTS = {
               "__launch_bounds__(kBandRows, 4)", 1)],
 }
 # the instances whose registers are printed: (dtype, mode, f, source)
-_SHOWN = [("d", 2, 2, "RbfSourceIdLi3E"), ("d", 2, 2, "RbfSourceIdLi5E"),
-          ("f", 2, 2, "RbfSourceIfLi3E"), ("d", 2, 4, "GridSourceIdE"),
+_SHOWN = [("d", 2, 2, "RbfFoldSourceIdLi3E"),
+          ("d", 2, 2, "RbfFoldSourceIdLi5E"),
+          ("f", 2, 2, "RbfFoldSourceIfLi3E"), ("d", 2, 4, "GridSourceIdE"),
           ("f", 2, 4, "GridSourceIfE")]
 
 
@@ -169,14 +182,37 @@ def registers(log: Path):
     return out
 
 
+def device_split(torch, fn, reps=5) -> list:
+    """``[band kernel ms, other ms]``: the device time a call of ``fn`` in
+    the kernels named ``band_stripe`` and in all others, by
+    ``torch.profiler``."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = [0.0, 0.0]
+    for e in prof.key_averages():
+        split["band_stripe" not in e.key] += e.device_time_total
+    return [t / reps / 1e3 for t in split]
+
+
 def time_kernels(torch) -> dict:
     """``{kernel dtype: ms}`` of K1, K1-stack, K3<gen> and K4 at the timed
-    shape, with the package on ``sys.path``; and the library's build
-    seconds (None if it was built already)."""
+    shape, and of K3<gen>'s cotangent weighted per pair, with the package
+    on ``sys.path``; the library's build seconds (None if it was built
+    already), its path and its ptxas report; ``split``: the weighted
+    call's device time (:func:`device_split`); ``hash``: its output's."""
     from sigkernel_tpu_torch.ops import _build, cuda_gen, incvjp
 
     _build.library()
-    out = {"build_s": _build.build_seconds}
+    out = {"build_s": _build.build_seconds,
+           "lib": str(_build.library_path()),
+           "log": str(_build.library_path().parent / "nvcc.log"),
+           "split": {}, "hash": {}}
+    folds = "g" in inspect.signature(cuda_gen.rbf_gen_adjoint).parameters
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     ar = torch.arange(PAIRS, device=DEVICE)
     X64 = make_paths(torch, gen, PAIRS, LENGTH, 3, torch.float64)
@@ -193,6 +229,20 @@ def time_kernels(torch) -> dict:
         out[f"K3<gen> {name}"] = event_ms(torch, lambda: cuda_gen.
                                           rbf_gen_adjoint(X, Y, ar, ar, 1.0,
                                                           stk, 1))
+        w = torch.linspace(-1.0, 1.0, PAIRS, device=DEVICE, dtype=dtype)
+
+        def weighted():
+            if folds:
+                return cuda_gen.rbf_gen_adjoint(X, Y, ar, ar, 1.0, stk, 1,
+                                                g=w)
+            return cuda_gen.rbf_gen_adjoint(X, Y, ar, ar, 1.0, stk,
+                                            1) * w[:, None, None]
+
+        key = f"K3<gen> weighted {name}"
+        out[key] = event_ms(torch, weighted)
+        out["split"][key] = device_split(torch, weighted)
+        out["hash"][key] = hashlib.sha256(
+            weighted().cpu().numpy().tobytes()).hexdigest()
         ct = cuda_gen.rbf_gen_adjoint(X, Y, ar, ar, 1.0, stk, 1)
         del stk
         out[f"K4 {name}"] = event_ms(torch, lambda: incvjp.rbf_dd_vjp(
@@ -202,9 +252,11 @@ def time_kernels(torch) -> dict:
     return out
 
 
-def compare(parent: str, where: str) -> None:
+def compare(parent: str, where: str) -> bool:
     """:func:`time_kernels` of the checkout under ``parent`` and of this
-    one, each in a process of its own, parent, this, this, parent."""
+    one, each in a process of its own, parent, this, this, parent; True if
+    the weighted cotangent was the same in every run and no kernel but
+    K3<gen>'s band instances changed its SASS."""
     runs = {"parent": [], "this": []}
     for who in ("parent", "this", "this", "parent"):
         root = parent if who == "parent" else str(HERE)
@@ -217,13 +269,56 @@ def compare(parent: str, where: str) -> None:
         built = f"{sec:.1f} s" if sec is not None else "cached"
         print(f"[k3] {who}: library built in {built}")
     for key in runs["this"][0]:
-        if key == "build_s":
+        if key in ("build_s", "lib", "log", "split", "hash"):
             continue
         a, b = ([r[key] for r in runs[w]] for w in ("parent", "this"))
         print(f"[k3] {key} at {PAIRS} pairs, len {LENGTH}, dim 3, dyadic 1: "
               f"parent {a[0]:.3f} / {a[1]:.3f} ms, this {b[0]:.3f} / "
               f"{b[1]:.3f} ms, best this / best parent "
               f"{min(b) / min(a):.3f} ({where})")
+    ok = True
+    for key in runs["this"][0]["split"]:
+        text = "; ".join(
+            f"{w} " + ", ".join(f"{band:.3f} + {other:.3f}"
+                                for band, other in (r["split"][key]
+                                                    for r in runs[w]))
+            for w in runs)
+        same = len({r["hash"][key] for w in runs.values() for r in w}) == 1
+        ok &= same
+        print(f"[k3] {key}, device ms, band kernel + the rest: {text}; "
+              f"bit-equal {same} ({where})")
+    return ok and sass_unchanged(runs)
+
+
+# K3<gen>'s band instances: band_stripe in kBandAdjoint (2) with an RBF
+# source, demangled
+_K3_GEN = re.compile(r"band_stripe<\w+, 2, \d+, sigkernel::Rbf\w*Source<")
+
+
+def sass_unchanged(runs) -> bool:
+    """Print the registers and spills of K3<gen>'s band instances in both
+    builds (``runs``: :func:`compare`'s), and whether any other kernel's
+    SASS differs from the parent's; True if none does."""
+    import k5_probe
+
+    logs = {w: k5_probe.entries(Path(r[0]["log"])) for w, r in runs.items()}
+    for who, found in logs.items():
+        for name, (n, spill) in found.items():
+            if _K3_GEN.search(name):
+                print(f"[k3] {who}: {name}: {n} registers, {spill}")
+    code = {w: k5_probe.sass(Path(r[0]["lib"])) for w, r in runs.items()}
+    mine = {w: {k for k in c if _K3_GEN.search(k)} for w, c in code.items()}
+    others = [k for k in code["this"] if k not in mine["this"]]
+    differ = [k for k in others if code["parent"].get(k) != code["this"][k]]
+    gone = [k for k in code["parent"]
+            if k not in code["this"] and k not in mine["parent"]]
+    print(f"[k3] K3<gen>'s band instances: parent {len(mine['parent'])}, "
+          f"this {len(mine['this'])}; the other kernels' SASS (cuobjdump): "
+          f"{len(others)} functions, {len(differ)} differ from the parent's, "
+          f"{len(gone)} of the parent's gone")
+    for k in differ + gone:
+        print(f"[k3]   {k}")
+    return not (differ or gone)
 
 
 def main() -> int:
@@ -245,9 +340,11 @@ def main() -> int:
         print(json.dumps(time_kernels(torch)))
         return 0
     if args.parent:
-        compare(args.parent, card())
+        same = compare(args.parent, card())
+        print("[k3] parent comparison ok" if same else
+              "[k3] FAILED: outputs or other kernels' SASS differ")
         if args.kernels_only:
-            return 0
+            return 0 if same else 1
     from sigkernel_tpu_torch.ops import _build, cuda_blocked, cuda_gen
     from sigkernel_tpu_torch.utils import double_difference
     import sigkernel_tpu_torch as skt

@@ -93,8 +93,8 @@ def _gen_backward(X, Y, ii, jj, sigma, g, bwd_dtype, dyadic_order, naive,
                   stack=None):
     """``(d sigma, dX, dY)`` of ``sum_p g_p k(X[ii_p], Y[jj_p])`` for the RBF
     kernel, in ``bwd_dtype``: per chunk K1-stack (skipped when the caller's
-    forward already made ``stack``, in ``bwd_dtype``), K3<gen> times ``g``,
-    then K4."""
+    forward already made ``stack``, in ``bwd_dtype``), K3<gen> with ``g``
+    (applied in its kernel), then K4."""
     Xb = X.detach().to(bwd_dtype).contiguous()
     Yb = Y.detach().to(bwd_dtype).contiguous()
     ds, dX, dY = Xb.new_zeros(()), torch.zeros_like(Xb), torch.zeros_like(Yb)
@@ -113,9 +113,9 @@ def _gen_backward(X, Y, ii, jj, sigma, g, bwd_dtype, dyadic_order, naive,
                 _, stk = cuda_gen.rbf_gen_solve_stack(Xb, Yb, ic, jc, sigma,
                                                       dyadic_order, naive)
             ct = cuda_gen.rbf_gen_adjoint(Xb, Yb, ic, jc, sigma, stk,
-                                          dyadic_order, naive)
+                                          dyadic_order, naive,
+                                          g=g[s:s + chunk].to(bwd_dtype))
             del stk
-            ct = ct * g[s:s + chunk].to(bwd_dtype)[:, None, None]
             e, dx, dy = incvjp.rbf_dd_vjp(Xb, Yb, ic, jc, sigma, ct)
             ds, dX, dY = ds + e, dX + dx, dY + dy
     return ds, dX, dY

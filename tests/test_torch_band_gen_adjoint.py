@@ -15,6 +15,12 @@ and bands and chunks small enough that many of each run; and, through the
 gradient chain, JAX's ``sig_gram_lincomb`` on its scan tier. Past ``f = 32``
 the wrapper takes the one-block kernel.
 
+The band kernel stores each base cell once, finished: its sum times ``1 /
+f^2`` and times the pair's weight ``g`` (RbfFoldSource). With ``g`` the
+emulation must equal the plain version times ``g`` bit for bit over the
+same cases, with weights that hold zeros, negatives and a subnormal; from a
+NaN-filled output it leaves no NaN (every base cell is written, none read).
+
 These tests catch a broken reverse generator. Each of these mutations of
 ``_lane_increments`` made all 48 cases of
 ``test_banded_k3_gen_is_the_plain_k3_gen`` with R > 1 fail: the columns
@@ -80,6 +86,69 @@ def test_banded_k3_gen_is_the_plain_k3_gen(dtype, naive, case):
     assert got.dtype == dtype
     assert got.shape == want.shape == (len(ii), M - 1, N - 1)
     assert torch.equal(got, want)
+
+
+def _weights(P, dtype):
+    """Per-pair weights with zeros of both signs, negatives and
+    subnormals, cycled over the pairs; any two pairs hold a zero, a
+    negative and a subnormal."""
+    tiny = torch.finfo(dtype).tiny / 8  # subnormal in either dtype
+    w = torch.tensor([-tiny, 0.0, 0.75, -1.25, -0.0, 3.0, tiny, 1e3],
+                     dtype=dtype)
+    return w[torch.arange(P) % w.shape[0]]
+
+
+@pytest.mark.parametrize("case", _CASES, ids=_case_id)
+@pytest.mark.parametrize("naive", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_banded_k3_gen_folds_the_weights(dtype, naive, case):
+    """With ``g`` the band kernel's store is ``(0 + sum) / f^2 * g[p]``: bit
+    for bit the plain version's cotangent times ``g``, the passes the
+    kernel's epilogue replaces, and the plain version given ``g``."""
+    M, N, D, kind, dyadic, H, Wc = case
+    *_, X, Y, ii, jj = _inputs(M, N, D, kind, dtype, M + N)
+    _, stack = cuda_gen.rbf_gen_solve_stack_plain(X, Y, ii, jj, 0.6, dyadic,
+                                                  naive)
+    g = _weights(len(ii), dtype)
+    assert g[1] == 0 and 0 > g[0] > -torch.finfo(dtype).tiny
+    got = cuda_gen.rbf_gen_adjoint_banded_plain(X, Y, ii, jj, 0.6, stack,
+                                                dyadic, naive, H, Wc, g=g)
+    unweighted = cuda_gen.rbf_gen_adjoint_plain(X, Y, ii, jj, 0.6, stack,
+                                                dyadic, naive)
+    assert got.dtype == dtype and got.shape == unweighted.shape
+    assert torch.equal(got, unweighted * g[:, None, None])
+    assert torch.equal(got, cuda_gen.rbf_gen_adjoint_plain(
+        X, Y, ii, jj, 0.6, stack, dyadic, naive, g))
+
+
+@pytest.mark.parametrize("case", _CASES[::3], ids=_case_id)
+def test_the_folded_collapse_writes_every_base_cell(case):
+    """From a NaN-filled cotangent, the folded collapse
+    (``banded_adjoint``'s ``fold``) leaves no NaN and the plain version's
+    values, so the kernel's ``torch.empty`` is safe; the adding collapse
+    (K3<inc, boundary>'s, K8's) reads the NaN back (the negative
+    control)."""
+    M, N, D, kind, dyadic, H, Wc = case
+    *_, X, Y, ii, jj = _inputs(M, N, D, kind, torch.float64, M + N)
+    f = 2 ** dyadic
+    _, stack = cuda_gen.rbf_gen_solve_stack_plain(X, Y, ii, jj, 0.6, dyadic)
+    u = cuda_gen._lane_increments(X, Y, ii, jj, 0.6, f, flip=True)
+    g = _weights(len(ii), torch.float64)
+    want = cuda_gen.rbf_gen_adjoint_plain(X, Y, ii, jj, 0.6, stack, dyadic,
+                                          g=g)
+    for fold in ((1.0 / (f * f), g), None):
+        ct = torch.full((len(ii), M - 1, N - 1), float("nan"),
+                        dtype=torch.float64)
+        out = ct.transpose(-1, -2) if M > N else ct
+        cuda_blocked.banded_adjoint(u, stack, u.new_ones(len(ii),
+                                                         u.shape[2] + 1),
+                                    out, 0, u.shape[1], f, False, H, Wc,
+                                    fold=fold)
+        if fold is None:
+            assert ct.isnan().all()
+        else:
+            assert not ct.isnan().any()
+            assert torch.equal(ct, want)
 
 
 def test_length_one_and_no_pairs():
@@ -207,11 +276,71 @@ def test_f_past_a_warp_takes_the_one_block_kernel(posing_as_cuda,
 def test_band_launches_split_by_the_scratch_bound(posing_as_cuda,
                                                   monkeypatch):
     """With the scratch bound cut to one pair's hand-off rows, K3<gen>
-    launches once a pair, each launch's ct and stack a pair further on."""
+    launches once a pair, each launch's ct, weights and stack a pair
+    further on (no weights: a null pointer)."""
     X, Y, ii, stack = _meta(140, 150, 0, P=3)  # R 139: two bands
     monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", 150 * 8)
+    g = torch.empty(5, device="meta", dtype=torch.float64)[2:]
     cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 1.0, stack)
-    assert len(posing_as_cuda) == 3
+    cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 1.0, stack, g=g)
+    assert len(posing_as_cuda) == 6
     per_stack = stack[0].numel() * 8
+    per_ct = 139 * 149 * 8
     for n, (_, _, _, args) in enumerate(posing_as_cuda):
-        assert args[5] == per_stack * n and args[8] == 1
+        wt = None if n < 3 else g.data_ptr() + 8 * (n - 3)
+        assert args[4] - posing_as_cuda[3 * (n // 3)][3][4] == per_ct * (n % 3)
+        assert args[5] == wt
+        assert args[6] == per_stack * (n % 3) and args[9] == 1
+
+
+def test_folded_epilogues_are_counted(posing_as_cuda):
+    """``FOLDED_EPILOGUES`` counts K3<gen>'s calls by where the scale and
+    the weights were applied: ``band`` in the kernel (dyadic 0-5), and
+    ``one_block`` in PyTorch after the one-block kernel (dyadic 6); a call
+    with nothing to launch counts nothing. Its name keeps it out of the
+    launch tables (``*COUNTS``); a weight of the wrong shape is refused."""
+    assert not "FOLDED_EPILOGUES".endswith("COUNTS")
+    for dyadic, key in ((1, "band"), (5, "band"), (6, "one_block")):
+        X, Y, ii, stack = _meta(4, 3, dyadic)
+        before = dict(cuda_gen.FOLDED_EPILOGUES)
+        ct = cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 1.0, stack, dyadic,
+                                      g=torch.ones(2, device="meta",
+                                                   dtype=torch.float64))
+        assert ct.shape == (2, 3, 2)
+        assert {k: v - before[k] for k, v in
+                cuda_gen.FOLDED_EPILOGUES.items()} == {
+                    k: int(k == key) for k in before}
+    before = dict(cuda_gen.FOLDED_EPILOGUES)
+    X, Y, ii, _ = _meta(1, 3, 1)
+    cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 1.0, None, 1)
+    assert cuda_gen.FOLDED_EPILOGUES == before
+    X, Y, ii, stack = _meta(4, 3, 1)
+    with pytest.raises(ValueError, match="g must be"):
+        cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 1.0, stack, 1,
+                                 g=torch.ones(3, device="meta",
+                                              dtype=torch.float64))
+
+
+def test_north_star_backward_folds_every_chunk(posing_as_cuda, monkeypatch):
+    """At the north star's shape (10,000 pairs of length 1024, dim 3, dyadic
+    1) the generator's backward runs 79 chunks of at most 128 pairs, and
+    each K3<gen> launch gets its chunk's weights (the band kernel's
+    epilogue, counted under ``band``), with no multiply after it."""
+    from sigkernel_tpu_torch import sigkernel
+
+    monkeypatch.setattr(sigkernel.incvjp, "rbf_dd_vjp",
+                        lambda X, Y, ii, jj, sigma, ct: (
+                            X.new_zeros(()), torch.zeros_like(X),
+                            torch.zeros_like(Y)))
+    X = torch.empty(100, 1024, 3, device="meta", dtype=torch.float64)
+    P = 10_000
+    ii = torch.zeros(P, dtype=torch.int64, device="meta")
+    g = torch.empty(P, device="meta", dtype=torch.float64)
+    before = dict(cuda_gen.FOLDED_EPILOGUES)
+    sigkernel._gen_backward(X, X, ii, ii, 1.0, g, torch.float64, 1, False)
+    assert {k: v - before[k] for k, v in
+            cuda_gen.FOLDED_EPILOGUES.items()} == {"band": 79,
+                                                    "one_block": 0}
+    wts = [args[5] for what, _, _, args in posing_as_cuda
+           if what == "adjoint_collapse_gen"]
+    assert wts == [g.data_ptr() + 8 * 128 * k for k in range(79)]

@@ -5,8 +5,9 @@ emulation, run to run, at any dimension), the derivative Gram's
 triple wavefront K5 (its band kernel, past the earlier row bound too), the
 Linear generator K6, K1 and K1-stack at the edges of their band
 decomposition and in launches split by the scratch bound,
-K3<gen> on its band kernel at the edges of the band decomposition and
-on its one-block kernel past f = 32, the stripe kernels K7,
+K3<gen> on its band kernel at the edges of the band decomposition, with
+and without the per-pair weights it folds in, and on its one-block kernel
+past f = 32, the stripe kernels K7,
 K7-stack and K3<inc, boundary> (its band kernel, and its one-block kernel
 past f = 32), the sparse-checkpoint pair K2-sparse and
 K8 (K8's band kernel at the edges of its decomposition, its one-block
@@ -650,6 +651,90 @@ def test_band_gen_adjoint_splits_its_launches_by_the_scratch_bound(
     assert torch.equal(cuda_gen.rbf_gen_adjoint(Y, X, jj, ii, 1.0, stk),
                        whole)
     assert cuda_gen.ADJOINT_COUNTS["float64"] == n + 5
+
+
+# (P, M, N, D, dyadic): f 1, 2, 4 and 32; M < N, M == N and M > N
+_GEN_FOLD = [(5, 20, 30, 3, 0), (6, 17, 17, 2, 1), (4, 30, 12, 3, 2),
+             (3, 5, 6, 1, 5), (3, 6, 5, 3, 5), (3, 7, 7, 2, 5)]
+
+
+def _fold_weights(P, dtype, device):
+    """Per-pair weights with zeros of both signs, negatives and
+    subnormals."""
+    tiny = torch.finfo(dtype).tiny / 8
+    w = torch.tensor([-tiny, 0.0, 0.75, -1.25, -0.0, 3.0, tiny, 1e3],
+                     dtype=dtype, device=device)
+    return w[torch.arange(P, device=device) % w.shape[0]]
+
+
+def _poisoned_adjoint(shape, dtype, device, fn):
+    """``fn()`` right after a NaN-filled block of the cotangent's size was
+    freed, so that its ``torch.empty`` hands back NaNs wherever the kernel
+    leaves a cell unwritten."""
+    poison = torch.full(shape, float("nan"), dtype=dtype, device=device)
+    del poison
+    return fn()
+
+
+def test_band_gen_adjoint_folds_the_weights(cuda, monkeypatch):
+    """K3<gen>'s band kernel stores each base cell finished (times 1 / f^2
+    and the pair's weight) into an uninitialised cotangent: with and
+    without ``g``, both dtypes and schemes, bit for bit its plain version
+    and the unweighted cotangent times ``g``, no NaN left from the poisoned
+    allocator, one ``band`` count a call; and in launches split by the
+    scratch bound (the weights' pointer a pair further on each launch) the
+    same cotangent as one launch. Past f = 32 the one-block kernel, weighted
+    after it (``one_block``), equals its plain version too."""
+    for dtype in (torch.float32, torch.float64):
+        for P, M, N, D, dyadic in _GEN_FOLD:
+            X, Y, ii, jj = _gen_pairs(P, M, N, D, cuda, dtype)
+            g = _fold_weights(P, dtype, cuda)
+            for naive in (False, True):
+                _, stk = cuda_gen.rbf_gen_solve_stack(X, Y, ii, jj, 0.8,
+                                                      dyadic, naive)
+                before = dict(cuda_gen.FOLDED_EPILOGUES)
+                plain = _poisoned_adjoint(
+                    (P, M - 1, N - 1), dtype, cuda,
+                    lambda: cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, 0.8, stk,
+                                                     dyadic, naive))
+                got = _poisoned_adjoint(
+                    (P, M - 1, N - 1), dtype, cuda,
+                    lambda: cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, 0.8, stk,
+                                                     dyadic, naive, g=g))
+                assert _launched(cuda_gen.FOLDED_EPILOGUES, before) == {
+                    "band": 2, "one_block": 0}
+                assert not (plain.isnan().any() or got.isnan().any())
+                assert torch.equal(plain, cuda_gen.rbf_gen_adjoint_plain(
+                    X, Y, ii, jj, 0.8, stk, dyadic, naive))
+                assert torch.equal(got, cuda_gen.rbf_gen_adjoint_plain(
+                    X, Y, ii, jj, 0.8, stk, dyadic, naive, g))
+                assert torch.equal(got, plain * g[:, None, None])
+    X = _paths(4, 140, 3, 96, cuda, torch.float64)  # R = 139: two bands
+    Y = _paths(4, 150, 3, 97, cuda, torch.float64)
+    ii = torch.tensor([0, 1, 2, 3, 0], device=cuda)
+    jj = torch.tensor([3, 2, 1, 0, 0], device=cuda)
+    g = _fold_weights(5, torch.float64, cuda).flip(0)
+    _, stk = cuda_gen.rbf_gen_solve_stack(Y, X, jj, ii, 1.0)
+    whole = cuda_gen.rbf_gen_adjoint(Y, X, jj, ii, 1.0, stk, g=g)
+    assert torch.equal(whole, cuda_gen.rbf_gen_adjoint_plain(
+        Y, X, jj, ii, 1.0, stk, g=g))
+    monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", 150 * 8)
+    n = cuda_gen.ADJOINT_COUNTS["float64"]
+    split = _poisoned_adjoint(
+        whole.shape, torch.float64, cuda,
+        lambda: cuda_gen.rbf_gen_adjoint(Y, X, jj, ii, 1.0, stk, g=g))
+    assert cuda_gen.ADJOINT_COUNTS["float64"] == n + 5
+    assert torch.equal(split, whole)
+    # f = 64: the one-block kernel, its division and weighting in PyTorch
+    X, Y, ii, jj = _gen_pairs(3, 4, 3, 3, cuda, torch.float64)
+    g = _fold_weights(3, torch.float64, cuda)
+    _, stk = cuda_gen.rbf_gen_solve_stack(X, Y, ii, jj, 0.8, 6)
+    before = dict(cuda_gen.FOLDED_EPILOGUES)
+    got = cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, 0.8, stk, 6, g=g)
+    assert _launched(cuda_gen.FOLDED_EPILOGUES, before) == {
+        "band": 0, "one_block": 1}
+    assert torch.equal(got, cuda_gen.rbf_gen_adjoint_plain(
+        X, Y, ii, jj, 0.8, stk, 6, g=g))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
