@@ -11,7 +11,9 @@ first use: K1 generates RBF increments in-kernel (:mod:`.ops.cuda_gen`), K6
 Linear ones (:mod:`.ops.cuda_lgen`), K2 sweeps a precomputed increment grid
 (:mod:`.ops.cuda_solver`), K3/K4 carry the adjoint, and K5 the derivative
 Gram (:mod:`.ops.cuda_deriv`). On the CPU the plain PyTorch loops
-(:mod:`.ops.scan_solver`) run.
+(:mod:`.ops.scan_solver`) run. The path transforms (:mod:`.transforms`)
+and the precomputed-Gram SVC (:class:`.models.SigKernelSVC`) run on the
+paths' device too.
 """
 
 __version__ = "0.1.0"
@@ -41,6 +43,7 @@ from .sigkernel import (  # noqa: F401
     sig_expected_scoring_rule,
 )
 from .models.mmd_flow import MMDFlow, mmd_flow_step  # noqa: F401
+from .transforms import transform, AddTime, LeadLag  # noqa: F401
 from .stats import hypothesis_test, sig_chsic, SigCHSIC, c_alpha  # noqa: F401
 from . import ops  # noqa: F401
 from . import utils  # noqa: F401

@@ -49,6 +49,14 @@ the division and the weighting would otherwise be three passes over it.
 a kernel by where that epilogue ran: ``"band"`` in the kernel,
 ``"one_block"`` in PyTorch after it. Its name leaves it out of the launch
 tables (``*COUNTS``).
+
+``BAND_FILL`` counts how full the band kernels' bands are: each launch of
+K1, K1-stack and K3<gen> here and of the K2 family
+(:func:`.cuda_solver._launch_band`) adds its pairs times the frame's
+refined rows to ``"rows"`` and its pairs times its bands' rows
+(:data:`.cuda_blocked.BAND_ROWS` a band) to ``"slots"``; a short path
+leaves most of its last band's lanes idle. Its name leaves it out of the
+launch tables too.
 """
 from __future__ import annotations
 
@@ -63,6 +71,7 @@ COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 STACK_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 ADJOINT_COUNTS = {"float32": 0, "float64": 0, "one_block": 0, "plain": 0}
 FOLDED_EPILOGUES = {"band": 0, "one_block": 0}
+BAND_FILL = {"rows": 0, "slots": 0}
 
 _FNS = {torch.float32: "sk_rbf_gen_wavefront_f32",
         torch.float64: "sk_rbf_gen_wavefront_f64"}
@@ -85,10 +94,20 @@ SCRATCH_BYTES = 512 << 20
 
 def sigma_value(sigma) -> float:
     """``sigma`` (a number or a 0-d tensor, which may require a gradient) as
-    the double the kernels take by value."""
+    the double the kernels take by value: a device tensor read through
+    :func:`.tracing.host`, a host one directly."""
     if isinstance(sigma, torch.Tensor):
+        if sigma.device.type == "cpu":
+            return float(sigma.detach())
         return float(host(sigma.detach().reshape(()), "sigma"))
     return float(sigma)
+
+
+def count_band_fill(pairs: int, R: int, nbands: int):
+    """Add a band launch of ``pairs`` frames of ``R`` refined rows in
+    ``nbands`` bands to :data:`BAND_FILL`."""
+    BAND_FILL["rows"] += pairs * R
+    BAND_FILL["slots"] += pairs * nbands * cuda_blocked.BAND_ROWS
 
 
 def sqdist(x, y) -> torch.Tensor:
@@ -375,7 +394,8 @@ def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
     K3<gen> (``adjoint``: ``stack`` read, ``out`` the cotangent, ``wt``
     the per-pair weights or None) over the pairs in launches of
     :func:`gen_chunk` pairs, each with its scratch and freshly zeroed
-    counters (reused across the launches, on one stream)."""
+    counters (reused across the launches, on one stream) and counted in
+    :data:`BAND_FILL`."""
     rows, ri, cols, ci, f, transposed = _oriented(X, Y, ii, jj, dyadic_order,
                                                   what)
     P, Lr, Lc = ii.shape[0], rows.shape[1], cols.shape[1]
@@ -402,6 +422,7 @@ def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
         _build.launch(what, fns, counts, X, *at, scratch.data_ptr(),
                       counters.data_ptr(), n, Lr, Lc, X.shape[2], f,
                       sigma_value(sigma), nbands, *frame, int(naive))
+        count_band_fill(n, R, nbands)
 
 
 @spanned("sk.op.rbf_gen_wavefront")

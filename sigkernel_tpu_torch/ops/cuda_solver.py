@@ -375,8 +375,9 @@ def _launch_band(what, fns, counts, inc, dyadic_order, naive, stack=None,
     launches of at most :func:`.cuda_gen.gen_chunk` pairs (the bands'
     hand-off scratch within :data:`.cuda_gen.SCRATCH_BYTES`) and
     :data:`TICKETS` blocks, each with freshly zeroed counters (the scratch
-    and counters reused across the launches, on one stream). Returns the
-    corners ``(P,)``; ``stack`` (its pairs' stacks) is written."""
+    and counters reused across the launches, on one stream), each counted
+    in :data:`.cuda_gen.BAND_FILL`. Returns the corners ``(P,)``; ``stack``
+    (its pairs' stacks) is written."""
     from . import cuda_gen  # cuda_gen imports this module
 
     P, Mb, Nb = inc.shape
@@ -397,9 +398,11 @@ def _launch_band(what, fns, counts, inc, dyadic_order, naive, stack=None,
         at = (inc.data_ptr() + per_grid * s, out.data_ptr() + size * s)
         if stack is not None:
             at += (stack.data_ptr() + per_stack * s,)
+        n = min(chunk, P - s)
         _build.launch(what, fns, counts, inc, *at, scratch.data_ptr(),
-                      counters.data_ptr(), min(chunk, P - s), Mb, Nb, f,
+                      counters.data_ptr(), n, Mb, Nb, f,
                       *(() if W is None else (W,)), nbands, int(naive))
+        cuda_gen.count_band_fill(n, R, nbands)
     return out
 
 

@@ -254,8 +254,13 @@ def _pairs(static_kernel, X, Y, ii, jj, dyadic_order, naive, solver,
             ii = jj = torch.arange(X.shape[0], device=X.device)
         cfg = (static_kernel, dyadic_order, naive, solver, grad_solver)
         if fam == "gen":
-            return _RBFGen.apply(X, Y, static_kernel.sigma.to(X), ii, jj,
-                                 cfg)
+            sigma = static_kernel.sigma
+            # held on the host (a number given to RBFKernel) and wanted
+            # without a gradient: it stays there, so that no launch waits
+            # on a device read of it
+            sigma = (sigma.to(X.dtype) if not need_grad
+                     and sigma.device.type == "cpu" else sigma.to(X))
+            return _RBFGen.apply(X, Y, sigma, ii, jj, cfg)
         fn = _LinearGen if fam == "lgen" else _GridPairs
         return fn.apply(X, Y, ii, jj, cfg, *_hyper(static_kernel))
     x = X if ii is None else X[ii]

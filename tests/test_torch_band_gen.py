@@ -147,3 +147,48 @@ def test_launch_chunks_keep_the_scratch_within_its_bound(P, R, C, itemsize,
     # the hand-off rows and the counters (an int a block, and the ticket)
     assert n == 1 or n * ((bands - 1) * (C + 1) * itemsize + 4 * bands) + 4 \
         <= cuda_gen.SCRATCH_BYTES
+
+
+@pytest.fixture
+def posing_as_cuda(monkeypatch):
+    """Meta tensors pass the K1 family's checks; each launch is recorded,
+    not run, and ``cuda_gen.BAND_FILL`` starts from 0."""
+    launches = []
+    monkeypatch.setattr(cuda_gen, "check_pairs",
+                        lambda X, Y, ii, jj, what: (ii, jj))
+    monkeypatch.setattr(cuda_gen._build, "launch",
+                        lambda what, fns, counts, t, *args, key=None:
+                        launches.append(what))
+    monkeypatch.setattr(cuda_gen, "BAND_FILL", {"rows": 0, "slots": 0})
+    return launches
+
+
+@pytest.mark.parametrize("M,N,D,dyadic,R,bands", [
+    (144, 144, 10, 0, 143, 2),     # add-time: 143 rows in 2 bands
+    (287, 287, 19, 0, 286, 3),     # add-time and lead-lag: 286 in 3
+    (287, 144, 19, 0, 143, 2),     # transposed: the shorter side's rows
+    (1025, 1025, 3, 1, 2048, 16),  # full bands
+])
+@pytest.mark.parametrize("split", [False, True])
+def test_band_fill_counts_rows_and_band_slots(posing_as_cuda, monkeypatch,
+                                              M, N, D, dyadic, R, bands,
+                                              split):
+    """K1, K1-stack and K3<gen> each add pairs x rows and pairs x bands x
+    128, whether a launch holds all 7 pairs or (``split``, the scratch bound
+    cut to one pair's hand-off rows) one."""
+    from sigkernel_tpu_torch.ops.cuda_solver import stack_shape
+
+    meta = dict(device="meta", dtype=torch.float64)
+    X, Y = torch.empty(4, M, D, **meta), torch.empty(3, N, D, **meta)
+    ii = torch.empty(7, device="meta", dtype=torch.int64)
+    f = 2 ** dyadic
+    if split:
+        monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", (bands - 1) * (
+            (max(M, N) - 1) * f + 1) * 8 + 4 * bands + 4)
+    stack = torch.empty(stack_shape(7, (M - 1) * f, (N - 1) * f), **meta)
+    cuda_gen.rbf_gen_solve_final(X, Y, ii, ii, 0.5, dyadic)
+    cuda_gen.rbf_gen_solve_stack(X, Y, ii, ii, 0.5, dyadic)
+    cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 0.5, stack, dyadic)
+    assert len(posing_as_cuda) == 3 * (7 if split and bands > 1 else 1)
+    assert cuda_gen.BAND_FILL == {"rows": 3 * 7 * R,
+                                  "slots": 3 * 7 * bands * 128}

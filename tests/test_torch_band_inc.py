@@ -272,3 +272,19 @@ def test_routes_keep_the_stripes_past_the_row_bound(dtype):
     assert routes.resolve_inc_tier((rows, rows + 5), size) == "stripes"
     assert routes.resolve_inc_tier((rows, rows + 5), size, True) == "striped"
     assert routes.resolve_inc_tier((rows - 1, rows), size) == "single"
+
+
+@pytest.mark.parametrize("Mb,Nb,dyadic,R,bands", [
+    (143, 143, 0, 143, 2), (140, 150, 1, 280, 3), (150, 140, 1, 280, 3),
+    (128, 300, 0, 128, 1)])
+def test_band_fill_counts_rows_and_band_slots(posing_as_cuda, monkeypatch,
+                                              Mb, Nb, dyadic, R, bands):
+    """K2, K2-stack and K2-sparse each add pairs x rows and pairs x bands x
+    128 to ``cuda_gen.BAND_FILL``, over every launch of a split."""
+    monkeypatch.setattr(cuda_gen, "BAND_FILL", {"rows": 0, "slots": 0})
+    monkeypatch.setattr(cuda_solver, "TICKETS", 2 * bands)
+    for what, (wrapper, _) in _wrappers().items():
+        wrapper(_meta(5, Mb, Nb), dyadic)
+    assert len(posing_as_cuda) == 3 * 3          # 2, 2 and 1 pairs a launch
+    assert cuda_gen.BAND_FILL == {"rows": 3 * 5 * R,
+                                  "slots": 3 * 5 * bands * 128}

@@ -514,11 +514,16 @@ def test_band_adjoint_matches_plain(cuda, dtype, naive, P, Mb, Nb, dyadic,
 # frame's rows R = (min(M, N) - 1) 2^dyadic: 1, 31, 32, 33, 128 (one full
 # band) and 129 (a second band of one row); a transposed pair (M > N); D = 1
 # and 5 and D = 7 (no instance of its own: the points read through __ldg);
-# dyadic 0-3; 3,000 pairs, more blocks than are resident
+# dyadic 0-3; 3,000 pairs, more blocks than are resident; and the UEA
+# selection cell's shapes at f = 1 on the generic instance: 144 points of
+# 10 channels (add-time) and 287 of 19 (add-time and lead-lag), 143 and 286
+# rows, a transposed pair of the two lengths, 2,000 pairs
 _GEN_BAND = [
     (3, 2, 6, 2, 0), (3, 32, 40, 3, 0), (3, 33, 40, 1, 0), (2, 34, 50, 5, 0),
     (2, 65, 70, 3, 1), (2, 130, 140, 3, 0), (2, 70, 40, 3, 1),
     (2, 9, 12, 7, 3), (2, 17, 20, 5, 2), (3000, 17, 17, 3, 2),
+    (3, 144, 144, 10, 0), (3, 287, 287, 19, 0), (3, 287, 144, 19, 0),
+    (2000, 287, 287, 19, 0),
 ]
 
 
@@ -548,6 +553,72 @@ def test_band_gen_matches_plain(cuda, dtype, P, M, N, D, dyadic):
         if P <= 3:
             assert torch.equal(got, cuda_gen.rbf_gen_banded_plain(
                 X, Y, ii, jj, 0.8, dyadic, naive))
+
+
+def test_band_fill_counts_each_band_launch(cuda):
+    """``cuda_gen.BAND_FILL`` after one K1 launch of 5 pairs of 287 points
+    (286 rows in 3 bands of 128) and one K2 launch of 5 grids of 143 rows
+    (2 bands)."""
+    X = _paths(4, 287, 19, 7, cuda, torch.float64)
+    ii = torch.tensor([0, 1, 2, 3, 0], device=cuda)
+    jj = torch.tensor([3, 2, 1, 0, 0], device=cuda)
+    before = dict(cuda_gen.BAND_FILL)
+    n = cuda_gen.COUNTS["float64"]
+    cuda_gen.rbf_gen_solve_final(X, X, ii, jj, 1.0)
+    assert cuda_gen.COUNTS["float64"] == n + 1
+    assert cuda_gen.BAND_FILL == {"rows": before["rows"] + 5 * 286,
+                                  "slots": before["slots"] + 5 * 3 * 128}
+    inc = torch.rand(5, 143, 200, dtype=torch.float64, device=cuda) * 1e-3
+    cuda_solver.inc_solve_final(inc, 0)
+    assert cuda_gen.BAND_FILL == {
+        "rows": before["rows"] + 5 * 286 + 5 * 143,
+        "slots": before["slots"] + 5 * 3 * 128 + 5 * 2 * 128}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_tiles_are_the_untiled_pairs(cuda, dtype):
+    """``sig_gram`` of 300 x 275 paths of the UEA cell's add-time shape in
+    ``max_batch`` 100 tiles (nine, three of them 100 x 75) is bit for bit
+    K1 on the 82,500 pairs in one call; the ``sym`` triangle of the 275
+    likewise, and exactly symmetric."""
+    X = _paths(300, 144, 10, 11, cuda, dtype)
+    Y = _paths(275, 144, 10, 12, cuda, dtype)
+    k = skt.RBFKernel(0.25)
+    G = skt.sig_gram(k, X, Y, max_batch=100)
+    ii = torch.arange(300, device=cuda).repeat_interleave(275)
+    jj = torch.arange(275, device=cuda).repeat(300)
+    want = cuda_gen.rbf_gen_solve_final(X, Y, ii, jj, 0.25)
+    assert torch.equal(G, want.reshape(300, 275))
+    S = skt.sig_gram(k, Y, Y, sym=True, max_batch=100)
+    iu, ju = torch.triu_indices(275, 275, device=cuda)
+    assert torch.equal(S[iu, ju], cuda_gen.rbf_gen_solve_final(Y, Y, iu, ju,
+                                                               0.25))
+    assert torch.equal(S, S.T)
+
+
+def test_svc_grams_on_card_match_plain_tier_without_sigma_reads(cuda):
+    """``transform`` and ``SigKernelSVC``'s Grams on the card at the UEA
+    cell's lengths (add-time and lead-lag: 287 points of 19 channels), in
+    ragged tiles, against the same on the CPU's plain tier; sigma given as
+    a number is never read from the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sigkernel_tpu_torch.models import SigKernelSVC
+
+    X = _paths(7, 144, 9, 13, cuda, torch.float64)
+    T = _paths(5, 144, 9, 14, cuda, torch.float64)
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        x = skt.transform(X.to(dev), at=True, ll=True, scale=0.1)
+        t = skt.transform(T.to(dev), at=True, ll=True, scale=0.1)
+        assert x.shape == (7, 287, 19) and x.device.type == dev.type
+        svc = SigKernelSVC(skt.RBFKernel(0.1), 0, max_batch=3)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            got[dev.type] = (svc.train_gram(x), svc.test_gram(t))
+        names = [e.name() for e in prof.profiler.kineto_results.events()]
+        assert "sk.sync.sigma" not in names
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert _rel(a.cpu(), b) <= RTOL[torch.float64]
 
 
 def test_band_gen_splits_its_launches_by_the_scratch_bound(cuda, monkeypatch):

@@ -307,7 +307,9 @@ def test_import_pulls_in_no_jax():
             "sigkernel_tpu_torch.ops.incvjp, sigkernel_tpu_torch.ops.cuda_deriv, "
             "sigkernel_tpu_torch.ops.cuda_lgen, "
             "sigkernel_tpu_torch.ops.cuda_blocked, "
-            "sigkernel_tpu_torch.models.mmd_flow\n"
+            "sigkernel_tpu_torch.models.mmd_flow, "
+            "sigkernel_tpu_torch.models.classifier, "
+            "sigkernel_tpu_torch.transforms\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'sigkernel_tpu'))\n"
             "assert not bad, bad\n")

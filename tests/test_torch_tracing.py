@@ -1,15 +1,16 @@
 """The program's spans (``sigkernel_tpu_torch.tracing``) on CPU tensors.
 
 With no profiler recording, no span is created. Under ``torch.profiler``
-each estimator opens ``sk.est.<function>``, one ``sk.est.chunk`` a pass of
-its pair-chunk loop, ``sk.grid`` around each increment grid built in
-PyTorch and ``sk.op.<kernel>`` around each launching entry of ``ops/`` its
-route takes, each inside its parent in time; host reads go through
-``tracing.host`` (``sk.sync.<site>``). The routes are steered onto the
-card's families by patching ``routes.resolve_family``, as the other CPU
-tests of those families do: their Functions then run the plain versions
-behind the same entries. No launch table is added to ``ops/``, so the
-benchmark's launch count reads what it read before."""
+each estimator, and ``transform``, opens ``sk.est.<function>``, one
+``sk.est.chunk`` a pass of its pair-chunk loop, ``sk.grid`` around each
+increment grid built in PyTorch and ``sk.op.<kernel>`` around each
+launching entry of ``ops/`` its route takes, each inside its parent in
+time; host reads go through ``tracing.host`` (``sk.sync.<site>``). The
+routes are steered onto the card's families by patching
+``routes.resolve_family``, as the other CPU tests of those families do:
+their Functions then run the plain versions behind the same entries. No
+launch table is added to ``ops/``, so the benchmark's launch count reads
+what it read before."""
 import importlib
 import math
 import pkgutil
@@ -85,6 +86,12 @@ def gram_sym():
                  dyadic_order=1, sym=True, max_batch=2)
 
 
+def transform():
+    """``transform`` of 3 paths with lead-lag and add-time: its span alone,
+    with nothing under it."""
+    skt.transform(_paths(10, 3, 6), at=True, ll=True, scale=0.1)
+
+
 # each call: its family, estimator, chunk spans directly inside the
 # estimator's, whether it builds grids in PyTorch, and its sk.op entries
 CALLS = {
@@ -94,6 +101,7 @@ CALLS = {
                 {"inc_wavefront", "inc_wavefront[sparse]", "adjoint_ckpt"}),
     "gram_sym": (gram_sym, "gen", "sig_gram", 3, False,
                  {"rbf_gen_wavefront"}),
+    "transform": (transform, "gen", "transform", 0, False, set()),
 }
 
 
