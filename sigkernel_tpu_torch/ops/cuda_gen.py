@@ -36,7 +36,18 @@ is the one-block kernel (a block a pair, a barrier a diagonal, within the
 row bound), chosen by :func:`.cuda_blocked.stripe_adjoint_kernel`'s rule.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version (``*_plain``) only for CPU tensors. ``COUNTS``, ``STACK_COUNTS`` and
+version (``*_plain``) only for CPU tensors. ``sigma`` reaches the kernels
+by value: a number passes as it is, and a tensor on the card is read on the
+host once a wrapper call (:func:`sigma_value`, one wait for the card), so
+the estimators read it once a call and pass the number down. An entry skips
+its read of the pair indices' bounds when its caller passes
+``in_range=True``, for index arrays it built from the paths' batch sizes.
+``INDEX_CHECKS`` counts the entries' calls with pairs by which they did:
+``"read"`` the bounds on the host (one wait for the card), or took them as
+``"built"``; like ``FOLDED_EPILOGUES`` and ``BAND_FILL`` below, its name
+leaves it out of the launch tables.
+
+``COUNTS``, ``STACK_COUNTS`` and
 ``ADJOINT_COUNTS`` hold the kernel launches per dtype and the calls of the
 plain versions; ``ADJOINT_COUNTS["one_block"]`` counts K3<gen>'s one-block
 launches (``f > 32``), which the dtype keys leave out.
@@ -72,6 +83,7 @@ STACK_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 ADJOINT_COUNTS = {"float32": 0, "float64": 0, "one_block": 0, "plain": 0}
 FOLDED_EPILOGUES = {"band": 0, "one_block": 0}
 BAND_FILL = {"rows": 0, "slots": 0}
+INDEX_CHECKS = {"read": 0, "built": 0}
 
 _FNS = {torch.float32: "sk_rbf_gen_wavefront_f32",
         torch.float64: "sk_rbf_gen_wavefront_f64"}
@@ -329,8 +341,9 @@ def rbf_gen_adjoint_banded_plain(X, Y, ii, jj, sigma, stack,
     return ct
 
 
-def check_pairs(X, Y, ii, jj, what):
-    """Check a launch's inputs; returns the index arrays as contiguous
+def check_layout(X, Y, ii, jj, what):
+    """Check a launch's paths and index arrays for device, dtype and layout,
+    with nothing read from the card; returns the index arrays as contiguous
     int64."""
     for name, t in (("X", X), ("Y", Y)):
         if t.device.type != "cuda":
@@ -349,9 +362,20 @@ def check_pairs(X, Y, ii, jj, what):
         raise ValueError(f"{what}: ii and jj must be on the paths' device")
     if ii.shape[0] >= 2 ** 31:
         raise ValueError(f"{what}: {ii.shape[0]} pairs exceed one launch")
-    ii = ii.to(torch.int64).contiguous()
-    jj = jj.to(torch.int64).contiguous()
-    if ii.shape[0]:
+    return ii.to(torch.int64).contiguous(), jj.to(torch.int64).contiguous()
+
+
+def check_pairs(X, Y, ii, jj, what, in_range=False):
+    """:func:`check_layout`, then the pair indices' bounds, read on the host
+    (``sk.sync.index_bounds``, a wait for the card) unless ``in_range``: the
+    caller built the index arrays from the paths' batch sizes, so they are
+    in range by construction. Counted in :data:`INDEX_CHECKS`; returns the
+    index arrays as contiguous int64."""
+    ii, jj = check_layout(X, Y, ii, jj, what)
+    if ii.shape[0] and in_range:
+        INDEX_CHECKS["built"] += 1
+    elif ii.shape[0]:
+        INDEX_CHECKS["read"] += 1
         lo_i, hi_i, lo_j, hi_j = host(torch.stack(
             [ii.min(), ii.max(), jj.min(), jj.max()]), "index_bounds")
         if lo_i < 0 or lo_j < 0 or hi_i >= X.shape[0] or hi_j >= Y.shape[0]:
@@ -394,10 +418,12 @@ def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
     K3<gen> (``adjoint``: ``stack`` read, ``out`` the cotangent, ``wt``
     the per-pair weights or None) over the pairs in launches of
     :func:`gen_chunk` pairs, each with its scratch and freshly zeroed
-    counters (reused across the launches, on one stream) and counted in
+    counters (reused across the launches, on one stream) and ``sigma`` read
+    once for all of them (:func:`sigma_value`), and counted in
     :data:`BAND_FILL`."""
     rows, ri, cols, ci, f, transposed = _oriented(X, Y, ii, jj, dyadic_order,
                                                   what)
+    sig = sigma_value(sigma)
     P, Lr, Lc = ii.shape[0], rows.shape[1], cols.shape[1]
     R, C = (Lr - 1) * f, (Lc - 1) * f
     nbands = -(-R // cuda_blocked.BAND_ROWS)
@@ -421,22 +447,26 @@ def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
             at += (stack.data_ptr() + per_stack * s,)
         _build.launch(what, fns, counts, X, *at, scratch.data_ptr(),
                       counters.data_ptr(), n, Lr, Lc, X.shape[2], f,
-                      sigma_value(sigma), nbands, *frame, int(naive))
+                      sig, nbands, *frame, int(naive))
         count_band_fill(n, R, nbands)
 
 
 @spanned("sk.op.rbf_gen_wavefront")
 def rbf_gen_solve_final(X, Y, ii, jj, sigma, dyadic_order: int = 0,
-                        naive: bool = False) -> torch.Tensor:
+                        naive: bool = False, *,
+                        in_range: bool = False) -> torch.Tensor:
     """RBF signature kernel of the pairs ``(X[ii[p]], Y[jj[p]])`` -> ``(P,)``.
 
     ``X``: ``(A, M, D)``, ``Y``: ``(B, N, D)``; ``sigma`` a number or a
-    0-d tensor (passed to the kernel by value).
+    0-d tensor (passed to the kernel by value: :func:`sigma_value`);
+    ``in_range``: the caller built ``ii`` and ``jj`` from the batch sizes,
+    so their bounds are not read (:func:`check_pairs`).
     """
     if X.device.type == "cpu":
         return rbf_gen_solve_final_plain(X, Y, ii, jj, sigma, dyadic_order,
                                          naive)
-    ii, jj = check_pairs(X, Y, ii, jj, "rbf_gen_solve_final")
+    ii, jj = check_pairs(X, Y, ii, jj, "rbf_gen_solve_final",
+                         in_range=in_range)
     P, M, N = ii.shape[0], X.shape[1], Y.shape[1]
     if P == 0 or M < 2 or N < 2:
         # no pairs, or a length-1 path (K is its boundary, 1): no launch
@@ -449,15 +479,16 @@ def rbf_gen_solve_final(X, Y, ii, jj, sigma, dyadic_order: int = 0,
 
 @spanned("sk.op.rbf_gen_stack")
 def rbf_gen_solve_stack(X, Y, ii, jj, sigma, dyadic_order: int = 0,
-                        naive: bool = False):
+                        naive: bool = False, *, in_range: bool = False):
     """K1-stack: ``(values (P,), stack)`` of the pairs ``(X[ii[p]],
     Y[jj[p]])``; the stack is ``cuda_solver.stack_shape(P, (M-1) f,
     (N-1) f)``. Needs paths of length >= 2 (a length-1 path has no adjoint
-    to feed)."""
+    to feed). ``sigma`` and ``in_range`` as :func:`rbf_gen_solve_final`'s."""
     if X.device.type == "cpu":
         return rbf_gen_solve_stack_plain(X, Y, ii, jj, sigma, dyadic_order,
                                          naive)
-    ii, jj = check_pairs(X, Y, ii, jj, "rbf_gen_solve_stack")
+    ii, jj = check_pairs(X, Y, ii, jj, "rbf_gen_solve_stack",
+                         in_range=in_range)
     P, M, N = ii.shape[0], X.shape[1], Y.shape[1]
     if M < 2 or N < 2:
         raise ValueError("rbf_gen_solve_stack: a length-1 path has no stack")
@@ -473,18 +504,21 @@ def rbf_gen_solve_stack(X, Y, ii, jj, sigma, dyadic_order: int = 0,
 
 @spanned("sk.op.adjoint_collapse_gen")
 def rbf_gen_adjoint(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
-                    naive: bool = False, g=None) -> torch.Tensor:
+                    naive: bool = False, g=None, *,
+                    in_range: bool = False) -> torch.Tensor:
     """K3<gen>: the gradient ``(P, M-1, N-1)`` of each pair's value in its
     base RBF increments, given the forward ``stack`` of
     :func:`rbf_gen_solve_stack`, times the pair's upstream cotangent ``g
     (P,)`` if given (else 1). The band kernel while ``f <= 32``, which
     writes the finished cotangent, else the one-block kernel
     (:func:`.cuda_blocked.stripe_adjoint_kernel`) and the division by
-    ``f^2`` and the weighting after it."""
+    ``f^2`` and the weighting after it. ``sigma`` and ``in_range`` as
+    :func:`rbf_gen_solve_final`'s."""
     if X.device.type == "cpu":
         return rbf_gen_adjoint_plain(X, Y, ii, jj, sigma, stack,
                                      dyadic_order, naive, g)
-    ii, jj = check_pairs(X, Y, ii, jj, "rbf_gen_adjoint")
+    ii, jj = check_pairs(X, Y, ii, jj, "rbf_gen_adjoint",
+                         in_range=in_range)
     P, M, N = ii.shape[0], X.shape[1], Y.shape[1]
     if g is not None:
         if g.shape != (P,) or g.dtype != X.dtype or g.device != X.device:

@@ -66,14 +66,17 @@ def linear_gen_solve_final_plain(X, Y, ii, jj, scale, dyadic_order: int = 0,
 
 @spanned("sk.op.linear_gen_wavefront")
 def linear_gen_solve_final(X, Y, ii, jj, scale, dyadic_order: int = 0,
-                           naive: bool = False) -> torch.Tensor:
+                           naive: bool = False, *,
+                           in_range: bool = False) -> torch.Tensor:
     """Linear signature kernel of the pairs ``(X[ii[p]], Y[jj[p]])`` ->
     ``(P,)``. ``X``: ``(A, M, D)``, ``Y``: ``(B, N, D)``; ``scale`` a number
-    or a 0-d tensor (the kernel takes the scaled increments)."""
+    or a 0-d tensor (the kernel takes the scaled increments); ``in_range``
+    as :func:`.cuda_gen.rbf_gen_solve_final`'s."""
     if X.device.type == "cpu":
         return linear_gen_solve_final_plain(X, Y, ii, jj, scale,
                                             dyadic_order, naive)
-    ii, jj = cuda_gen.check_pairs(X, Y, ii, jj, "linear_gen_solve_final")
+    ii, jj = cuda_gen.check_pairs(X, Y, ii, jj, "linear_gen_solve_final",
+                                  in_range=in_range)
     P, M, N, D = ii.shape[0], X.shape[1], Y.shape[1], X.shape[2]
     if P == 0 or M < 2 or N < 2 or D == 0:
         # no pairs, or no increments (K is its boundary, 1): no launch

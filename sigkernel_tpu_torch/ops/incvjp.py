@@ -255,15 +255,19 @@ def _scratch(X, P, M, N, D):
             new(P, nb + 1)), (H, chunk)
 
 
-def rbf_dd_vjp_pairs(X, Y, ii, jj, sigma, ct):
+def rbf_dd_vjp_pairs(X, Y, ii, jj, sigma, ct, *, in_range=False):
     """``(d sigma, dx (P, M, D), dy (P, N, D))`` of ``sum(ct * dd(exp(-|x -
     y|^2 / sigma)))`` over the pairs ``(X[ii[p]], Y[jj[p]])``, a pair's
     path gradients before their scatter: the kernel for CUDA tensors (one
-    launch a call, however many pairs), its plain emulation
-    (:func:`rbf_dd_vjp_pairs_tiled_plain`) for CPU tensors."""
+    launch a call, however many pairs; ``sigma`` by value,
+    :func:`.cuda_gen.sigma_value`), its plain emulation
+    (:func:`rbf_dd_vjp_pairs_tiled_plain`) for CPU tensors. ``in_range``:
+    the caller built ``ii`` and ``jj`` from the batch sizes, so their bounds
+    are not read (:func:`.cuda_gen.check_pairs`)."""
     if X.device.type == "cpu":
         return rbf_dd_vjp_pairs_tiled_plain(X, Y, ii, jj, sigma, ct)
-    ii, jj = cuda_gen.check_pairs(X, Y, ii, jj, "rbf_dd_vjp")
+    ii, jj = cuda_gen.check_pairs(X, Y, ii, jj, "rbf_dd_vjp",
+                                  in_range=in_range)
     P, M, N, D = ii.shape[0], X.shape[1], Y.shape[1], X.shape[2]
     if (ct.shape != (P, max(M - 1, 0), max(N - 1, 0)) or ct.dtype != X.dtype
             or ct.device != X.device or not ct.is_contiguous()):
@@ -283,13 +287,13 @@ def rbf_dd_vjp_pairs(X, Y, ii, jj, sigma, ct):
 
 
 @spanned("sk.op.rbf_dd_vjp")
-def rbf_dd_vjp(X, Y, ii, jj, sigma, ct):
+def rbf_dd_vjp(X, Y, ii, jj, sigma, ct, *, in_range=False):
     """``(d sigma, dX, dY)`` of ``sum(ct * dd(exp(-|x - y|^2 / sigma)))``
     over the pairs ``(X[ii[p]], Y[jj[p]])``; ``ct``: ``(P, M-1, N-1)`` in
     the dtype of the paths. ``d sigma`` is a 0-d tensor of that dtype. Any
-    path dimension."""
+    path dimension. ``in_range`` as :func:`rbf_dd_vjp_pairs`'."""
     if X.device.type == "cpu":
         return rbf_dd_vjp_plain(X, Y, ii, jj, sigma, ct)
-    ds, dx, dy = rbf_dd_vjp_pairs(X, Y, ii, jj, sigma, ct)
+    ds, dx, dy = rbf_dd_vjp_pairs(X, Y, ii, jj, sigma, ct, in_range=in_range)
     return (ds, torch.zeros_like(X).index_add_(0, ii, dx),
             torch.zeros_like(Y).index_add_(0, jj, dy))

@@ -11,7 +11,11 @@ module. Each tile's solver family and gradient dtype come from
   pair index arrays (no path copies per pair, no increment grid). Gradients
   through :class:`_RBFGen`, whose backward recomputes each chunk's forward
   stack (K1-stack), runs the adjoint (K3<gen>) and the increment-chain VJP
-  (K4) to the paths and ``sigma``.
+  (K4) to the paths and ``sigma``. The kernels take ``sigma`` by value,
+  read on the host once before the estimator's launches
+  (:func:`_launch_sigma`), and the pair indices as the estimator built
+  them, with no read of their bounds: between its launches the host reads
+  nothing, so it runs ahead of the card.
 - ``lgen``: Linear increments generated in the K6 kernel from the paths'
   increments and the pair index arrays. Gradients through
   :class:`_LinearGen`, whose backward recomputes each chunk's increment
@@ -89,12 +93,25 @@ def _require_rbf(static_kernel):
                         f"got {type(static_kernel).__name__}")
 
 
+def _launch_sigma(static_kernel) -> float:
+    """The RBF kernel's ``sigma`` as the number the generator family's
+    kernels take by value (each casts it to the paths' dtype). Read once
+    before the launches it serves, each :func:`_pairs` call (a Gram's tile
+    or chunk, a batch of :func:`sig_kernel`) and each
+    :class:`_GramLincomb`, and handed down to all of them: a ``sigma`` on
+    the card costs one ``sk.sync.sigma`` wait there, not one a launch."""
+    _require_rbf(static_kernel)
+    return cuda_gen.sigma_value(static_kernel.sigma)
+
+
 def _gen_backward(X, Y, ii, jj, sigma, g, bwd_dtype, dyadic_order, naive,
                   stack=None):
     """``(d sigma, dX, dY)`` of ``sum_p g_p k(X[ii_p], Y[jj_p])`` for the RBF
     kernel, in ``bwd_dtype``: per chunk K1-stack (skipped when the caller's
     forward already made ``stack``, in ``bwd_dtype``), K3<gen> with ``g``
-    (applied in its kernel), then K4."""
+    (applied in its kernel), then K4. ``sigma``: the number from
+    :func:`_launch_sigma`. Its callers built ``ii`` and ``jj`` from the
+    batch sizes, so no launch reads their bounds."""
     Xb = X.detach().to(bwd_dtype).contiguous()
     Yb = Y.detach().to(bwd_dtype).contiguous()
     ds, dX, dY = Xb.new_zeros(()), torch.zeros_like(Xb), torch.zeros_like(Yb)
@@ -110,13 +127,15 @@ def _gen_backward(X, Y, ii, jj, sigma, g, bwd_dtype, dyadic_order, naive,
             ic, jc = ii[s:s + chunk], jj[s:s + chunk]
             stk = stack
             if stk is None:
-                _, stk = cuda_gen.rbf_gen_solve_stack(Xb, Yb, ic, jc, sigma,
-                                                      dyadic_order, naive)
+                _, stk = cuda_gen.rbf_gen_solve_stack(
+                    Xb, Yb, ic, jc, sigma, dyadic_order, naive, in_range=True)
             ct = cuda_gen.rbf_gen_adjoint(Xb, Yb, ic, jc, sigma, stk,
                                           dyadic_order, naive,
-                                          g=g[s:s + chunk].to(bwd_dtype))
+                                          g=g[s:s + chunk].to(bwd_dtype),
+                                          in_range=True)
             del stk
-            e, dx, dy = incvjp.rbf_dd_vjp(Xb, Yb, ic, jc, sigma, ct)
+            e, dx, dy = incvjp.rbf_dd_vjp(Xb, Yb, ic, jc, sigma, ct,
+                                          in_range=True)
             ds, dX, dY = ds + e, dX + dx, dY + dy
     return ds, dX, dY
 
@@ -125,16 +144,19 @@ class _RBFGen(torch.autograd.Function):
     """``k_sig(X[ii[p]], Y[jj[p]])`` on the ``gen`` family: paths, sigma and
     pair indices in, values out. The forward keeps only its inputs; the
     backward recomputes each chunk's stack, so residual memory does not grow
-    with the pair count (the JAX ``adjoint_planes_gen_df`` design)."""
+    with the pair count (the JAX ``adjoint_planes_gen_df`` design). Applied
+    by :func:`_pairs` alone, whose callers build the indices, so no launch
+    reads their bounds; ``sv`` is ``sigma``'s value (:func:`_launch_sigma`),
+    which the forward's and the backward's launches take."""
 
     @staticmethod
-    def forward(ctx, X, Y, sigma, ii, jj, cfg):
+    def forward(ctx, X, Y, sigma, ii, jj, cfg, sv):
         static_kernel, dyadic_order, naive, solver, grad_solver = cfg
         _require_rbf(static_kernel)
         ctx.save_for_backward(X, Y, sigma, ii, jj)
-        ctx.cfg = cfg
-        return cuda_gen.rbf_gen_solve_final(X, Y, ii, jj, sigma,
-                                            dyadic_order, naive)
+        ctx.cfg, ctx.sv = cfg, sv
+        return cuda_gen.rbf_gen_solve_final(X, Y, ii, jj, sv, dyadic_order,
+                                            naive, in_range=True)
 
     @staticmethod
     def backward(ctx, g):
@@ -143,9 +165,10 @@ class _RBFGen(torch.autograd.Function):
         route = routes.resolve(static_kernel, X.device.type, solver, X.dtype,
                                grad_solver, _refined(X, Y, dyadic_order),
                                need_grad=True)
-        ds, dX, dY = _gen_backward(X, Y, ii, jj, sigma, g, route.bwd_dtype,
+        ds, dX, dY = _gen_backward(X, Y, ii, jj, ctx.sv, g, route.bwd_dtype,
                                    dyadic_order, naive)
-        return dX.to(X.dtype), dY.to(Y.dtype), ds.to(sigma), None, None, None
+        return (dX.to(X.dtype), dY.to(Y.dtype), ds.to(sigma), None, None,
+                None, None)
 
 
 def _grid_chunk(X, Y, P):
@@ -238,14 +261,20 @@ class _LinearGen(_GridPairs):
                             f"got {type(static_kernel).__name__}")
         ctx.save_for_backward(X, Y, ii, jj)
         ctx.cfg = cfg
+        # applied by _pairs alone, whose callers build ii and jj
         return cuda_lgen.linear_gen_solve_final(
-            X, Y, ii, jj, static_kernel.scale.to(X), dyadic_order, naive)
+            X, Y, ii, jj, static_kernel.scale.to(X), dyadic_order, naive,
+            in_range=True)
 
 
 def _pairs(static_kernel, X, Y, ii, jj, dyadic_order, naive, solver,
            grad_solver="auto"):
     """``k_sig(X[ii[p]], Y[jj[p]])`` per pair; ``ii = jj = None`` pairs
-    ``X[p]`` with ``Y[p]``."""
+    ``X[p]`` with ``Y[p]`` (batches of one size, which :func:`sig_kernel`
+    checks). Every caller builds ``ii`` and ``jj`` from the batch sizes of
+    ``X`` and ``Y`` (``arange``, ``triu_indices``, :func:`_lincomb_pairs`),
+    so no launch reads their bounds; on the ``gen`` family ``sigma`` is
+    read once, here (:func:`_launch_sigma`)."""
     need_grad = _need_grad(static_kernel, X, Y)
     fam = _family(static_kernel, X, Y, dyadic_order, solver, grad_solver,
                   need_grad)
@@ -256,11 +285,12 @@ def _pairs(static_kernel, X, Y, ii, jj, dyadic_order, naive, solver,
         if fam == "gen":
             sigma = static_kernel.sigma
             # held on the host (a number given to RBFKernel) and wanted
-            # without a gradient: it stays there, so that no launch waits
-            # on a device read of it
+            # without a gradient: it stays there, as the launches take its
+            # value and no gradient needs it on the card
             sigma = (sigma.to(X.dtype) if not need_grad
                      and sigma.device.type == "cpu" else sigma.to(X))
-            return _RBFGen.apply(X, Y, sigma, ii, jj, cfg)
+            return _RBFGen.apply(X, Y, sigma, ii, jj, cfg,
+                                 _launch_sigma(static_kernel))
         fn = _LinearGen if fam == "lgen" else _GridPairs
         return fn.apply(X, Y, ii, jj, cfg, *_hyper(static_kernel))
     x = X if ii is None else X[ii]
@@ -296,6 +326,10 @@ def sig_kernel(static_kernel, X, Y, dyadic_order=0, naive=False,
     solved ``max_batch`` pairs at a time."""
     X, Y = _prepare(static_kernel, X, Y, length_bucket, grad_solver)
     batch = X.shape[0]
+    if Y.shape[0] != batch:
+        # the pairs' indices are built from X's batch alone
+        raise ValueError("sig_kernel pairs X[i] with Y[i]: X and Y must "
+                         f"hold as many paths; got {batch} and {Y.shape[0]}")
     if max_batch is None or batch <= max_batch:
         return _pairs(static_kernel, X, Y, None, None, dyadic_order, naive,
                       solver, grad_solver)
@@ -377,21 +411,22 @@ def _lincomb_value(static_kernel, X, Y, ii, jj, w, cfg):
     return S
 
 
-def _chunk_grads_gen(static_kernel, X, Y, ic, jc, wc, route, cfg):
+def _chunk_grads_gen(static_kernel, X, Y, ic, jc, wc, route, cfg, sv):
     """One lincomb chunk on the ``gen`` family, kernels called directly, in
     sub-chunks whose stacks stay within ``routes.STACK_BYTES``: values and
     stack from one forward sweep (K1-stack; for a float32 grade on float64
     paths, K1 values plus a float32 K1-stack), then K3<gen> weighted by
-    ``wc`` and K4. Returns ``(values, dX, dY, (d sigma,))``."""
+    ``wc`` and K4. ``ic``, ``jc``: a chunk of :func:`_lincomb_pairs`'
+    arrays, so no launch reads their bounds; ``sv``: ``sigma``'s value,
+    read once a call (:func:`_launch_sigma`). Returns ``(values, dX, dY,
+    (d sigma,))``."""
     dyadic_order, naive, _, _, _ = cfg
-    _require_rbf(static_kernel)
-    sigma = static_kernel.sigma
     bdt = route.bwd_dtype
     if X.shape[1] < 2 or Y.shape[1] < 2:
-        v = cuda_gen.rbf_gen_solve_final(X, Y, ic, jc, sigma, dyadic_order,
-                                         naive)
+        v = cuda_gen.rbf_gen_solve_final(X, Y, ic, jc, sv, dyadic_order,
+                                         naive, in_range=True)
         return v, torch.zeros_like(X), torch.zeros_like(Y), (
-            torch.zeros_like(sigma),)
+            torch.zeros_like(static_kernel.sigma),)
     Xb, Yb = X.to(bdt), Y.to(bdt)
     sub = routes.chunk_pairs(ic.shape[0], routes.tier_bytes(
         "full", _refined(X, Y, dyadic_order), Xb.element_size()))
@@ -401,14 +436,14 @@ def _chunk_grads_gen(static_kernel, X, Y, ic, jc, wc, route, cfg):
         with span("sk.est.chunk"):
             i, j = ic[s:s + sub], jc[s:s + sub]
             if bdt == X.dtype:
-                v, stack = cuda_gen.rbf_gen_solve_stack(X, Y, i, j, sigma,
-                                                        dyadic_order, naive)
+                v, stack = cuda_gen.rbf_gen_solve_stack(
+                    X, Y, i, j, sv, dyadic_order, naive, in_range=True)
             else:
-                v = cuda_gen.rbf_gen_solve_final(X, Y, i, j, sigma,
-                                                 dyadic_order, naive)
-                _, stack = cuda_gen.rbf_gen_solve_stack(Xb, Yb, i, j, sigma,
-                                                        dyadic_order, naive)
-            e, dx, dy = _gen_backward(Xb, Yb, i, j, sigma, wc[s:s + sub], bdt,
+                v = cuda_gen.rbf_gen_solve_final(
+                    X, Y, i, j, sv, dyadic_order, naive, in_range=True)
+                _, stack = cuda_gen.rbf_gen_solve_stack(
+                    Xb, Yb, i, j, sv, dyadic_order, naive, in_range=True)
+            e, dx, dy = _gen_backward(Xb, Yb, i, j, sv, wc[s:s + sub], bdt,
                                       dyadic_order, naive, stack=stack)
             del stack
             vals.append(v)
@@ -446,12 +481,13 @@ class _GramLincomb(torch.autograd.Function):
     @staticmethod
     def forward(ctx, static_kernel, cfg, sym, X, Y, W, *hyper):
         dyadic_order, naive, solver, grad_solver, chunk = cfg
-        ii, jj, w = _lincomb_pairs(X.shape[0], Y.shape[0], W, sym)
-        acc_dtype = torch.promote_types(W.dtype, X.dtype)
-        w = w.to(acc_dtype)
         route = routes.resolve(static_kernel, X.device.type, solver, X.dtype,
                                grad_solver, _refined(X, Y, dyadic_order),
                                need_grad=True)
+        sv = _launch_sigma(static_kernel) if route.family == "gen" else None
+        ii, jj, w = _lincomb_pairs(X.shape[0], Y.shape[0], W, sym)
+        acc_dtype = torch.promote_types(W.dtype, X.dtype)
+        w = w.to(acc_dtype)
         S = torch.zeros((), dtype=acc_dtype, device=X.device)
         gX, gY = torch.zeros_like(X), torch.zeros_like(Y)
         gh = [torch.zeros_like(h) for h in hyper]
@@ -461,7 +497,7 @@ class _GramLincomb(torch.autograd.Function):
                 ic, jc, wc = ii[s:s + chunk], jj[s:s + chunk], w[s:s + chunk]
                 if route.family == "gen":
                     v, dX, dY, dh = _chunk_grads_gen(static_kernel, X, Y, ic,
-                                                     jc, wc, route, cfg)
+                                                     jc, wc, route, cfg, sv)
                 else:
                     v, dX, dY, dh = _chunk_grads_autograd(
                         static_kernel, X, Y, ic, jc, wc, hyper, cfg)

@@ -22,7 +22,15 @@ mutations change nothing, and no test can see them: swapping g10 with g01
 (they enter the increment only through ``g10 + g01``, a sum that is exact
 in either order), and another phase of the uniform steps (``s % f == 1``:
 any phase leaves one such step between two wraps of a lane).
+
+On meta tensors posing as the card's, the generator family's estimators
+read nothing on the host between their launches: their index arrays pass
+as built (``cuda_gen.INDEX_CHECKS``), and sigma, held on the card, is read
+once before the launches it serves and reaches each of them by value; only
+index arrays a caller passes to an entry directly have their bounds read.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,7 +163,7 @@ def posing_as_cuda(monkeypatch):
     not run, and ``cuda_gen.BAND_FILL`` starts from 0."""
     launches = []
     monkeypatch.setattr(cuda_gen, "check_pairs",
-                        lambda X, Y, ii, jj, what: (ii, jj))
+                        lambda X, Y, ii, jj, what, in_range=False: (ii, jj))
     monkeypatch.setattr(cuda_gen._build, "launch",
                         lambda what, fns, counts, t, *args, key=None:
                         launches.append(what))
@@ -192,3 +200,246 @@ def test_band_fill_counts_rows_and_band_slots(posing_as_cuda, monkeypatch,
     assert len(posing_as_cuda) == 3 * (7 if split and bands > 1 else 1)
     assert cuda_gen.BAND_FILL == {"rows": 3 * 7 * R,
                                   "slots": 3 * 7 * bands * 128}
+
+
+# ---- no host read between the generator family's launches ---------------
+
+
+@pytest.fixture
+def meta_card(monkeypatch):
+    """Meta tensors stand in for CUDA ones: they pass the layout checks
+    (``cuda_gen.check_layout``) while ``check_pairs`` runs as it is; RBF
+    tiles take the generator's family; each launch is recorded, ``(name,
+    args)``, not run; each host read (``tracing.host``) is recorded by its
+    site, reads sigma as 0.5 and bounds in range; ``events`` holds both in
+    order; ``INDEX_CHECKS`` starts from 0."""
+    from sigkernel_tpu_torch import tracing
+    from sigkernel_tpu_torch.ops import routes
+
+    seen = {"launches": [], "reads": [], "events": []}
+
+    def read(t, site):
+        seen["reads"].append(site)
+        seen["events"].append(("read", site))
+        return 0.5 if t.dim() == 0 else [0] * t.numel()
+
+    def launch(what, fns, counts, t, *args, key=None):
+        seen["launches"].append((what, args))
+        seen["events"].append(("launch", what))
+
+    orig = routes.resolve_family
+
+    def steered(static_kernel, device_type, solver, **gates):
+        if device_type == "meta":
+            return "gen"
+        return orig(static_kernel, device_type, solver, **gates)
+
+    monkeypatch.setattr(cuda_gen, "check_layout",
+                        lambda X, Y, ii, jj, what: (ii, jj))
+    monkeypatch.setattr(cuda_gen._build, "launch", launch)
+    monkeypatch.setattr(cuda_gen, "host", read)
+    monkeypatch.setattr(tracing, "host", read)
+    monkeypatch.setattr(routes, "resolve_family", steered)
+    monkeypatch.setattr(cuda_gen, "INDEX_CHECKS", {"read": 0, "built": 0})
+    return seen
+
+
+def _meta_paths(batch, length, grad=False, D=3):
+    return torch.empty(batch, length, D, device="meta", dtype=torch.float64,
+                       requires_grad=grad)
+
+
+def _meta_sigma():
+    return torch.empty((), device="meta", dtype=torch.float64,
+                       requires_grad=True)
+
+
+def _lincomb():
+    """``sig_gram_lincomb`` fwd + bwd, 5 x 4 paths, 6 pairs a chunk (the
+    last short), X, Y, W and sigma requiring gradients."""
+    import sigkernel_tpu_torch as skt
+
+    X, Y = _meta_paths(5, 9, True), _meta_paths(4, 7, True)
+    W = torch.empty(5, 4, device="meta", dtype=torch.float64,
+                    requires_grad=True)
+    skt.sig_gram_lincomb(skt.RBFKernel(_meta_sigma()), X, Y, W,
+                         dyadic_order=1, pair_chunk=6).backward()
+
+
+def _gram_sym():
+    """``sig_gram(sym=True)`` of 7 paths, 4 pairs a chunk: the triangle's 28
+    pairs in 7 chunks; sigma a number, held on the host."""
+    import sigkernel_tpu_torch as skt
+
+    X = _meta_paths(7, 6)
+    skt.sig_gram(skt.RBFKernel(0.5), X, X, dyadic_order=1, sym=True,
+                 max_batch=2)
+
+
+def _gram_tiles():
+    """``sig_gram`` of 5 x 7 paths in ragged tiles of 3 (2 x 3 tiles);
+    sigma on the card."""
+    import sigkernel_tpu_torch as skt
+
+    skt.sig_gram(skt.RBFKernel(_meta_sigma().detach()), _meta_paths(5, 6),
+                 _meta_paths(7, 8), max_batch=3)
+
+
+def _rbf_gen_backward():
+    """``sig_kernel`` fwd + bwd in X and sigma: ``_RBFGen``'s forward (K1)
+    and its backward (K1-stack, K3<gen>, K4)."""
+    import sigkernel_tpu_torch as skt
+
+    skt.sig_kernel(skt.RBFKernel(_meta_sigma()), _meta_paths(4, 6, True),
+                   _meta_paths(4, 5), dyadic_order=2).sum().backward()
+
+
+# call: (its kernels, its reads of sigma: one a lincomb, one a tile, none
+# for a sigma held on the host)
+ESTIMATOR_CALLS = {
+    "lincomb": (_lincomb, {"rbf_gen_stack", "adjoint_collapse_gen",
+                           "rbf_dd_vjp"}, 1),
+    "gram_sym": (_gram_sym, {"rbf_gen_wavefront"}, 0),
+    "gram_tiles": (_gram_tiles, {"rbf_gen_wavefront"}, 6),
+    "rbf_gen_backward": (_rbf_gen_backward, {
+        "rbf_gen_wavefront", "rbf_gen_stack", "adjoint_collapse_gen",
+        "rbf_dd_vjp"}, 1),
+}
+
+
+@pytest.mark.parametrize("call", sorted(ESTIMATOR_CALLS))
+def test_estimators_read_nothing_between_their_launches(meta_card, call):
+    """Each launch of an estimator's call takes index arrays the estimator
+    built (counted as ``built``, one an entry: one launch each at these
+    sizes) and sigma by value. Sigma on the card is read once before the
+    launches it serves (the lincomb's all, a Gram tile's, the forward's and
+    the backward's of ``_RBFGen``), never between them; the bounds never."""
+    fn, kernels, reads = ESTIMATOR_CALLS[call]
+    fn()
+    launches = meta_card["launches"]
+    assert {what for what, _ in launches} == kernels
+    assert meta_card["reads"] == ["sigma"] * reads
+    groups = max(reads, 1)
+    serves = len(launches) // groups
+    assert [kind for kind, _ in meta_card["events"]] == (
+        ["read"] * (reads > 0) + ["launch"] * serves) * groups
+    assert cuda_gen.INDEX_CHECKS == {"read": 0, "built": len(launches)}
+
+
+def _entries(X, Y, ii, stacks, ct):
+    """The launching entries of the generator family on meta inputs, each
+    a function of sigma and the keywords; K3<gen> at dyadic 1 (the band
+    kernel) and 6 (the one-block kernel)."""
+    from sigkernel_tpu_torch.ops import incvjp
+
+    return {
+        "rbf_gen_solve_final": lambda s, **kw: cuda_gen.rbf_gen_solve_final(
+            X, Y, ii, ii, s, 1, **kw),
+        "rbf_gen_solve_stack": lambda s, **kw: cuda_gen.rbf_gen_solve_stack(
+            X, Y, ii, ii, s, 1, **kw),
+        "rbf_gen_adjoint": lambda s, **kw: cuda_gen.rbf_gen_adjoint(
+            X, Y, ii, ii, s, stacks[1], 1, **kw),
+        "rbf_gen_adjoint[one block]": lambda s, **kw:
+            cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, s, stacks[6], 6, **kw),
+        "rbf_dd_vjp": lambda s, **kw: incvjp.rbf_dd_vjp(X, Y, ii, ii, s, ct,
+                                                        **kw),
+    }
+
+
+def _meta_entries():
+    from sigkernel_tpu_torch.ops.cuda_solver import stack_shape
+
+    X, Y = _meta_paths(4, 6), _meta_paths(3, 5)
+    ii = torch.empty(3, device="meta", dtype=torch.int64)
+    stacks = {d: torch.empty(stack_shape(3, 5 * 2 ** d, 4 * 2 ** d),
+                             device="meta", dtype=torch.float64)
+              for d in (1, 6)}
+    ct = torch.empty(3, 5, 4, device="meta", dtype=torch.float64)
+    return X, Y, ii, stacks, ct
+
+
+@pytest.mark.parametrize("entry", ["rbf_gen_solve_final",
+                                   "rbf_gen_solve_stack", "rbf_gen_adjoint",
+                                   "rbf_dd_vjp"])
+def test_caller_indices_are_read_once(meta_card, monkeypatch, entry):
+    """A direct call with the caller's index arrays reads their bounds once
+    (``sk.sync.index_bounds``, counted as ``read``) and still refuses an
+    index out of range; with ``in_range=True`` it reads nothing."""
+    call = _entries(*_meta_entries())[entry]
+    call(0.5)
+    assert meta_card["reads"] == ["index_bounds"]
+    assert cuda_gen.INDEX_CHECKS == {"read": 1, "built": 0}
+    call(0.5, in_range=True)
+    assert meta_card["reads"] == ["index_bounds"]
+    assert cuda_gen.INDEX_CHECKS == {"read": 1, "built": 1}
+    monkeypatch.setattr(cuda_gen, "host",  # X holds 4 paths
+                        lambda t, site: [0, 4, 0, 0])
+    with pytest.raises(ValueError, match="pair index out of range"):
+        call(0.5)
+    assert cuda_gen.INDEX_CHECKS == {"read": 2, "built": 1}
+
+
+@pytest.mark.parametrize("sigma", ["number", "host", "card", "card_f32"])
+def test_sigma_reaches_each_launch_by_value(meta_card, sigma):
+    """Every launching entry of the generator family hands its launch sigma
+    as a Python float: a number or a host tensor as it is, with no read of
+    the card; a tensor on the card (requiring a gradient) read once a call
+    (``sk.sync.sigma``), which the estimators do once for all their
+    launches instead."""
+    given = {"number": 0.5,
+             "host": torch.tensor(0.5, dtype=torch.float32),
+             "card": _meta_sigma(),
+             "card_f32": torch.empty((), device="meta", dtype=torch.float32,
+                                     requires_grad=True)}[sigma]
+    reads = ["sigma"] if sigma.startswith("card") else []
+    for name, call in _entries(*_meta_entries()).items():
+        meta_card["reads"].clear()
+        call(given, in_range=True)
+        what, args = meta_card["launches"][-1]
+        at = -4 if what == "adjoint_collapse_gen" else -3
+        assert type(args[at]) is float and args[at] == 0.5, name
+        assert meta_card["reads"] == reads, name
+
+
+@pytest.mark.parametrize("entry", ["rbf_gen_solve_final",
+                                   "rbf_gen_solve_stack", "rbf_gen_adjoint"])
+def test_split_launches_read_sigma_once(meta_card, monkeypatch, entry):
+    """An entry whose pairs ``gen_chunk`` splits into a launch a pair reads
+    sigma on the card once for all its launches, before the first."""
+    monkeypatch.setattr(cuda_gen, "gen_chunk", lambda P, R, C, itemsize: 1)
+    _entries(*_meta_entries())[entry](_meta_sigma(), in_range=True)
+    assert [kind for kind, _ in meta_card["events"]] == ["read"] + [
+        "launch"] * 3
+
+
+def _kernel(X, Y, **kw):
+    import sigkernel_tpu_torch as skt
+
+    return skt.sig_kernel(skt.RBFKernel(_meta_sigma()), X, Y, **kw)
+
+
+def _compute_kernel(X, Y):
+    import sigkernel_tpu_torch as skt
+
+    return skt.SigKernel(skt.RBFKernel(_meta_sigma()), 1).compute_kernel(
+        X, Y, max_batch=2)
+
+
+PAIRWISE_CALLS = {
+    "sig_kernel": _kernel,
+    "sig_kernel_chunked": functools.partial(_kernel, max_batch=2),
+    "compute_kernel": _compute_kernel,
+}
+
+
+@pytest.mark.parametrize("call", sorted(PAIRWISE_CALLS))
+@pytest.mark.parametrize("batches", [(5, 3), (3, 5)])
+def test_pairwise_batches_of_two_sizes_are_refused(meta_card, call,
+                                                   batches):
+    """The pairwise estimators pair ``X[i]`` with ``Y[i]`` by indices built
+    from ``X``'s batch, which the launches take unchecked: batches of two
+    sizes are refused before any launch or host read."""
+    X, Y = (_meta_paths(b, 6) for b in batches)
+    with pytest.raises(ValueError, match="as many paths"):
+        PAIRWISE_CALLS[call](X, Y)
+    assert meta_card["events"] == []

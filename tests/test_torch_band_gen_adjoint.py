@@ -180,7 +180,7 @@ def banded_gen_chain(monkeypatch):
     emulated = functools.partial(cuda_gen.rbf_gen_adjoint_banded_plain,
                                  H=8, Wc=5)
 
-    def adjoint(*args, **kw):
+    def adjoint(*args, in_range=False, **kw):
         calls.append(1)
         return emulated(*args, **kw)
 
@@ -226,7 +226,7 @@ def posing_as_cuda(monkeypatch):
     launch is recorded, ``(name, fns, key, args)``, instead of run."""
     launches = []
     monkeypatch.setattr(cuda_gen, "check_pairs",
-                        lambda X, Y, ii, jj, what: (ii, jj))
+                        lambda X, Y, ii, jj, what, in_range=False: (ii, jj))
     monkeypatch.setattr(_build, "launch", lambda what, fns, counts, t, *args,
                         key=None: launches.append((what, fns, key, args)))
     return launches
@@ -329,7 +329,7 @@ def test_north_star_backward_folds_every_chunk(posing_as_cuda, monkeypatch):
     from sigkernel_tpu_torch import sigkernel
 
     monkeypatch.setattr(sigkernel.incvjp, "rbf_dd_vjp",
-                        lambda X, Y, ii, jj, sigma, ct: (
+                        lambda X, Y, ii, jj, sigma, ct, in_range=False: (
                             X.new_zeros(()), torch.zeros_like(X),
                             torch.zeros_like(Y)))
     X = torch.empty(100, 1024, 3, device="meta", dtype=torch.float64)

@@ -13,8 +13,9 @@ past f = 32), the sparse-checkpoint pair K2-sparse and
 K8 (K8's band kernel at the edges of its decomposition, its one-block
 kernel past f = 32), K2, K2-stack and K2-sparse on their band kernel at
 its edges (bit for bit against their plain versions and emulations, run
-to run, past the one-block row bound), and values and gradients through
-the estimators against the plain tier.
+to run, past the one-block row bound), values and gradients through the
+estimators against the plain tier, and the generator's lincomb with one
+read of sigma on the host and none of the indices it builds.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode); without one
 they skip. On a GPU machine, run them without the JAX-side conftest:
@@ -262,6 +263,53 @@ def test_length_one_gradients_are_zero_without_launches(cuda):
                          ).backward()
     assert not X.grad.any() and not Y.grad.any()
     assert dict(cuda_gen.STACK_COUNTS) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lincomb_reads_sigma_once_on_the_host(cuda, dtype):
+    """The north-star call at a small shape (6 x 5 paths of length 33, dim
+    3, dyadic 1, 7 pairs a chunk: 5 chunks), fwd + bwd under the profiler,
+    reads the card on the host once, sigma on the card requiring a gradient
+    (one ``sk.sync.sigma`` span), and not at all with sigma held on the
+    host; it reads no index bounds (``INDEX_CHECKS``). Its value and its
+    gradients in X, Y and sigma are equal bit for bit either way, and agree
+    with the plain tier."""
+    from torch.profiler import ProfilerActivity, profile
+
+    X0 = _paths(6, 33, 3, 30, cuda, dtype)
+    Y0 = _paths(5, 33, 3, 31, cuda, dtype)
+    W = torch.randn(6, 5, generator=torch.Generator().manual_seed(1),
+                    dtype=dtype).to(cuda)
+
+    def call(where, solver="auto"):
+        X, Y = X0.clone().requires_grad_(), Y0.clone().requires_grad_()
+        sigma = torch.tensor(0.6, dtype=torch.float64, device=where,
+                             requires_grad=True)
+        S = skt.sig_gram_lincomb(skt.RBFKernel(sigma), X, Y, W,
+                                 dyadic_order=1, pair_chunk=7, solver=solver)
+        S.backward()
+        return S.detach(), X.grad, Y.grad, sigma.grad.to(cuda)
+
+    def traced(where):
+        before = dict(cuda_gen.INDEX_CHECKS)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = call(where)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()]
+        assert "sk.est.sig_gram_lincomb" in names
+        assert cuda_gen.INDEX_CHECKS["read"] == before["read"]
+        assert cuda_gen.INDEX_CHECKS["built"] >= before["built"] + 3 * 5
+        return out, [n for n in names if n.startswith("sk.sync.")]
+
+    call(cuda)  # the library's build and the allocator's first blocks
+    on_card, syncs = traced(cuda)
+    assert syncs == ["sk.sync.sigma"]
+    on_host, syncs = traced("cpu")
+    assert syncs == []
+    for a, b in zip(on_card, on_host):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for g, w in zip(on_card, call(cuda, "scan")):
+        assert _max_rel(g, w) <= GRAD_BAR[dtype]
 
 
 # ---- K4: one tiled pass, its sums in a fixed order ------------------------

@@ -185,7 +185,7 @@ def posing_as_cuda(monkeypatch):
     are recorded (not run)."""
     seen = {"launches": [], "scratch": []}
     monkeypatch.setattr(cuda_gen, "check_pairs",
-                        lambda X, Y, ii, jj, what: (ii, jj))
+                        lambda X, Y, ii, jj, what, in_range=False: (ii, jj))
     monkeypatch.setattr(_build, "launch", lambda what, fns, counts, t, *args,
                         key=None: seen["launches"].append((fns, args)))
     scratch = incvjp._scratch
