@@ -650,9 +650,9 @@ def main():
 
     import sigkernel_tpu_torch as skt
     from sigkernel_tpu_torch import stats
-    from sigkernel_tpu_torch.ops import (_build, cuda_blocked, cuda_deriv,
-                                         cuda_gen, cuda_lgen, cuda_solver,
-                                         incvjp, routes)
+    from sigkernel_tpu_torch.ops import (_build, band, cuda_blocked,
+                                         cuda_deriv, cuda_gen, cuda_lgen,
+                                         cuda_solver, incvjp, routes)
     from sigkernel_tpu_torch.utils import double_difference
 
     # full-precision float32 matmuls (the plain versions' Grams)
@@ -898,7 +898,7 @@ def main():
         against K2-stack -> K3<inc> (bit for bit). Returns the bit-equality
         flags."""
         P = inc.shape[0]
-        R, C = cuda_blocked.frame(inc.shape[1], inc.shape[2], dy)
+        R, C = band.frame(inc.shape[1], inc.shape[2], dy)
         S = -(-R // rows)
         check(S >= 3 and R % rows, f"{label}: {S} stripes, none short")
         bits = []
@@ -1033,12 +1033,12 @@ def main():
         for dtype in (F64, F32):
             inc = double_difference(skt.RBFKernel(1.0).batch_kernel(
                 X64.to(dtype), Y64.to(dtype))).contiguous()
-            R, C = cuda_blocked.frame(inc.shape[1], inc.shape[2], dy)
+            R, C = band.frame(inc.shape[1], inc.shape[2], dy)
             bd = inc.new_ones(P, C + 1)
             bd[:, 1:] += 1e-2 * torch.rand(P, C, generator=gen, device=dev,
                                            dtype=F64).to(dtype)
             label = (f"{bname} {name[dtype]} (R {R}, C {C}, rows {row0} +"
-                     f" {rows}, {-(-rows // cuda_blocked.BAND_ROWS)} bands a "
+                     f" {rows}, {-(-rows // band.BAND_ROWS)} bands a "
                      f"pair, flip {flip}, {'naive' if naive else 'order-2'})")
             limit = F64_RTOL if dtype == F64 else F32_RTOL_SMALL
             glimit = GRAD_F64 if dtype == F64 else GRAD_F32
@@ -1061,7 +1061,7 @@ def main():
                 del stk
                 _, stk = cuda_blocked.stripe_solve_stack(inc, bd, row0, rows,
                                                          dy, naive)
-            kernel = cuda_blocked.stripe_adjoint_kernel(dy)
+            kernel = band.adjoint_kernel(dy)
             key = "one_block" if kernel == "one_block" else name[dtype]
             before = dict(cuda_blocked.ADJOINT_COUNTS)
             ct, ta = synced(lambda: cuda_blocked.stripe_adjoint(
@@ -1102,7 +1102,7 @@ def main():
             for naive in (False,) if R > 1000 else (False, True):
                 label = (f"{gname} {name[dtype]} ({P} pairs, {M} x {N}, D {D},"
                          f" dyadic {dy}, R {R}, "
-                         f"{-(-R // cuda_blocked.BAND_ROWS)} bands a pair, "
+                         f"{-(-R // band.BAND_ROWS)} bands a pair, "
                          f"{'naive' if naive else 'order-2'})")
                 k1, t1 = synced(lambda: cuda_gen.rbf_gen_solve_final(
                     X, Y, ii, jj, 1.0, dy, naive))
@@ -1119,7 +1119,7 @@ def main():
                 check(torch.equal(v, k1) and torch.equal(stk, pstk),
                       f"K1-stack {label}: not bit-equal")
                 del pstk
-                kernel = cuda_blocked.stripe_adjoint_kernel(dy)
+                kernel = band.adjoint_kernel(dy)
                 key = "one_block" if kernel == "one_block" else name[dtype]
                 before = dict(cuda_gen.ADJOINT_COUNTS)
                 ct, ta = synced(lambda: cuda_gen.rbf_gen_adjoint(
@@ -1159,7 +1159,7 @@ def main():
             nlimit = F64_RTOL if dtype == F64 else NEW_F32
             label = (f"{dname} {name[dtype]} ({P} pairs, {M} x {N}, D {D}, "
                      f"dyadic {dy}, R {R}, "
-                     f"{-(-R // cuda_blocked.BAND_ROWS)} bands a pair)")
+                     f"{-(-R // band.BAND_ROWS)} bands a pair)")
             k5, t5 = synced(lambda: cuda_deriv.deriv_solve_final(*grids, dy))
             p5 = cuda_deriv.deriv_solve_final_plain(*grids, dy)
             del grids
@@ -1191,7 +1191,7 @@ def main():
             for naive in (False,) if R > 1000 else (False, True):
                 label = (f"{cname} {name[dtype]} ({P} pairs, {M} x {N}, "
                          f"dyadic {dy}, R {R}, W {W}, "
-                         f"{-(-R // cuda_blocked.BAND_ROWS)} bands a pair, "
+                         f"{-(-R // band.BAND_ROWS)} bands a pair, "
                          f"{'naive' if naive else 'order-2'})")
                 _, sparse = cuda_solver.inc_solve_sparse(inc, dy, naive)
                 before = dict(cuda_solver.CKPT_COUNTS)
@@ -1251,7 +1251,7 @@ def main():
             for naive in (False, True) if emulate else (False,):
                 label = (f"{iname} {name[dtype]} ({P} pairs, {M} x {N}, "
                          f"dyadic {dy}, R {R}, W {W}, "
-                         f"{-(-R // cuda_blocked.BAND_ROWS)} bands a pair, "
+                         f"{-(-R // band.BAND_ROWS)} bands a pair, "
                          f"{'naive' if naive else 'order-2'})")
                 ms = []
                 emulated = emulate and not naive

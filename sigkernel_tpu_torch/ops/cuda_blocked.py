@@ -12,9 +12,9 @@ bottom row of the stripe above (the north boundary) instead of 1; the first
 stripe's boundary is the global 1s, and the last stripe's bottom-right value
 is the corner. Stripes run one launch after another on the current stream
 (the data dependence is real). Inside a stripe K7 runs one block per band of
-:data:`BAND_ROWS` rows of each pair, the bands handing their bottom rows on
-in chunks of :data:`CHUNK` columns through a global scratch row with a
-progress counter each (:func:`stripe_solve_banded_plain` emulates that
+:data:`.band.BAND_ROWS` rows of each pair, the bands handing their bottom
+rows on through a global scratch row with a progress counter each, launched
+by :func:`.band.launch` (:func:`stripe_solve_banded_plain` emulates that
 decomposition on any device, for the tests).
 
 - :func:`solve_final` (forward): ``ceil(R / Rs)`` K7 launches, the last
@@ -31,7 +31,7 @@ decomposition on any device, for the tests).
   by stripe ``s``'s stack and collapsed to base rows.
 
 K3<inc, boundary> has two kernels, chosen by shape
-(:func:`stripe_adjoint_kernel`). While a base row's ``f`` refined rows fit
+(:func:`.band.adjoint_kernel`). While a base row's ``f`` refined rows fit
 one warp (``f <= 32``, dyadic order at most 5) it is the band-pipelined
 wavefront too, the collapse summed in registers in
 ``collapse_refined``'s order (:func:`stripe_adjoint_banded_plain` emulates
@@ -60,7 +60,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, cuda_solver, scan_solver
+from . import _build, band, cuda_solver, scan_solver
 from ..tracing import spanned
 from ..utils import dyadic_refine
 
@@ -70,13 +70,6 @@ ADJOINT_COUNTS = {"float32": 0, "float64": 0, "one_block": 0, "plain": 0}
 
 # the striped adjoint's stripe height (refined rows), before rounding to f
 ADJ_ROWS = 2048
-# K7's band (rows a block) and hand-off chunk (columns), as in
-# csrc/band_sweep.cuh (kBandRows, kChunk)
-BAND_ROWS = 128
-CHUNK = 32
-# lanes a warp: K3<inc, boundary>'s band kernel keeps a base row's f refined
-# rows in one warp
-WARP = 32
 
 _FNS = {torch.float32: "sk_stripe_f32", torch.float64: "sk_stripe_f64"}
 _STACK_FNS = {torch.float32: "sk_stripe_stack_f32",
@@ -85,13 +78,6 @@ _ADJOINT_FNS = {torch.float32: "sk_adjoint_band_f32",
                 torch.float64: "sk_adjoint_band_f64"}
 _ONE_BLOCK_FNS = {torch.float32: "sk_adjoint_stripe_f32",
                   torch.float64: "sk_adjoint_stripe_f64"}
-
-
-def frame(Mb: int, Nb: int, dyadic_order: int):
-    """``(R, C)``: the refined rows (the shorter side) and columns of the
-    solve's frame."""
-    f = 2 ** dyadic_order
-    return min(Mb, Nb) * f, max(Mb, Nb) * f
 
 
 def stripe_rows(dyadic_order: int, itemsize: int, cap=None) -> int:
@@ -142,204 +128,33 @@ def stripe_solve_stack_plain(inc, bd, row0, rows, dyadic_order=0,
     return grid[..., -1, :].clone(), scan_solver.grid_to_stack(grid)
 
 
-def _band_increments(inc, f, row0, rows, flip):
-    """The stripe's refined increments ``(P, rows, C)`` by K7's own index
-    arithmetic (``band_stripe``'s ``base``): row ``i`` reads frame row
-    ``row0 + (rows - i if flip else i - 1)`` (zero at and past R), column
-    ``c`` base column ``q = (c - 1) // f``, reversed with ``flip``, through
-    the transpose when ``Mb > Nb``; scaled by the exact ``1 / f^2``."""
-    P, Mb, Nb = inc.shape
-    transpose = Mb > Nb
-    R, C = min(Mb, Nb) * f, max(Mb, Nb) * f
-    dev = inc.device
-    i = torch.arange(1, rows + 1, device=dev)
-    r = (rows - i if flip else i - 1) + row0
-    has = r < R
-    ra = torch.where(has, r // f, 0)[:, None]
-    q = (torch.arange(1, C + 1, device=dev) - 1) // f
-    cb = (C // f - 1 - q if flip else q)[None, :]
-    at = cb * Nb + ra if transpose else ra * Nb + cb
-    u = inc.reshape(P, Mb * Nb)[:, at] * (1.0 / (f * f))
-    return torch.where(has[:, None], u, torch.zeros_like(u))
-
-
-def _sweep_tile(north, west, u, scheme):
-    """One band's chunk: the ``(P, h + 1, w + 1)`` tile whose row 0 is
-    ``north`` (columns ``c0 - 1 .. c0 + w - 1``, the corner first) and whose
-    column 0 below it is ``west``, swept by anti-diagonals in the plain
-    sweep's operand order."""
-    P, h, w = u.shape
-    tile = u.new_empty(P, h + 1, w + 1)
-    tile[:, 0, :] = north
-    tile[:, 1:, 0] = west
-    for p in range(2, h + w + 1):
-        i = torch.arange(max(1, p - w), min(h, p - 1) + 1, device=u.device)
-        tile[:, i, p - i] = scheme(tile[:, i - 1, p - i - 1],
-                                   tile[:, i - 1, p - i],
-                                   tile[:, i, p - i - 1], u[:, i - 1, p - i - 1])
-    return tile
-
-
-def _band_sweep(u, bd, naive, H, Wc, visit=None, handoff=None):
-    """The band decomposition in plain PyTorch: the refined increments ``u
-    (P, rows, C)`` swept in bands of ``H`` rows, one after another, each in
-    chunks of ``Wc`` columns, a chunk taking its north row from the band
-    above's hand-off row (``bd`` for band 0) and its west column from the
-    chunk before. Calls ``visit(i0, c0, tile)`` on each chunk's tile (its
-    cell ``(r, q)`` is the stripe's ``(i0 - 1 + r, c0 - 1 + q)``) and
-    returns the bottom row ``(P, C + 1)``. ``handoff`` (a negative control
-    of the tests) maps each hand-off row between two bands."""
-    P, rows, C = u.shape
-    scheme = scan_solver.get_scheme(naive)
-    above = bd
-    for i0 in range(1, rows + 1, H):  # band by band
-        h = min(H, rows - i0 + 1)
-        below = u.new_ones(P, C + 1)  # the band's hand-off row
-        west = u.new_ones(P, h)
-        for c0 in range(1, C + 1, Wc):  # chunk by chunk
-            w = min(Wc, C - c0 + 1)
-            tile = _sweep_tile(above[:, c0 - 1:c0 + w], west,
-                               u[:, i0 - 1:i0 - 1 + h, c0 - 1:c0 - 1 + w],
-                               scheme)
-            west = tile[:, 1:, -1]
-            below[:, c0:c0 + w] = tile[:, -1, 1:]
-            if visit is not None:
-                visit(i0, c0, tile)
-        above = below if handoff is None or i0 + h > rows else handoff(below)
-    return above
-
-
-def _tile_cells(i0, c0, tile):
-    """The stripe's rows ``(h, 1)`` and columns ``(1, w)`` of a tile's swept
-    cells."""
-    h, w = tile.shape[-2] - 1, tile.shape[-1] - 1
-    dev = tile.device
-    return (torch.arange(i0, i0 + h, device=dev)[:, None],
-            torch.arange(c0, c0 + w, device=dev)[None, :])
-
-
 def stripe_solve_banded_plain(inc, bd, row0, rows, dyadic_order=0,
-                              naive=False, flip=False, H=BAND_ROWS, Wc=CHUNK,
-                              stack=False):
-    """K7's decomposition (:func:`_band_sweep`) in plain PyTorch, for the
+                              naive=False, flip=False, H=band.BAND_ROWS,
+                              Wc=band.CHUNK, stack=False):
+    """K7's decomposition (:func:`.band.sweep`) in plain PyTorch, for the
     tests. Returns the bottom row ``(P, C + 1)``, with ``stack`` also
     K7-stack's stack written as the kernel writes it. Bit for bit
     :func:`stripe_solve_plain` / :func:`stripe_solve_stack_plain`; no route
     runs it."""
-    u = _band_increments(inc, 2 ** dyadic_order, row0, rows, flip)
-    return banded_sweep(u, bd, naive, H, Wc, stack)
-
-
-def banded_sweep(u, bd, naive=False, H=BAND_ROWS, Wc=CHUNK, stack=False,
-                 handoff=None):
-    """:func:`_band_sweep` of the refined increments ``u (P, rows, C)`` from
-    the north boundary ``bd``: the bottom row ``(P, C + 1)``, with ``stack``
-    also the stack ``(P, rows + C + 1, rows + 1)`` (row 0 = ``bd``) written
-    as the band kernel writes it; ``handoff``: :func:`_band_sweep`'s."""
-    P, rows, C = u.shape
-    stk = visit = None
-    if stack:
-        stk = u.new_zeros(P, rows + C + 1, rows + 1)
-        stk[:, :C + 1, 0] = bd
-        diag = torch.arange(1, rows + 1, device=u.device)
-        stk[:, diag, diag] = 1
-
-        def visit(i0, c0, tile):
-            i, c = _tile_cells(i0, c0, tile)
-            stk[:, i + c, i.expand(i.shape[0], c.shape[1])] = tile[:, 1:, 1:]
-    bottom = _band_sweep(u, bd, naive, H, Wc, visit, handoff)
-    return (bottom, stk) if stack else bottom
-
-
-def banded_adjoint(u, stack, bd, out, row0, R, f, naive=False, H=BAND_ROWS,
-                   Wc=CHUNK, fold=None) -> None:
-    """The band kernel's adjoint mode (kBandAdjoint) in plain PyTorch, for
-    the tests: its arithmetic on the reverse problem's refined increments
-    ``u (P, rows, C)`` as its lanes meet them, whatever their source. The
-    reverse stripe is swept from ``bd`` as :func:`_band_sweep` sweeps it;
-    reverse cell ``(i, c)`` (both from 1) multiplies the forward stack
-    entry the kernel reads, ``stack[rows + C - i - c][rows - i]``, by its
-    north-west value. The collapse then runs the kernel's lane arithmetic,
-    warp by warp (:data:`WARP` rows): lane ``t`` holds column ``s - t`` at
-    step ``s``; a group of ``f`` lanes (one base row) adds its terms, lane
-    descending, into two open base cells ``hi`` and ``lo``; when a new base
-    column enters (``(C - s) % f == f - 1``) the cell in ``hi`` is added
-    into ``out`` and the two shift; after the last step both are added.
-    ``out``: the cotangent in the solve's frame (a view, updated in place),
-    whose base rows from ``row0 / f`` the stripe covers; base rows at or
-    past the frame's ``R / f`` write nothing. ``fold = (scale, g)``
-    (K3<gen>'s RbfFoldSource): each closed cell is stored, not added, as
-    ``(0 + sum) * scale * g[p]`` (``g`` None: times 1)."""
-    if f > WARP:
-        raise ValueError(f"the band kernel's collapse holds a base row in one "
-                         f"warp of {WARP} lanes; f = {f}")
-    P, rows, C = u.shape
-    dyadic_order = f.bit_length() - 1
-    nwarps = -(-rows // WARP)
-    terms = u.new_zeros(P, nwarps * WARP, C)  # reverse row i - 1, column c - 1
-
-    def visit(i0, c0, tile):
-        i, c = _tile_cells(i0, c0, tile)
-        fwd = stack[:, rows + C - i - c, (rows - i).expand(i.shape[0],
-                                                           c.shape[1])]
-        terms[:, i - 1, c - 1] = fwd * tile[:, :-1, :-1]
-
-    _band_sweep(u, bd, naive, H, Wc, visit)
-    dev = u.device
-    groups = WARP // f
-    terms = terms.reshape(P, nwarps, groups, f, C)
-    gbase = torch.arange(0, WARP, f, device=dev)  # each group's first lane
-    i0 = torch.arange(nwarps, device=dev)[:, None] * WARP + 1
-    # the group's frame base row; base rows past the frame write nothing
-    ga = row0 // f + ((rows - i0 + 1) >> dyadic_order) - gbase // f - 1
-    lead = (ga >= row0 // f) & (ga < R // f)
-    hi = u.new_zeros(P, nwarps, groups)
-    lo = torch.zeros_like(hi)
-
-    def emit(acc, b):
-        ok = lead & ((b >= 0) & (b < C // f))[None, :]
-        w, g = ok.nonzero(as_tuple=True)
-        at = (slice(None), ga[w, g], b[g])
-        if fold is None:
-            out[at] = out[at] + acc[:, w, g]
-            return
-        scale, wt = fold
-        v = (torch.zeros_like(acc[:, w, g]) + acc[:, w, g]) * scale
-        out[at] = v * (1.0 if wt is None else wt[:, None])
-
-    for s in range(1, C + WARP):
-        rr = (C - s) & (f - 1)
-        if rr == f - 1:  # a new base column enters
-            emit(hi, ((C - s + gbase) >> dyadic_order) + 2)
-            hi, lo = lo, torch.zeros_like(lo)
-        for jj in range(f - 1, -1, -1):
-            cs = s - gbase - jj
-            ok = (cs >= 1) & (cs <= C)
-            t = terms[:, :, torch.arange(groups, device=dev), jj,
-                      (cs - 1).clamp(0, C - 1)]
-            if jj >= f - rr:
-                hi = torch.where(ok, hi + t, hi)
-            else:
-                lo = torch.where(ok, lo + t, lo)
-    b0 = gbase - (WARP - 1)  # C - s + gbase after the last step
-    emit(hi, (b0 >> dyadic_order) + 1)
-    emit(lo, b0 >> dyadic_order)
+    u = band.increments(inc, 2 ** dyadic_order, row0, rows, flip)
+    return band.banded_sweep(u, bd, naive, H, Wc, stack)
 
 
 def stripe_adjoint_banded_plain(inc, stack, bd, ct, row0, rows,
-                                dyadic_order=0, naive=False, H=BAND_ROWS,
-                                Wc=CHUNK) -> torch.Tensor:
+                                dyadic_order=0, naive=False,
+                                H=band.BAND_ROWS,
+                                Wc=band.CHUNK) -> torch.Tensor:
     """K3<inc, boundary>'s band kernel in plain PyTorch, for the tests:
-    :func:`banded_adjoint` on the stripe's reversed increments as the
-    kernel reads them (:func:`_band_increments` with ``flip``), into ``ct``
+    :func:`.band.banded_adjoint` on the stripe's reversed increments as the
+    kernel reads them (:func:`.band.increments` with ``flip``), into ``ct``
     in the solve's frame. Updates ``ct`` in place and returns it. Bit for
     bit :func:`stripe_adjoint_plain`; no route runs it."""
     _, Mb, Nb = inc.shape
     f = 2 ** dyadic_order
-    R, _ = frame(Mb, Nb, dyadic_order)
+    R, _ = band.frame(Mb, Nb, dyadic_order)
     out = ct.transpose(-1, -2) if Mb > Nb else ct  # the solve's frame
-    banded_adjoint(_band_increments(inc, f, row0, rows, True), stack, bd,
-                   out, row0, R, f, naive, H, Wc)
+    band.banded_adjoint(band.increments(inc, f, row0, rows, True), stack, bd,
+                        out, row0, R, f, naive, H, Wc)
     return ct
 
 
@@ -366,18 +181,11 @@ def stripe_adjoint_plain(inc, stack, bd, ct, row0, rows, dyadic_order=0,
     return ct
 
 
-def stripe_adjoint_kernel(dyadic_order: int) -> str:
-    """K3<inc, boundary>'s kernel at a refinement: ``"band"`` (the
-    band-pipelined kernel, whose collapse holds a base row's ``f`` refined
-    rows in one warp) while ``f <= 32``, else ``"one_block"``."""
-    return "band" if 2 ** dyadic_order <= WARP else "one_block"
-
-
 def _check(inc, bd, row0, rows, dyadic_order, what, one_block=False):
     cuda_solver._check(inc, what)
     P, Mb, Nb = inc.shape
     f = 2 ** dyadic_order
-    R, C = frame(Mb, Nb, dyadic_order)
+    R, C = band.frame(Mb, Nb, dyadic_order)
     if (bd.shape != (P, C + 1) or bd.dtype != inc.dtype
             or bd.device != inc.device or not bd.is_contiguous()):
         raise ValueError(f"{what}: the boundary must be a contiguous "
@@ -391,24 +199,12 @@ def _check(inc, bd, row0, rows, dyadic_order, what, one_block=False):
                          f"the frame's {C} columns")
     bound = _build.max_rows(inc.element_size())
     if one_block and rows > bound:
-        raise ValueError(f"{what}: at f = {f} > {WARP} K3<inc, boundary> runs "
-                         f"one block a pair, whose ring of three diagonals "
-                         f"in shared memory holds at most {bound} rows; the "
-                         f"stripe has {rows} (the routes cut none taller)")
+        raise ValueError(f"{what}: at f = {f} > {band.WARP} K3<inc, "
+                         f"boundary> runs one block a pair, whose ring of "
+                         f"three diagonals in shared memory holds at most "
+                         f"{bound} rows; the stripe has {rows} (the routes cut "
+                         f"none taller)")
     return P, Mb, Nb, f, C
-
-
-def _band_scratch(inc, rows, C):
-    """``(nbands, scratch, counters)`` of one band launch: the bands' hand-off
-    rows ``(P, nbands - 1, C + 1)`` and the zeroed progress counters and
-    ticket (``P * nbands + 1`` ints), on the current stream."""
-    P = inc.shape[0]
-    nbands = -(-rows // BAND_ROWS)
-    scratch = torch.empty(P * (nbands - 1) * (C + 1), dtype=inc.dtype,
-                          device=inc.device)
-    counters = torch.zeros(P * nbands + 1, dtype=torch.int32,
-                           device=inc.device)
-    return nbands, scratch, counters
 
 
 @spanned("sk.op.stripe_wavefront")
@@ -426,11 +222,10 @@ def stripe_solve(inc, bd, row0, rows, dyadic_order=0, naive=False,
                              "stripe_solve")
     bottom = torch.empty_like(bd)
     if P:
-        nbands, scratch, counters = _band_scratch(inc, rows, C)
-        _build.launch("stripe_wavefront", _FNS, COUNTS, inc, inc.data_ptr(),
-                      bd.data_ptr(), bottom.data_ptr(), scratch.data_ptr(),
-                      counters.data_ptr(), P, Mb, Nb, f, row0, rows, nbands,
-                      int(flip), int(naive))
+        band.launch("stripe_wavefront", _FNS, COUNTS, inc, P, rows, C,
+                    [band.per_pair(t) for t in (inc, bd, bottom)],
+                    (Mb, Nb, f, row0, rows, band.bands(rows), int(flip),
+                     int(naive)))
     return bottom
 
 
@@ -448,12 +243,11 @@ def stripe_solve_stack(inc, bd, row0, rows, dyadic_order=0, naive=False,
     stack = torch.empty(cuda_solver.stack_shape(P, rows, C), dtype=inc.dtype,
                         device=inc.device)
     if P:
-        nbands, scratch, counters = _band_scratch(inc, rows, C)
-        _build.launch("stripe_wavefront[stack]", _STACK_FNS, STACK_COUNTS,
-                      inc, inc.data_ptr(), bd.data_ptr(), bottom.data_ptr(),
-                      stack.data_ptr(), scratch.data_ptr(),
-                      counters.data_ptr(), P, Mb, Nb, f, row0, rows, nbands,
-                      int(flip), int(naive))
+        band.launch("stripe_wavefront[stack]", _STACK_FNS, STACK_COUNTS, inc,
+                    P, rows, C,
+                    [band.per_pair(t) for t in (inc, bd, bottom, stack)],
+                    (Mb, Nb, f, row0, rows, band.bands(rows), int(flip),
+                     int(naive)))
     return bottom, stack
 
 
@@ -464,11 +258,11 @@ def stripe_adjoint(inc, stack, bd, ct, row0, rows, dyadic_order=0,
     ``row0 .. row0 + rows - 1`` (its K7-stack ``stack``) times the reverse
     problem's matching stripe, swept from its boundary ``bd``, into ``ct``'s
     base rows of the stripe (``ct (P, Mb, Nb)``, updated in place and
-    returned). The kernel by :func:`stripe_adjoint_kernel`."""
+    returned). The kernel by :func:`.band.adjoint_kernel`."""
     if inc.device.type == "cpu":
         return stripe_adjoint_plain(inc, stack, bd, ct, row0, rows,
                                     dyadic_order, naive)
-    one_block = stripe_adjoint_kernel(dyadic_order) == "one_block"
+    one_block = band.adjoint_kernel(dyadic_order) == "one_block"
     P, Mb, Nb, f, C = _check(inc, bd, row0, rows, dyadic_order,
                              "stripe_adjoint", one_block)
     want = cuda_solver.stack_shape(P, rows, C)
@@ -484,11 +278,10 @@ def stripe_adjoint(inc, stack, bd, ct, row0, rows, dyadic_order=0,
                       bd.data_ptr(), ct.data_ptr(), P, Mb, Nb, f, row0, rows,
                       int(naive), key="one_block")
     elif P:
-        nbands, scratch, counters = _band_scratch(inc, rows, C)
-        _build.launch("adjoint_collapse_stripe", _ADJOINT_FNS, ADJOINT_COUNTS,
-                      inc, inc.data_ptr(), stack.data_ptr(), bd.data_ptr(),
-                      ct.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
-                      P, Mb, Nb, f, row0, rows, nbands, int(naive))
+        band.launch("adjoint_collapse_stripe", _ADJOINT_FNS, ADJOINT_COUNTS,
+                    inc, P, rows, C,
+                    [band.per_pair(t) for t in (inc, stack, bd, ct)],
+                    (Mb, Nb, f, row0, rows, band.bands(rows), int(naive)))
     return ct
 
 
@@ -496,7 +289,7 @@ def _stripes(step, inc, dyadic_order, naive, rows):
     P, Mb, Nb = inc.shape
     if P == 0 or Mb == 0 or Nb == 0:
         return inc.new_ones(P)
-    R, C = frame(Mb, Nb, dyadic_order)
+    R, C = band.frame(Mb, Nb, dyadic_order)
     Rs = min(rows or stripe_rows(dyadic_order, inc.element_size()), R)
     bd = inc.new_ones(P, C + 1)
     for row0 in range(0, R, Rs):
@@ -535,7 +328,7 @@ def adjoint(inc: torch.Tensor, dyadic_order: int = 0, naive: bool = False,
     if P == 0 or Mb == 0 or Nb == 0:
         return ct
     f = 2 ** dyadic_order
-    R, C = frame(Mb, Nb, dyadic_order)
+    R, C = band.frame(Mb, Nb, dyadic_order)
     Rs = min(rows or adjoint_rows(dyadic_order, inc.element_size()), R)
     S = -(-R // Rs)
     ones = inc.new_ones(P, C + 1)

@@ -8,12 +8,12 @@ K_diffdiff)`` of each pair, swept together over three base increment grids
 directional derivatives) refined by ``2^dyadic_order`` in the kernel.
 Forward only, as the TPU kernels are. It is the band-pipelined wavefront of
 ``csrc/band_sweep.cuh`` with a three-grid source: a block per (pair, band of
-:data:`.cuda_blocked.BAND_ROWS` rows), each lane holding the three states of
-its row and the hand-offs carrying three values a column
+:data:`.band.BAND_ROWS` rows), each lane holding the three states of its row
+and the hand-offs carrying three values a column
 (:func:`deriv_solve_banded_plain` emulates that decomposition on any
-device, for the tests). No row bound applies; a launch holds at most
-:func:`.cuda_gen.gen_chunk` pairs of three-value scratch, so that the
-bands' hand-off scratch stays within :data:`.cuda_gen.SCRATCH_BYTES`.
+device, for the tests). No row bound applies; it launches through
+:func:`.band.launch` with three values a column of scratch, which keeps
+the bands' hand-off scratch within :data:`.band.SCRATCH_BYTES`.
 
 The wrapper launches the kernel for CUDA tensors and takes its plain
 version (:func:`deriv_solve_final_plain`) only for CPU tensors. ``COUNTS``
@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, cuda_blocked, cuda_gen, scan_solver
+from . import band, scan_solver
 from ..tracing import spanned
 from ..utils import dyadic_refine
 
@@ -65,11 +65,10 @@ def _deriv_tile(north, west, u):
 
 
 def deriv_solve_banded_plain(inc, inc_d, inc_dd, dyadic_order: int = 0,
-                             H=cuda_blocked.BAND_ROWS, Wc=cuda_blocked.CHUNK,
-                             handoff=None):
+                             H=band.BAND_ROWS, Wc=band.CHUNK, handoff=None):
     """K5's band decomposition in plain PyTorch, for the tests: the three
     grids' refined increments by the kernel's index arithmetic
-    (:func:`.cuda_blocked._band_increments`: the frame transposed when
+    (:func:`.band.increments`: the frame transposed when
     ``Mb > Nb``, the exact ``1 / f^2``) swept in bands of ``H`` rows, one
     after another, each in chunks of ``Wc`` columns, a chunk taking the
     three states of its north row from the band above's hand-off row ((1,
@@ -81,8 +80,8 @@ def deriv_solve_banded_plain(inc, inc_d, inc_dd, dyadic_order: int = 0,
     if P == 0 or Mb == 0 or Nb == 0:
         return inc.new_ones(P), inc.new_zeros(P), inc.new_zeros(P)
     f = 2 ** dyadic_order
-    R, C = cuda_blocked.frame(Mb, Nb, dyadic_order)
-    u = torch.stack([cuda_blocked._band_increments(g, f, 0, R, False)
+    R, C = band.frame(Mb, Nb, dyadic_order)
+    u = torch.stack([band.increments(g, f, 0, R, False)
                      for g in (inc, inc_d, inc_dd)])
     edge = inc.new_tensor([1.0, 0.0, 0.0])[:, None, None]  # (1, 0, 0)
     above = edge.expand(3, P, C + 1)
@@ -129,22 +128,10 @@ def deriv_solve_final(inc, inc_d, inc_dd, dyadic_order: int = 0):
     if P == 0 or Mb == 0 or Nb == 0:
         # no pairs, or a length-1 path (the boundary values): no launch
         return inc.new_ones(P), inc.new_zeros(P), inc.new_zeros(P)
-    R, C = cuda_blocked.frame(Mb, Nb, dyadic_order)
-    nbands = -(-R // cuda_blocked.BAND_ROWS)
-    size = inc.element_size()
-    # the hand-offs carry three values a column; a launch's blocks fit an int
-    chunk = min(cuda_gen.gen_chunk(P, R, C, 3 * size), (2 ** 31 - 1) // nbands)
+    R, C = band.frame(Mb, Nb, dyadic_order)
     out = torch.empty(P, 3, dtype=inc.dtype, device=inc.device)
-    scratch = torch.empty(chunk * (nbands - 1) * (C + 1) * 3, dtype=inc.dtype,
-                          device=inc.device)
-    counters = torch.empty(chunk * nbands + 1, dtype=torch.int32,
-                           device=inc.device)
-    grid = Mb * Nb * size
-    for s in range(0, P, chunk):
-        counters.zero_()
-        _build.launch("deriv_wavefront", _FNS, COUNTS, inc,
-                      *(g.data_ptr() + grid * s for g in (inc, inc_d, inc_dd)),
-                      out.data_ptr() + 3 * size * s, scratch.data_ptr(),
-                      counters.data_ptr(), min(chunk, P - s), Mb, Nb,
-                      2 ** dyadic_order, nbands)
+    # the hand-offs carry the three states: three values a column
+    band.launch("deriv_wavefront", _FNS, COUNTS, inc, P, R, C,
+                [band.per_pair(t) for t in (inc, inc_d, inc_dd, out)],
+                (Mb, Nb, 2 ** dyadic_order, band.bands(R)), values=3)
     return tuple(out.t().contiguous())

@@ -15,11 +15,12 @@ linear-combination chunks without copying paths per pair. K1 and K1-stack
 stack outputs of ``solve_final_f32_gen_stack`` and
 ``solve_final_df_gen_stack``) are the band-pipelined wavefront of
 ``csrc/band_sweep.cuh`` with an RBF increment source: a block per (pair,
-band of :data:`.cuda_blocked.BAND_ROWS` rows), each lane generating its base
-row's increments once a base column from two cached G values
+band of :data:`.band.BAND_ROWS` rows), each lane generating its base row's
+increments once a base column from two cached G values
 (:func:`rbf_gen_banded_plain` emulates it on any device, for the tests). No
-row bound applies to them. A launch holds at most :func:`gen_chunk` pairs,
-so that the bands' hand-off scratch stays within :data:`SCRATCH_BYTES`.
+row bound applies to them. They launch through :func:`.band.launch`, which
+splits the pairs so that the bands' hand-off scratch stays within
+:data:`.band.SCRATCH_BYTES`.
 
 K3<gen> (:func:`rbf_gen_adjoint`) replaces ``pallas_adjoint.py``'s
 ``_product_collapse_planes_gen_kernel``,
@@ -33,19 +34,16 @@ columns from the last to the first, each base cell summed in registers in
 ``collapse_refined``'s order (:func:`rbf_gen_adjoint_banded_plain` emulates
 it); no row bound applies, and its launches are split as K1's. Past that it
 is the one-block kernel (a block a pair, a barrier a diagonal, within the
-row bound), chosen by :func:`.cuda_blocked.stripe_adjoint_kernel`'s rule.
+row bound), chosen by :func:`.band.adjoint_kernel`.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (``*_plain``) only for CPU tensors. ``sigma`` reaches the kernels
 by value: a number passes as it is, and a tensor on the card is read on the
 host once a wrapper call (:func:`sigma_value`, one wait for the card), so
 the estimators read it once a call and pass the number down. An entry skips
-its read of the pair indices' bounds when its caller passes
-``in_range=True``, for index arrays it built from the paths' batch sizes.
-``INDEX_CHECKS`` counts the entries' calls with pairs by which they did:
-``"read"`` the bounds on the host (one wait for the card), or took them as
-``"built"``; like ``FOLDED_EPILOGUES`` and ``BAND_FILL`` below, its name
-leaves it out of the launch tables.
+its read of the pair indices' bounds (``sk.sync.index_bounds``, one wait for
+the card) when its caller passes ``in_range=True``, for index arrays it
+built from the paths' batch sizes.
 
 ``COUNTS``, ``STACK_COUNTS`` and
 ``ADJOINT_COUNTS`` hold the kernel launches per dtype and the calls of the
@@ -56,24 +54,15 @@ K3<gen>'s band kernel finishes the cotangent itself: each base cell is
 closed once, so it stores the cell's sum times ``1 / f^2`` and times the
 caller's per-pair weight ``g`` into an uninitialised ``ct``, where the fill,
 the division and the weighting would otherwise be three passes over it.
-``FOLDED_EPILOGUES`` counts the calls of :func:`rbf_gen_adjoint` that launch
-a kernel by where that epilogue ran: ``"band"`` in the kernel,
-``"one_block"`` in PyTorch after it. Its name leaves it out of the launch
-tables (``*COUNTS``).
 
-``BAND_FILL`` counts how full the band kernels' bands are: each launch of
-K1, K1-stack and K3<gen> here and of the K2 family
-(:func:`.cuda_solver._launch_band`) adds its pairs times the frame's
-refined rows to ``"rows"`` and its pairs times its bands' rows
-(:data:`.cuda_blocked.BAND_ROWS` a band) to ``"slots"``; a short path
-leaves most of its last band's lanes idle. Its name leaves it out of the
-launch tables too.
+``BAND_FILL`` is :data:`.band.BAND_FILL`, which every band launch counts,
+bound here under the name the benchmark reads.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build, cuda_blocked, scan_solver
+from . import _build, band, scan_solver
 from .cuda_solver import stack_shape
 from ..tracing import host, spanned
 from ..utils import dyadic_refine
@@ -81,9 +70,7 @@ from ..utils import dyadic_refine
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 STACK_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 ADJOINT_COUNTS = {"float32": 0, "float64": 0, "one_block": 0, "plain": 0}
-FOLDED_EPILOGUES = {"band": 0, "one_block": 0}
-BAND_FILL = {"rows": 0, "slots": 0}
-INDEX_CHECKS = {"read": 0, "built": 0}
+BAND_FILL = band.BAND_FILL
 
 _FNS = {torch.float32: "sk_rbf_gen_wavefront_f32",
         torch.float64: "sk_rbf_gen_wavefront_f64"}
@@ -96,12 +83,6 @@ _ONE_BLOCK_FNS = {torch.float32: "sk_adjoint_gen_f32",
 
 # the plain version solves pairs in chunks whose refined grids stay near this
 _PLAIN_CHUNK_BYTES = 1 << 30
-# K1's hand-off scratch a launch: (pairs, bands - 1, C + 1) values, with
-# the launch's counters. 512 MiB holds ~2,185 pairs at length 1024, dyadic
-# 1 in double (16 bands, C = 2,046: ~35,000 blocks, some 30 waves of the
-# card), so a launch of more pairs would fill the card no better; it bounds
-# what K1 adds to the peak.
-SCRATCH_BYTES = 512 << 20
 
 
 def sigma_value(sigma) -> float:
@@ -113,13 +94,6 @@ def sigma_value(sigma) -> float:
             return float(sigma.detach())
         return float(host(sigma.detach().reshape(()), "sigma"))
     return float(sigma)
-
-
-def count_band_fill(pairs: int, R: int, nbands: int):
-    """Add a band launch of ``pairs`` frames of ``R`` refined rows in
-    ``nbands`` bands to :data:`BAND_FILL`."""
-    BAND_FILL["rows"] += pairs * R
-    BAND_FILL["slots"] += pairs * nbands * cuda_blocked.BAND_ROWS
 
 
 def sqdist(x, y) -> torch.Tensor:
@@ -213,7 +187,7 @@ def _lane_increments(X, Y, ii, jj, sigma, f, flip=False):
     R, C = (Lr - 1) * f, Cb * f
     dev = X.device
     i = torch.arange(1, R + 1, device=dev)
-    t = (i - 1) % cuda_blocked.WARP
+    t = (i - 1) % band.WARP
     ra = (R - i) // f if flip else (i - 1) // f
     x0, x1 = xr[:, ra], xr[:, ra + 1]  # (P, R, D)
     sig = torch.as_tensor(sigma_value(sigma), dtype=X.dtype, device=dev)
@@ -254,7 +228,7 @@ def _lane_increments(X, Y, ii, jj, sigma, f, flip=False):
     u_next = col(everyone)
     u_more, more = torch.zeros_like(u), torch.zeros_like(everyone)
     out = u.new_zeros(P, R, C)
-    for s in range(1, C + cuda_blocked.WARP):
+    for s in range(1, C + band.WARP):
         if s % f == 0:  # a uniform step: lanes with no reserve generate
             ask = ~more
             u_more = torch.where(ask, col(ask), u_more)
@@ -273,15 +247,15 @@ def _banded(X, Y, ii, jj, sigma, dyadic_order, naive, H, Wc, stack):
     f = 2 ** dyadic_order
     u = _lane_increments(X, Y, ii, jj, sigma, f)
     ones = u.new_ones(u.shape[0], u.shape[2] + 1)  # row 0 is the constant 1
-    return cuda_blocked.banded_sweep(u, ones, naive, H, Wc, stack)
+    return band.banded_sweep(u, ones, naive, H, Wc, stack)
 
 
 def rbf_gen_banded_plain(X, Y, ii, jj, sigma, dyadic_order: int = 0,
-                         naive: bool = False, H=cuda_blocked.BAND_ROWS,
-                         Wc=cuda_blocked.CHUNK) -> torch.Tensor:
+                         naive: bool = False, H=band.BAND_ROWS,
+                         Wc=band.CHUNK) -> torch.Tensor:
     """K1's own arithmetic in plain PyTorch, for the tests: each pair's
     frame swept in bands of ``H`` rows and chunks of ``Wc`` columns
-    (:func:`.cuda_blocked.banded_sweep`) from a row 0 of 1s, the increments
+    (:func:`.band.banded_sweep`) from a row 0 of 1s, the increments
     generated lane by lane (:func:`_lane_increments`); the corners ``(P,)``.
     Bit for bit :func:`rbf_gen_solve_final_plain`; no route runs it."""
     if ii.shape[0] == 0 or X.shape[1] < 2 or Y.shape[1] < 2:
@@ -291,8 +265,8 @@ def rbf_gen_banded_plain(X, Y, ii, jj, sigma, dyadic_order: int = 0,
 
 
 def rbf_gen_banded_stack_plain(X, Y, ii, jj, sigma, dyadic_order: int = 0,
-                               naive: bool = False, H=cuda_blocked.BAND_ROWS,
-                               Wc=cuda_blocked.CHUNK):
+                               naive: bool = False, H=band.BAND_ROWS,
+                               Wc=band.CHUNK):
     """K1-stack's own arithmetic, as :func:`rbf_gen_banded_plain`:
     ``(values, stack)``, the stack written as the band kernel writes it.
     Bit for bit :func:`rbf_gen_solve_stack_plain`."""
@@ -315,15 +289,14 @@ def rbf_gen_adjoint_plain(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
 
 def rbf_gen_adjoint_banded_plain(X, Y, ii, jj, sigma, stack,
                                  dyadic_order: int = 0, naive: bool = False,
-                                 H=cuda_blocked.BAND_ROWS,
-                                 Wc=cuda_blocked.CHUNK,
+                                 H=band.BAND_ROWS, Wc=band.CHUNK,
                                  g=None) -> torch.Tensor:
     """K3<gen>'s band kernel in plain PyTorch, for the tests: the reverse
     increments generated lane by lane with the columns walked backward
     (:func:`_lane_increments` with ``flip``), swept from a row 0 of 1s in
     bands of ``H`` rows and chunks of ``Wc`` columns, multiplied with the
     forward ``stack`` and collapsed by the kernel's lane arithmetic
-    (:func:`.cuda_blocked.banded_adjoint`) into ``ct (P, M-1, N-1)`` in the
+    (:func:`.band.banded_adjoint`) into ``ct (P, M-1, N-1)`` in the
     pairs' own frame, each base cell stored once as the kernel stores it:
     its sum times the exact ``1 / f^2``, then times ``g[p]`` if given.
     ``ct`` starts as NaN, as the kernel's may hold anything. Bit for bit
@@ -335,9 +308,8 @@ def rbf_gen_adjoint_banded_plain(X, Y, ii, jj, sigma, stack,
     f = 2 ** dyadic_order
     u = _lane_increments(X, Y, ii, jj, sigma, f, flip=True)
     out = ct.transpose(-1, -2) if M > N else ct  # the solve's frame
-    cuda_blocked.banded_adjoint(u, stack, u.new_ones(P, u.shape[2] + 1), out,
-                                0, u.shape[1], f, naive, H, Wc,
-                                fold=(1.0 / (f * f), g))
+    band.banded_adjoint(u, stack, u.new_ones(P, u.shape[2] + 1), out, 0,
+                        u.shape[1], f, naive, H, Wc, fold=(1.0 / (f * f), g))
     return ct
 
 
@@ -369,13 +341,10 @@ def check_pairs(X, Y, ii, jj, what, in_range=False):
     """:func:`check_layout`, then the pair indices' bounds, read on the host
     (``sk.sync.index_bounds``, a wait for the card) unless ``in_range``: the
     caller built the index arrays from the paths' batch sizes, so they are
-    in range by construction. Counted in :data:`INDEX_CHECKS`; returns the
-    index arrays as contiguous int64."""
+    in range by construction. Returns the index arrays as contiguous
+    int64."""
     ii, jj = check_layout(X, Y, ii, jj, what)
-    if ii.shape[0] and in_range:
-        INDEX_CHECKS["built"] += 1
-    elif ii.shape[0]:
-        INDEX_CHECKS["read"] += 1
+    if ii.shape[0] and not in_range:
         lo_i, hi_i, lo_j, hi_j = host(torch.stack(
             [ii.min(), ii.max(), jj.min(), jj.max()]), "index_bounds")
         if lo_i < 0 or lo_j < 0 or hi_i >= X.shape[0] or hi_j >= Y.shape[0]:
@@ -399,56 +368,27 @@ def _oriented(X, Y, ii, jj, dyadic_order, what, bounded=False):
     return rows, ri, cols, ci, f, transposed
 
 
-def gen_chunk(P: int, R: int, C: int, itemsize: int) -> int:
-    """Pairs a K1 launch: all ``P`` while one band holds the frame's ``R``
-    rows (no scratch), else as many as keep the bands' hand-off scratch
-    (``itemsize`` bytes a column of a hand-off row: K5 passes its three
-    values') and the launch's counters (an int a block, and the ticket)
-    within :data:`SCRATCH_BYTES` (at least one)."""
-    nbands = -(-R // cuda_blocked.BAND_ROWS)
-    if nbands <= 1:
-        return max(P, 1)
-    per_pair = (nbands - 1) * (C + 1) * itemsize + 4 * nbands
-    return max(1, min(P, (SCRATCH_BYTES - 4) // per_pair))
-
-
 def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
                    naive, out, stack=None, adjoint=False, wt=None):
     """K1 (into ``out (P,)``), K1-stack (``stack`` given, written) or
     K3<gen> (``adjoint``: ``stack`` read, ``out`` the cotangent, ``wt``
-    the per-pair weights or None) over the pairs in launches of
-    :func:`gen_chunk` pairs, each with its scratch and freshly zeroed
-    counters (reused across the launches, on one stream) and ``sigma`` read
-    once for all of them (:func:`sigma_value`), and counted in
-    :data:`BAND_FILL`."""
+    the per-pair weights or None) over the pairs, oriented with the shorter
+    path as the rows, through :func:`.band.launch`, with ``sigma`` read
+    once for all its launches (:func:`sigma_value`)."""
     rows, ri, cols, ci, f, transposed = _oriented(X, Y, ii, jj, dyadic_order,
                                                   what)
     sig = sigma_value(sigma)
-    P, Lr, Lc = ii.shape[0], rows.shape[1], cols.shape[1]
+    Lr, Lc = rows.shape[1], cols.shape[1]
     R, C = (Lr - 1) * f, (Lc - 1) * f
-    nbands = -(-R // cuda_blocked.BAND_ROWS)
-    chunk = gen_chunk(P, R, C, X.element_size())
-    scratch = torch.empty(chunk * (nbands - 1) * (C + 1), dtype=X.dtype,
-                          device=X.device)
-    counters = torch.empty(chunk * nbands + 1, dtype=torch.int32,
-                           device=X.device)
-    per_stack = (R + C + 1) * (R + 1) * X.element_size()
-    per_out = out.stride(0) * out.element_size()
-    frame = (transposed,) if adjoint else ()
-    for s in range(0, P, chunk):
-        n = min(chunk, P - s)
-        counters.zero_()
-        at = (rows.data_ptr(), cols.data_ptr(), ri.data_ptr() + 8 * s,
-              ci.data_ptr() + 8 * s, out.data_ptr() + per_out * s)
-        if adjoint:
-            at += (None if wt is None
-                   else wt.data_ptr() + wt.element_size() * s,)
-        if stack is not None:
-            at += (stack.data_ptr() + per_stack * s,)
-        _build.launch(what, fns, counts, X, *at, scratch.data_ptr(),
-                      counters.data_ptr(), n, Lr, Lc, X.shape[2], f,
-                      sig, nbands, *frame, int(naive))
-        count_band_fill(n, R, nbands)
+    ptrs = [(rows.data_ptr(), 0), (cols.data_ptr(), 0), band.per_pair(ri),
+            band.per_pair(ci), band.per_pair(out)]
+    if adjoint:
+        ptrs.append(band.per_pair(wt))
+    if stack is not None:
+        ptrs.append(band.per_pair(stack))
+    band.launch(what, fns, counts, X, ii.shape[0], R, C, ptrs,
+                (Lr, Lc, X.shape[2], f, sig, band.bands(R),
+                 *((transposed,) if adjoint else ()), int(naive)))
 
 
 @spanned("sk.op.rbf_gen_wavefront")
@@ -511,7 +451,7 @@ def rbf_gen_adjoint(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
     :func:`rbf_gen_solve_stack`, times the pair's upstream cotangent ``g
     (P,)`` if given (else 1). The band kernel while ``f <= 32``, which
     writes the finished cotangent, else the one-block kernel
-    (:func:`.cuda_blocked.stripe_adjoint_kernel`) and the division by
+    (:func:`.band.adjoint_kernel`) and the division by
     ``f^2`` and the weighting after it. ``sigma`` and ``in_range`` as
     :func:`rbf_gen_solve_final`'s."""
     if X.device.type == "cpu":
@@ -534,13 +474,12 @@ def rbf_gen_adjoint(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
             or stack.device != X.device or not stack.is_contiguous()):
         raise ValueError(f"rbf_gen_adjoint: stack must be a contiguous {want}"
                          " tensor of the paths' dtype and device")
-    if cuda_blocked.stripe_adjoint_kernel(dyadic_order) == "band":
+    if band.adjoint_kernel(dyadic_order) == "band":
         # every base cell is stored once, scaled and weighted: no fill
         ct = torch.empty(shape, dtype=X.dtype, device=X.device)
         _launch_banded("adjoint_collapse_gen", _ADJOINT_FNS, ADJOINT_COUNTS,
                        X, Y, ii, jj, sigma, dyadic_order, naive, ct, stack,
                        adjoint=True, wt=g)
-        FOLDED_EPILOGUES["band"] += 1
         return ct
     ct = torch.zeros(shape, dtype=X.dtype, device=X.device)
     rows, ri, cols, ci, f, transposed = _oriented(
@@ -551,6 +490,5 @@ def rbf_gen_adjoint(X, Y, ii, jj, sigma, stack, dyadic_order: int = 0,
                   ct.data_ptr(), P, rows.shape[1], cols.shape[1], X.shape[2],
                   f, sigma_value(sigma), transposed, int(naive),
                   key="one_block")
-    FOLDED_EPILOGUES["one_block"] += 1
     ct = ct / (f * f)
     return ct if g is None else ct * g[:, None, None]

@@ -11,7 +11,7 @@ Goursat solve over a base increment grid ``(P, Mb, Nb)`` refined by
 ``Mb > Nb``). It is the band-pipelined wavefront of ``csrc/band_sweep.cuh``
 over each pair's whole frame from 1s, with the grid as its increment
 source (``IncSource``): a block per (pair, band of
-:data:`.cuda_blocked.BAND_ROWS` rows), a lane a row, no row bound
+:data:`.band.BAND_ROWS` rows), a lane a row, no row bound
 (:func:`inc_solve_final_banded_plain` emulates it). On the H100 its bound
 is reading the increment grid, which it reads at base resolution: the
 refined grid never exists.
@@ -37,15 +37,16 @@ chosen by shape (:func:`ckpt_kernel`): while a base row's ``f`` refined rows
 fit one warp (``f <= 32``) and a window's halo of ``W - 2`` rows fits one
 (``W <= 34``), the band-pipelined wavefront of ``csrc/band_sweep.cuh``
 (kBandCkpt: the reverse frame swept in bands of
-:data:`.cuda_blocked.BAND_ROWS` rows, each warp recomputing its rows'
+:data:`.band.BAND_ROWS` rows, each warp recomputing its rows'
 forward values a window at a time from the sparse stack, with a halo of
 ``W - 2`` rows above it; :func:`inc_adjoint_ckpt_banded_plain` emulates
 it); past that the one-block kernel (a block a pair, a barrier a diagonal,
 within the row bound).
 
-The three K2 wrappers launch the pairs in chunks that keep the bands'
-hand-off scratch within :data:`.cuda_gen.SCRATCH_BYTES` and a launch
-within :data:`TICKETS` blocks. Each wrapper launches its kernel for CUDA
+The band wrappers (the K2 family's and K8's) launch through
+:func:`.band.launch`, which splits the pairs so that the bands' hand-off
+scratch stays within :data:`.band.SCRATCH_BYTES` and a launch within
+:data:`.band.TICKETS` blocks. Each wrapper launches its kernel for CUDA
 tensors and takes its plain version (``*_plain``) only for CPU tensors.
 ``COUNTS``, ``STACK_COUNTS``, ``ADJOINT_COUNTS``, ``SPARSE_COUNTS`` and
 ``CKPT_COUNTS`` hold the kernel launches per dtype and the calls of the
@@ -57,7 +58,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, cuda_blocked, scan_solver
+from . import _build, band, scan_solver
 from ..tracing import spanned
 from ..utils import dyadic_refine
 
@@ -72,10 +73,6 @@ CKPT_COUNTS = {"float32": 0, "float64": 0, "one_block": 0, "plain": 0}
 # recompute W - 2 diagonals a window with a halo of W - 2 rows
 # (csrc/band_sweep.cuh). Read at call time.
 CKPT_WINDOW = 8
-# the band kernels (K2, K2-stack, K2-sparse, K8): the most blocks one launch
-# may hold (the ticket counter is a 32-bit int); more pairs take more
-# launches
-TICKETS = (1 << 31) - 1
 
 _FNS = {torch.float32: "sk_inc_wavefront_f32",
         torch.float64: "sk_inc_wavefront_f64"}
@@ -137,18 +134,17 @@ def inc_solve_final_banded_plain(inc: torch.Tensor, dyadic_order: int = 0,
                                  handoff=None) -> torch.Tensor:
     """K2's band kernel in plain PyTorch, for the tests: the whole frame's
     refined increments by the kernel's index arithmetic
-    (:func:`.cuda_blocked._band_increments`) swept from a row 0 of 1s in
-    bands of ``H`` rows and chunks of ``Wc`` columns (default: the
-    kernel's, :data:`.cuda_blocked.BAND_ROWS` and
-    :data:`.cuda_blocked.CHUNK`); the corners ``(P,)``. Bit for bit
-    :func:`inc_solve_final_plain`; no route runs it. ``handoff``: a
-    negative control (:func:`.cuda_blocked._band_sweep`)."""
+    (:func:`.band.increments`) swept from a row 0 of 1s in bands of ``H``
+    rows and chunks of ``Wc`` columns (default: the kernel's,
+    :data:`.band.BAND_ROWS` and :data:`.band.CHUNK`); the corners ``(P,)``.
+    Bit for bit :func:`inc_solve_final_plain`; no route runs it.
+    ``handoff``: a negative control (:func:`.band.sweep`)."""
     P, Mb, Nb = inc.shape
     if P == 0 or Mb == 0 or Nb == 0:
         return inc.new_ones(P)
     u, bd = _frame_increments(inc, dyadic_order)
-    return cuda_blocked.banded_sweep(
-        u, bd, naive, H or cuda_blocked.BAND_ROWS, Wc or cuda_blocked.CHUNK,
+    return band.banded_sweep(
+        u, bd, naive, H or band.BAND_ROWS, Wc or band.CHUNK,
         handoff=handoff)[:, -1].clone()
 
 
@@ -157,13 +153,13 @@ def inc_solve_stack_banded_plain(inc: torch.Tensor, dyadic_order: int = 0,
                                  handoff=None):
     """K2-stack's band kernel in plain PyTorch, for the tests: ``(values,
     stack)`` as :func:`inc_solve_final_banded_plain` sweeps them, the stack
-    written as the kernel writes it (:func:`.cuda_blocked.banded_sweep`:
+    written as the kernel writes it (:func:`.band.banded_sweep`:
     row 0 the constant 1 to column C, the swept cells on their diagonals,
     1 at column 0, 0 outside). Bit for bit :func:`inc_solve_stack_plain`."""
     u, bd = _frame_increments(inc, dyadic_order)
-    bottom, stack = cuda_blocked.banded_sweep(
-        u, bd, naive, H or cuda_blocked.BAND_ROWS, Wc or cuda_blocked.CHUNK,
-        stack=True, handoff=handoff)
+    bottom, stack = band.banded_sweep(
+        u, bd, naive, H or band.BAND_ROWS, Wc or band.CHUNK, stack=True,
+        handoff=handoff)
     return bottom[:, -1].clone(), stack
 
 
@@ -180,7 +176,7 @@ def inc_solve_sparse_banded_plain(inc: torch.Tensor, dyadic_order: int = 0,
     (p // W) + p % W``. Bit for bit :func:`inc_solve_sparse_plain`."""
     P, Mb, Nb = inc.shape
     W = window() if W is None else W
-    R, C = cuda_blocked.frame(Mb, Nb, dyadic_order)
+    R, C = band.frame(Mb, Nb, dyadic_order)
     pairs = scan_solver.ckpt_pairs(R, C, W)
     dev = inc.device
     p = torch.tensor(scan_solver.sparse_rows(R, C, W), device=dev)[:, None]
@@ -191,16 +187,15 @@ def inc_solve_sparse_banded_plain(inc: torch.Tensor, dyadic_order: int = 0,
     sparse[:, fixed] = edge.expand_as(fixed)[fixed]
 
     def visit(i0, c0, tile):
-        rows, cols = cuda_blocked._tile_cells(i0, c0, tile)
+        rows, cols = band.tile_cells(i0, c0, tile)
         d = rows + cols  # each cell's diagonal
         keep = (d % W < 2) & (d // W < pairs)
         at = (2 * (d // W) + d % W)[keep]
         sparse[:, at, rows.expand_as(d)[keep]] = tile[:, 1:, 1:][:, keep]
 
     u, bd = _frame_increments(inc, dyadic_order)
-    bottom = cuda_blocked._band_sweep(
-        u, bd, naive, H or cuda_blocked.BAND_ROWS, Wc or cuda_blocked.CHUNK,
-        visit, handoff)
+    bottom = band.sweep(u, bd, naive, H or band.BAND_ROWS, Wc or band.CHUNK,
+                        visit, handoff)
     return bottom[:, -1].clone(), sparse
 
 
@@ -208,8 +203,8 @@ def _frame_increments(inc, dyadic_order):
     """The whole frame's refined increments ``(P, R, C)`` as the band
     kernel's ``IncSource`` reads them, and its row 0, 1s ``(P, C + 1)``."""
     P, Mb, Nb = inc.shape
-    R, C = cuda_blocked.frame(Mb, Nb, dyadic_order)
-    u = cuda_blocked._band_increments(inc, 2 ** dyadic_order, 0, R, False)
+    R, C = band.frame(Mb, Nb, dyadic_order)
+    u = band.increments(inc, 2 ** dyadic_order, 0, R, False)
     return u, inc.new_ones(P, C + 1)
 
 
@@ -269,13 +264,13 @@ def ckpt_warp_stack(sparse: torch.Tensor, u: torch.Tensor, W: int,
     P, R, C = u.shape
     halo = W - 2 if halo is None else halo
     dev, nan = u.device, float("nan")
-    nwarps = -(-R // cuda_blocked.WARP)
-    i0 = torch.arange(nwarps, device=dev) * cuda_blocked.WARP + 1
-    lanes = torch.arange(cuda_blocked.WARP + halo, device=dev)
+    nwarps = -(-R // band.WARP)
+    i0 = torch.arange(nwarps, device=dev) * band.WARP + 1
+    lanes = torch.arange(band.WARP + halo, device=dev)
     rows = (R - i0)[:, None] - lanes[None, :]  # (warps, 32 + halo)
     held = rows >= 0
     at = rows.clamp(min=0)
-    main = rows[:, :cuda_blocked.WARP]
+    main = rows[:, :band.WARP]
     owned = main >= 0
     scheme = scan_solver.get_scheme(naive)
     out = u.new_full((P, R + C + 1, R + 1), nan)
@@ -288,7 +283,7 @@ def ckpt_warp_stack(sparse: torch.Tensor, u: torch.Tensor, W: int,
             # row a - 1 is the next row of the column; the last has none
             n2, n1 = (torch.cat([v[..., 1:], none], -1) for v in vals[-2:])
             if top_from_pair:  # lane 31's neighbour: the halo's first row
-                top = cuda_blocked.WARP
+                top = band.WARP
                 n2[..., top - 1], n1[..., top - 1] = (vals[0][..., top],
                                                       vals[1][..., top])
             inside = (rows >= max(1, d - C)) & (rows <= min(R, d - 1))
@@ -300,8 +295,7 @@ def ckpt_warp_stack(sparse: torch.Tensor, u: torch.Tensor, W: int,
                 torch.where(held, edge, nan)))
         for k, v in enumerate(vals):
             if e + k <= R + C:
-                out[:, e + k, main[owned]] = v[:, :, :cuda_blocked.WARP][
-                    :, owned]
+                out[:, e + k, main[owned]] = v[:, :, :band.WARP][:, owned]
     return out
 
 
@@ -314,10 +308,9 @@ def inc_adjoint_ckpt_banded_plain(inc: torch.Tensor, sparse: torch.Tensor,
     :func:`window`) with its halo (:func:`ckpt_warp_stack`, on the forward
     increments by the kernel's index arithmetic), and the reverse frame
     swept from a row 0 of 1s in bands of ``H`` rows and chunks of ``Wc``
-    columns (default: the kernel's, :data:`.cuda_blocked.BAND_ROWS` and
-    :data:`.cuda_blocked.CHUNK`), multiplied and collapsed by the kernel's
-    lane arithmetic (:func:`.cuda_blocked.banded_adjoint`) into ``ct (P,
-    Mb, Nb)``; then
+    columns (default: the kernel's, :data:`.band.BAND_ROWS` and
+    :data:`.band.CHUNK`), multiplied and collapsed by the kernel's lane
+    arithmetic (:func:`.band.banded_adjoint`) into ``ct (P, Mb, Nb)``; then
     the exact ``1 / f^2``. Bit for bit :func:`inc_adjoint_ckpt_plain` and
     :func:`inc_adjoint_plain` on the full stack; no route runs it.
     ``halo`` and ``top_from_pair``: :func:`ckpt_warp_stack`'s negative
@@ -331,15 +324,14 @@ def inc_adjoint_ckpt_banded_plain(inc: torch.Tensor, sparse: torch.Tensor,
         raise ValueError(f"K8's band kernel holds a base row's f = {f} rows "
                          f"in one warp and a window's halo of W - 2 rows one "
                          f"a lane of it")
-    R, C = cuda_blocked.frame(Mb, Nb, dyadic_order)
-    fwd = ckpt_warp_stack(
-        sparse, cuda_blocked._band_increments(inc, f, 0, R, False),
-        window() if W is None else W, naive, halo, top_from_pair)
+    R, C = band.frame(Mb, Nb, dyadic_order)
+    fwd = ckpt_warp_stack(sparse, band.increments(inc, f, 0, R, False),
+                          window() if W is None else W, naive, halo,
+                          top_from_pair)
     out = ct.transpose(-1, -2) if Mb > Nb else ct  # the solve's frame
-    cuda_blocked.banded_adjoint(
-        cuda_blocked._band_increments(inc, f, 0, R, True), fwd,
-        inc.new_ones(P, C + 1), out, 0, R, f, naive,
-        H or cuda_blocked.BAND_ROWS, Wc or cuda_blocked.CHUNK)
+    band.banded_adjoint(band.increments(inc, f, 0, R, True), fwd,
+                        inc.new_ones(P, C + 1), out, 0, R, f, naive,
+                        H or band.BAND_ROWS, Wc or band.CHUNK)
     return ct / (f * f)
 
 
@@ -348,9 +340,9 @@ def ckpt_kernel(dyadic_order: int, W: int) -> str:
     whose collapse holds a base row's ``f`` refined rows in one warp and
     whose halo of ``W - 2`` rows one lane a row) while ``f <= 32`` and ``W
     <= 34``, else ``"one_block"``."""
-    band = (cuda_blocked.stripe_adjoint_kernel(dyadic_order) == "band"
-            and W - 2 <= cuda_blocked.WARP)
-    return "band" if band else "one_block"
+    fits = (band.adjoint_kernel(dyadic_order) == "band"
+            and W - 2 <= band.WARP)
+    return "band" if fits else "one_block"
 
 
 def _check(inc: torch.Tensor, what: str) -> None:
@@ -368,44 +360,6 @@ def _check(inc: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: {inc.shape[0]} pairs exceed one launch")
 
 
-def _launch_band(what, fns, counts, inc, dyadic_order, naive, stack=None,
-                 W=None):
-    """K2 (no ``stack``), K2-stack or K2-sparse (``W``) on the band kernel
-    over the pairs of a ``(P, Mb, Nb)`` grid with ``P, Mb, Nb >= 1``, in
-    launches of at most :func:`.cuda_gen.gen_chunk` pairs (the bands'
-    hand-off scratch within :data:`.cuda_gen.SCRATCH_BYTES`) and
-    :data:`TICKETS` blocks, each with freshly zeroed counters (the scratch
-    and counters reused across the launches, on one stream), each counted
-    in :data:`.cuda_gen.BAND_FILL`. Returns the corners ``(P,)``; ``stack``
-    (its pairs' stacks) is written."""
-    from . import cuda_gen  # cuda_gen imports this module
-
-    P, Mb, Nb = inc.shape
-    f = 2 ** dyadic_order
-    R, C = cuda_blocked.frame(Mb, Nb, dyadic_order)
-    nbands = -(-R // cuda_blocked.BAND_ROWS)
-    size = inc.element_size()
-    chunk = max(1, min(cuda_gen.gen_chunk(P, R, C, size), TICKETS // nbands))
-    scratch = torch.empty(chunk * (nbands - 1) * (C + 1), dtype=inc.dtype,
-                          device=inc.device)
-    counters = torch.empty(chunk * nbands + 1, dtype=torch.int32,
-                           device=inc.device)
-    out = torch.empty(P, dtype=inc.dtype, device=inc.device)
-    per_grid = Mb * Nb * size
-    per_stack = stack[0].numel() * size if stack is not None else 0
-    for s in range(0, P, chunk):
-        counters.zero_()
-        at = (inc.data_ptr() + per_grid * s, out.data_ptr() + size * s)
-        if stack is not None:
-            at += (stack.data_ptr() + per_stack * s,)
-        n = min(chunk, P - s)
-        _build.launch(what, fns, counts, inc, *at, scratch.data_ptr(),
-                      counters.data_ptr(), n, Mb, Nb, f,
-                      *(() if W is None else (W,)), nbands, int(naive))
-        cuda_gen.count_band_fill(n, R, nbands)
-    return out
-
-
 @spanned("sk.op.inc_wavefront")
 def inc_solve_final(inc: torch.Tensor, dyadic_order: int = 0,
                     naive: bool = False) -> torch.Tensor:
@@ -417,8 +371,12 @@ def inc_solve_final(inc: torch.Tensor, dyadic_order: int = 0,
     if P == 0 or Mb == 0 or Nb == 0:
         # no pairs, or a length-1 path (K is its boundary, 1): no launch
         return inc.new_ones(P)
-    return _launch_band("inc_wavefront", _FNS, COUNTS, inc, dyadic_order,
-                        naive)
+    out = torch.empty(P, dtype=inc.dtype, device=inc.device)
+    R, C = band.frame(Mb, Nb, dyadic_order)
+    band.launch("inc_wavefront", _FNS, COUNTS, inc, P, R, C,
+                [band.per_pair(t) for t in (inc, out)],
+                (Mb, Nb, 2 ** dyadic_order, band.bands(R), int(naive)))
+    return out
 
 
 @spanned("sk.op.inc_wavefront[stack]")
@@ -438,8 +396,12 @@ def inc_solve_stack(inc: torch.Tensor, dyadic_order: int = 0,
                         device=inc.device)
     if P == 0:
         return inc.new_ones(0), stack
-    return _launch_band("inc_wavefront[stack]", _STACK_FNS, STACK_COUNTS,
-                        inc, dyadic_order, naive, stack), stack
+    out = torch.empty(P, dtype=inc.dtype, device=inc.device)
+    R, C = band.frame(Mb, Nb, dyadic_order)
+    band.launch("inc_wavefront[stack]", _STACK_FNS, STACK_COUNTS, inc, P, R,
+                C, [band.per_pair(t) for t in (inc, out, stack)],
+                (Mb, Nb, f, band.bands(R), int(naive)))
+    return out, stack
 
 
 @spanned("sk.op.adjoint_collapse_inc")
@@ -487,8 +449,12 @@ def inc_solve_sparse(inc: torch.Tensor, dyadic_order: int = 0,
                          device=inc.device)
     if P == 0:
         return inc.new_ones(0), sparse
-    return _launch_band("inc_wavefront[sparse]", _SPARSE_FNS, SPARSE_COUNTS,
-                        inc, dyadic_order, naive, sparse, W), sparse
+    out = torch.empty(P, dtype=inc.dtype, device=inc.device)
+    R, C = band.frame(Mb, Nb, dyadic_order)
+    band.launch("inc_wavefront[sparse]", _SPARSE_FNS, SPARSE_COUNTS, inc, P,
+                R, C, [band.per_pair(t) for t in (inc, out, sparse)],
+                (Mb, Nb, f, W, band.bands(R), int(naive)))
+    return out, sparse
 
 
 @spanned("sk.op.adjoint_ckpt")
@@ -499,7 +465,7 @@ def inc_adjoint_ckpt(inc: torch.Tensor, sparse: torch.Tensor,
     increments from the sparse stack of :func:`inc_solve_sparse` (at the
     same :data:`CKPT_WINDOW`); equal to :func:`inc_adjoint` on the full
     stack, bit for bit. The kernel by :func:`ckpt_kernel`; the band kernel
-    in launches of at most :data:`TICKETS` blocks."""
+    through :func:`.band.launch`."""
     if inc.device.type == "cpu":
         return inc_adjoint_ckpt_plain(inc, sparse, dyadic_order, naive)
     _check(inc, "inc_adjoint_ckpt")
@@ -508,7 +474,7 @@ def inc_adjoint_ckpt(inc: torch.Tensor, sparse: torch.Tensor,
     f = 2 ** dyadic_order
     if Mb == 0 or Nb == 0 or P == 0:
         return torch.zeros_like(inc)
-    R, C = min(Mb, Nb) * f, max(Mb, Nb) * f
+    R, C = band.frame(Mb, Nb, dyadic_order)
     one_block = ckpt_kernel(dyadic_order, W) == "one_block"
     if one_block:
         _build.check_rows(R, inc.element_size(), "inc_adjoint_ckpt")
@@ -526,18 +492,7 @@ def inc_adjoint_ckpt(inc: torch.Tensor, sparse: torch.Tensor,
                       scratch.data_ptr(), ct.data_ptr(), P, Mb, Nb, f, W,
                       int(naive), key="one_block")
         return ct / (f * f)
-    nbands = -(-R // cuda_blocked.BAND_ROWS)
-    chunk = max(1, min(P, TICKETS // nbands))
-    _, scratch, counters = cuda_blocked._band_scratch(inc[:chunk], R, C)
-    size = inc.element_size()
-    per_grid, per_sparse = Mb * Nb * size, sparse[0].numel() * size
-    for s in range(0, P, chunk):
-        n = min(chunk, P - s)
-        counters.zero_()
-        _build.launch("adjoint_ckpt", _CKPT_FNS, CKPT_COUNTS, inc,
-                      inc.data_ptr() + per_grid * s,
-                      sparse.data_ptr() + per_sparse * s,
-                      ct.data_ptr() + per_grid * s, scratch.data_ptr(),
-                      counters.data_ptr(), n, Mb, Nb, f, W, nbands,
-                      int(naive))
+    band.launch("adjoint_ckpt", _CKPT_FNS, CKPT_COUNTS, inc, P, R, C,
+                [band.per_pair(t) for t in (inc, sparse, ct)],
+                (Mb, Nb, f, W, band.bands(R), int(naive)))
     return ct / (f * f)

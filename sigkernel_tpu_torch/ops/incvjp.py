@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, cuda_gen
+from . import _build, band, cuda_gen
 from ..tracing import spanned
 from ..utils import dd_transpose
 
@@ -68,11 +68,11 @@ def band_rows(D: int, itemsize: int) -> int:
 def partials(P: int, M: int, N: int, D: int, itemsize: int):
     """``(H, bands, pairs a launch)``: the band's rows, the bands a pair, and
     the pairs whose column partials ``(pairs, bands, D + 1, N)`` fit
-    ``cuda_gen.SCRATCH_BYTES`` (at least one)."""
+    :data:`.band.SCRATCH_BYTES` (at least one)."""
     H = band_rows(D, itemsize)
     nb = -(-M // H)
     per_pair = nb * (D + 1) * N * itemsize
-    return H, nb, max(1, min(P, cuda_gen.SCRATCH_BYTES // per_pair))
+    return H, nb, max(1, min(P, band.SCRATCH_BYTES // per_pair))
 
 
 def _sigma(sigma, t) -> torch.Tensor:

@@ -71,7 +71,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, cuda_blocked, cuda_solver
+from . import _build, band, cuda_blocked, cuda_solver
 from .. import kernels as _kernels
 
 SOLVERS = ("auto", "scan", "cuda")
@@ -151,11 +151,9 @@ def tier_bytes(tier: str, shape, itemsize: int) -> int:
     if tier == "full":
         n = math.prod(cuda_solver.stack_shape(1, R, C))
     elif tier == "ckpt":
-        nbands = -(-R // cuda_blocked.BAND_ROWS)
-        band = (nbands - 1) * (C + 1) * itemsize + 4 * nbands
         one_block = cuda_solver.CKPT_WINDOW * (R + 1) * itemsize
         return (math.prod(cuda_solver.sparse_shape(1, R, C)) * itemsize
-                + max(band, one_block))
+                + max(band.scratch_bytes(R, C, itemsize), one_block))
     elif tier == "striped":
         n = math.prod(cuda_solver.stack_shape(
             1, min(cuda_blocked.ADJ_ROWS, R), C))

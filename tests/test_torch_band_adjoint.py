@@ -19,7 +19,7 @@ import torch
 
 from sigkernel_tpu.ops import solve as jsolve
 
-from sigkernel_tpu_torch.ops import _build, cuda_blocked
+from sigkernel_tpu_torch.ops import _build, band, cuda_blocked
 
 # base grids (P, Mb, Nb) per dyadic order, in the solve's frame (Nb >= Mb):
 # refined R = 41, 42, 44 rows and C = 50, 52, 52 columns; `transpose` swaps
@@ -39,7 +39,7 @@ def _stripe(P, Mb, Nb, dyadic, case, dtype, seed):
     that already holds values (the kernel adds into it)."""
     rng = np.random.default_rng(seed)
     f = 2 ** dyadic
-    R, C = cuda_blocked.frame(Mb, Nb, dyadic)
+    R, C = band.frame(Mb, Nb, dyadic)
     row0, rows = (f, R - f) if case == "inside" else (R - 2 * f, 48)
     inc = torch.tensor(rng.normal(size=(P, Mb, Nb)) * 0.3, dtype=dtype)
     bd_f, bd_r = (torch.tensor(1.0 + 0.1 * rng.random(size=(P, C + 1)),
@@ -125,9 +125,9 @@ def test_f_past_a_warp_takes_the_one_block_kernel():
     """The route rule: the band kernel while a base row's f rows fit one
     warp, the one-block kernel (and its row bound) past it; the emulation
     refuses what the band kernel cannot run."""
-    assert [cuda_blocked.stripe_adjoint_kernel(d) for d in range(8)] == (
+    assert [band.adjoint_kernel(d) for d in range(8)] == (
         ["band"] * 6 + ["one_block"] * 2)
-    assert cuda_blocked.WARP == 32 and "one_block" in (
+    assert band.WARP == 32 and "one_block" in (
         cuda_blocked.ADJOINT_COUNTS)
     inc, stack, bd, ct, _, _ = _stripe(1, 2, 3, 6, "inside", torch.float64, 0)
     with pytest.raises(ValueError, match="one warp"):
@@ -136,16 +136,34 @@ def test_f_past_a_warp_takes_the_one_block_kernel():
 
 
 def test_the_row_bound_holds_for_the_one_block_route_only(monkeypatch):
-    """``_check`` past the row bound: refused on the one-block route,
-    accepted on the band route (which holds no stripe in shared memory).
-    Run on a tensor posing as a CUDA one."""
+    """A stripe past the row bound: refused on the one-block route (f >
+    32), launched on the band route (which holds no stripe in shared
+    memory); within the bound the one-block kernel launches. Run on meta
+    tensors posing as CUDA ones, each launch recorded."""
     from sigkernel_tpu_torch.ops import cuda_solver
 
+    launches = []
     monkeypatch.setattr(cuda_solver, "_check", lambda inc, what: None)
-    monkeypatch.setattr(_build, "max_rows", lambda itemsize: 16)
-    inc = torch.zeros(1, 10, 12, dtype=torch.float64)
-    bd = torch.ones(1, 12 * 2 + 1, dtype=torch.float64)
-    assert cuda_blocked._check(inc, bd, 0, 20, 1, "x")[4] == 24
+    monkeypatch.setattr(_build, "launch", lambda what, fns, counts, t, *args,
+                        key=None: launches.append((what, key, args)))
+    monkeypatch.setattr(_build, "max_rows", lambda itemsize: 100)
+
+    def call(Mb, Nb, dyadic, rows):
+        meta = dict(device="meta", dtype=torch.float64)
+        C = band.frame(Mb, Nb, dyadic)[1]
+        inc, ct = (torch.empty(1, Mb, Nb, **meta) for _ in range(2))
+        stack = torch.empty(cuda_solver.stack_shape(1, rows, C), **meta)
+        cuda_blocked.stripe_adjoint(inc, stack, torch.empty(1, C + 1, **meta),
+                                    ct, 0, rows, dyadic)
+
+    call(60, 70, 1, 120)  # f = 2: 120 rows past the bound, C = 140
+    what, key, args = launches.pop()
+    assert (what, key) == ("adjoint_collapse_stripe", None)
+    assert args[6:] == (1, 60, 70, 2, 0, 120, 1, 0)
     with pytest.raises(ValueError, match="one block a pair"):
-        cuda_blocked._check(inc, bd, 0, 20, 1, "x", one_block=True)
-    assert cuda_blocked._check(inc, bd, 0, 16, 1, "x", one_block=True)[3] == 2
+        call(3, 4, 6, 128)  # f = 64: 128 rows past the bound
+    call(3, 4, 6, 64)
+    what, key, args = launches.pop()
+    assert (what, key) == ("adjoint_collapse_stripe[one block]", "one_block")
+    assert args[4:] == (1, 3, 4, 64, 0, 64, 0)
+    assert not launches

@@ -7,8 +7,8 @@ halo of ``W - 2`` rows above them, by the kernel's index arithmetic
 (``cuda_solver.ckpt_warp_stack``); the reverse frame is swept from a row 0
 of 1s in bands of ``H`` rows and chunks of ``Wc`` columns, each cell
 multiplied by the recomputed forward value and collapsed lane by lane into
-``ct`` in the pairs' own frame (``cuda_blocked.banded_adjoint``). It must
-equal the plain K8 (``inc_adjoint_ckpt_plain``) and the plain K3<inc> on
+``ct`` in the pairs' own frame (``band.banded_adjoint``). It must equal
+the plain K8 (``inc_adjoint_ckpt_plain``) and the plain K3<inc> on
 the full stack (``inc_adjoint_plain``) bit for bit over both dtypes, both
 schemes, dyadic orders 0, 1, 2 and 5, transposed grids (``Mb > Nb``),
 frames whose rows are no multiple of 32 or of ``H``, frames smaller than
@@ -32,8 +32,7 @@ import sigkernel_tpu as sk
 from sigkernel_tpu.ops import solve as jsolve
 from sigkernel_tpu.utils import double_difference as jdd
 
-from sigkernel_tpu_torch.ops import (_build, cuda_blocked, cuda_solver,
-                                     routes, solve)
+from sigkernel_tpu_torch.ops import _build, band, cuda_solver, routes, solve
 
 from conftest import make_paths
 
@@ -135,7 +134,7 @@ def test_warp_stack_holds_every_value_the_adjoint_reads(monkeypatch):
     inc = _grid(40, 50, torch.float64, 7)
     sparse = _sparse(monkeypatch, inc, 0, False, 8)
     _, stack = cuda_solver.inc_solve_stack_plain(inc, 0)
-    u = cuda_blocked._band_increments(inc, 1, 0, 40, False)
+    u = band.increments(inc, 1, 0, 40, False)
     fwd = cuda_solver.ckpt_warp_stack(sparse, u, 8)
     p = torch.arange(40 + 50 - 1)[:, None]
     a = torch.arange(40)[None, :]
@@ -239,18 +238,3 @@ def test_route_rule_and_the_one_block_bound(posing_as_cuda, monkeypatch):
     cpu = torch.zeros(1, 3, 4, dtype=torch.float64)
     with pytest.raises(ValueError, match="one warp"):
         cuda_solver.inc_adjoint_ckpt_banded_plain(cpu, None, 6)
-
-
-def test_band_launches_split_by_the_ticket_bound(posing_as_cuda,
-                                                 monkeypatch):
-    """With the ticket bound cut to two pairs' blocks, K8 launches in
-    chunks of two pairs, each launch's grid, sparse stack and ct further
-    on, with freshly zeroed counters."""
-    inc, sparse = _meta(140, 150, 0, P=5)  # R 140: two bands
-    monkeypatch.setattr(cuda_solver, "TICKETS", 2 * 2 + 1)
-    cuda_solver.inc_adjoint_ckpt(inc, sparse)
-    assert [args[5] for *_, args in posing_as_cuda] == [2, 2, 1]
-    per_grid, per_sparse = 140 * 150 * 8, sparse[0].numel() * 8
-    for n, (_, _, _, args) in enumerate(posing_as_cuda):
-        assert args[0] == per_grid * 2 * n and args[2] == per_grid * 2 * n
-        assert args[1] == per_sparse * 2 * n

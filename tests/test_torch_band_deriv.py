@@ -20,7 +20,7 @@ The negative controls: a hand-off between bands that carries K alone (K_diff
 and K_diffdiff zeroed), and one with K_diff and K_diffdiff swapped, each
 make the derivatives differ on every case with more than one band. The
 wrapper's launches (on meta tensors posing as CUDA ones) take no row bound
-and split by the scratch bound.
+(their split: ``tests/test_torch_band.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +30,7 @@ import torch
 from sigkernel_tpu.ops import scan_solver as jscan
 from sigkernel_tpu.utils import dyadic_refine as jrefine
 
-from sigkernel_tpu_torch.ops import _build, cuda_deriv, cuda_gen
+from sigkernel_tpu_torch.ops import _build, cuda_deriv
 
 # (Mb, Nb, dyadic, H, Wc): R = min(Mb, Nb) 2^dyadic rows, the grids
 # transposed in the kernel's frame when Mb > Nb; bands of H rows and chunks
@@ -166,19 +166,3 @@ def test_no_row_bound_on_the_card(posing_as_cuda, dtype):
         assert fns is cuda_deriv._FNS and key is None
         assert args[6:] == (1, L - 1, L - 1, 2 ** dyadic, nbands)
     assert not posing_as_cuda
-
-
-def test_launches_split_by_the_scratch_bound(posing_as_cuda, monkeypatch):
-    """With the scratch bound cut to two pairs' hand-off rows of three
-    values, K5 launches in chunks of two pairs, each launch's grids and
-    corners further on."""
-    P, Mb, Nb = 5, 140, 150  # R 140: two bands, one hand-off row of C + 1
-    per_pair = 1 * 151 * 3 * 8 + 4 * 2
-    monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", 2 * per_pair + 4)
-    cuda_deriv.deriv_solve_final(*_meta(P, Mb, Nb))
-    assert [args[6] for *_, args in posing_as_cuda] == [2, 2, 1]
-    grid = Mb * Nb * 8
-    for n, (_, _, args) in enumerate(posing_as_cuda):
-        assert args[:3] == (grid * 2 * n,) * 3
-        assert args[3] == 3 * 8 * 2 * n
-        assert args[7:] == (Mb, Nb, 1, 2)

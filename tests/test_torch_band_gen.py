@@ -25,7 +25,7 @@ any phase leaves one such step between two wraps of a lane).
 
 On meta tensors posing as the card's, the generator family's estimators
 read nothing on the host between their launches: their index arrays pass
-as built (``cuda_gen.INDEX_CHECKS``), and sigma, held on the card, is read
+as built, with no read of their bounds, and sigma, held on the card, is read
 once before the launches it serves and reaches each of them by value; only
 index arrays a caller passes to an entry directly have their bounds read.
 """
@@ -38,7 +38,7 @@ import torch
 
 import sigkernel_tpu as sk
 
-from sigkernel_tpu_torch.ops import cuda_gen
+from sigkernel_tpu_torch.ops import band, cuda_gen
 
 from conftest import make_paths
 
@@ -140,68 +140,6 @@ def test_banded_k1_matches_jax_scan_tier(dyadic, case):
     np.testing.assert_allclose(got, gram[iin, jjn], rtol=1e-12, atol=0)
 
 
-@pytest.mark.parametrize("P,R,C,itemsize,want", [
-    (128, 2046, 2046, 8, 128),         # the timed shape: one launch
-    (10_000, 2046, 2046, 8, 2185),     # the forward Gram's tile, in double
-    (10_000, 2046, 2046, 4, 4368),     # ... in float
-    (5_050, 100, 300, 8, 5_050),       # one band: no scratch at all
-    (3, 100_000, 100_000, 8, 1),       # a pair's scratch past the bound
-])
-def test_launch_chunks_keep_the_scratch_within_its_bound(P, R, C, itemsize,
-                                                         want):
-    n = cuda_gen.gen_chunk(P, R, C, itemsize)
-    assert n == want
-    bands = -(-R // 128)
-    # the hand-off rows and the counters (an int a block, and the ticket)
-    assert n == 1 or n * ((bands - 1) * (C + 1) * itemsize + 4 * bands) + 4 \
-        <= cuda_gen.SCRATCH_BYTES
-
-
-@pytest.fixture
-def posing_as_cuda(monkeypatch):
-    """Meta tensors pass the K1 family's checks; each launch is recorded,
-    not run, and ``cuda_gen.BAND_FILL`` starts from 0."""
-    launches = []
-    monkeypatch.setattr(cuda_gen, "check_pairs",
-                        lambda X, Y, ii, jj, what, in_range=False: (ii, jj))
-    monkeypatch.setattr(cuda_gen._build, "launch",
-                        lambda what, fns, counts, t, *args, key=None:
-                        launches.append(what))
-    monkeypatch.setattr(cuda_gen, "BAND_FILL", {"rows": 0, "slots": 0})
-    return launches
-
-
-@pytest.mark.parametrize("M,N,D,dyadic,R,bands", [
-    (144, 144, 10, 0, 143, 2),     # add-time: 143 rows in 2 bands
-    (287, 287, 19, 0, 286, 3),     # add-time and lead-lag: 286 in 3
-    (287, 144, 19, 0, 143, 2),     # transposed: the shorter side's rows
-    (1025, 1025, 3, 1, 2048, 16),  # full bands
-])
-@pytest.mark.parametrize("split", [False, True])
-def test_band_fill_counts_rows_and_band_slots(posing_as_cuda, monkeypatch,
-                                              M, N, D, dyadic, R, bands,
-                                              split):
-    """K1, K1-stack and K3<gen> each add pairs x rows and pairs x bands x
-    128, whether a launch holds all 7 pairs or (``split``, the scratch bound
-    cut to one pair's hand-off rows) one."""
-    from sigkernel_tpu_torch.ops.cuda_solver import stack_shape
-
-    meta = dict(device="meta", dtype=torch.float64)
-    X, Y = torch.empty(4, M, D, **meta), torch.empty(3, N, D, **meta)
-    ii = torch.empty(7, device="meta", dtype=torch.int64)
-    f = 2 ** dyadic
-    if split:
-        monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", (bands - 1) * (
-            (max(M, N) - 1) * f + 1) * 8 + 4 * bands + 4)
-    stack = torch.empty(stack_shape(7, (M - 1) * f, (N - 1) * f), **meta)
-    cuda_gen.rbf_gen_solve_final(X, Y, ii, ii, 0.5, dyadic)
-    cuda_gen.rbf_gen_solve_stack(X, Y, ii, ii, 0.5, dyadic)
-    cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 0.5, stack, dyadic)
-    assert len(posing_as_cuda) == 3 * (7 if split and bands > 1 else 1)
-    assert cuda_gen.BAND_FILL == {"rows": 3 * 7 * R,
-                                  "slots": 3 * 7 * bands * 128}
-
-
 # ---- no host read between the generator family's launches ---------------
 
 
@@ -212,7 +150,7 @@ def meta_card(monkeypatch):
     tiles take the generator's family; each launch is recorded, ``(name,
     args)``, not run; each host read (``tracing.host``) is recorded by its
     site, reads sigma as 0.5 and bounds in range; ``events`` holds both in
-    order; ``INDEX_CHECKS`` starts from 0."""
+    order."""
     from sigkernel_tpu_torch import tracing
     from sigkernel_tpu_torch.ops import routes
 
@@ -240,7 +178,6 @@ def meta_card(monkeypatch):
     monkeypatch.setattr(cuda_gen, "host", read)
     monkeypatch.setattr(tracing, "host", read)
     monkeypatch.setattr(routes, "resolve_family", steered)
-    monkeypatch.setattr(cuda_gen, "INDEX_CHECKS", {"read": 0, "built": 0})
     return seen
 
 
@@ -310,10 +247,10 @@ ESTIMATOR_CALLS = {
 @pytest.mark.parametrize("call", sorted(ESTIMATOR_CALLS))
 def test_estimators_read_nothing_between_their_launches(meta_card, call):
     """Each launch of an estimator's call takes index arrays the estimator
-    built (counted as ``built``, one an entry: one launch each at these
-    sizes) and sigma by value. Sigma on the card is read once before the
-    launches it serves (the lincomb's all, a Gram tile's, the forward's and
-    the backward's of ``_RBFGen``), never between them; the bounds never."""
+    built, whose bounds it does not read, and sigma by value. Sigma on the
+    card is read once before the launches it serves (the lincomb's all, a
+    Gram tile's, the forward's and the backward's of ``_RBFGen``), never
+    between them; the bounds never."""
     fn, kernels, reads = ESTIMATOR_CALLS[call]
     fn()
     launches = meta_card["launches"]
@@ -323,7 +260,6 @@ def test_estimators_read_nothing_between_their_launches(meta_card, call):
     serves = len(launches) // groups
     assert [kind for kind, _ in meta_card["events"]] == (
         ["read"] * (reads > 0) + ["launch"] * serves) * groups
-    assert cuda_gen.INDEX_CHECKS == {"read": 0, "built": len(launches)}
 
 
 def _entries(X, Y, ii, stacks, ct):
@@ -363,20 +299,22 @@ def _meta_entries():
                                    "rbf_dd_vjp"])
 def test_caller_indices_are_read_once(meta_card, monkeypatch, entry):
     """A direct call with the caller's index arrays reads their bounds once
-    (``sk.sync.index_bounds``, counted as ``read``) and still refuses an
-    index out of range; with ``in_range=True`` it reads nothing."""
+    (``sk.sync.index_bounds``) and still refuses an index out of range;
+    with ``in_range=True`` it reads nothing."""
     call = _entries(*_meta_entries())[entry]
     call(0.5)
     assert meta_card["reads"] == ["index_bounds"]
-    assert cuda_gen.INDEX_CHECKS == {"read": 1, "built": 0}
     call(0.5, in_range=True)
     assert meta_card["reads"] == ["index_bounds"]
-    assert cuda_gen.INDEX_CHECKS == {"read": 1, "built": 1}
-    monkeypatch.setattr(cuda_gen, "host",  # X holds 4 paths
-                        lambda t, site: [0, 4, 0, 0])
+
+    def out_of_range(t, site):  # X holds 4 paths
+        meta_card["reads"].append(site)
+        return [0, 4, 0, 0]
+
+    monkeypatch.setattr(cuda_gen, "host", out_of_range)
     with pytest.raises(ValueError, match="pair index out of range"):
         call(0.5)
-    assert cuda_gen.INDEX_CHECKS == {"read": 2, "built": 1}
+    assert meta_card["reads"] == ["index_bounds"] * 2
 
 
 @pytest.mark.parametrize("sigma", ["number", "host", "card", "card_f32"])
@@ -404,9 +342,11 @@ def test_sigma_reaches_each_launch_by_value(meta_card, sigma):
 @pytest.mark.parametrize("entry", ["rbf_gen_solve_final",
                                    "rbf_gen_solve_stack", "rbf_gen_adjoint"])
 def test_split_launches_read_sigma_once(meta_card, monkeypatch, entry):
-    """An entry whose pairs ``gen_chunk`` splits into a launch a pair reads
-    sigma on the card once for all its launches, before the first."""
-    monkeypatch.setattr(cuda_gen, "gen_chunk", lambda P, R, C, itemsize: 1)
+    """An entry whose pairs ``band.pairs_a_launch`` splits into a launch a
+    pair reads sigma on the card once for all its launches, before the
+    first."""
+    monkeypatch.setattr(band, "pairs_a_launch",
+                        lambda P, R, C, itemsize, values=1: 1)
     _entries(*_meta_entries())[entry](_meta_sigma(), in_range=True)
     assert [kind for kind, _ in meta_card["events"]] == ["read"] + [
         "launch"] * 3

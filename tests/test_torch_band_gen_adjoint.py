@@ -41,7 +41,7 @@ import torch
 import sigkernel_tpu as sk
 
 import sigkernel_tpu_torch as skt
-from sigkernel_tpu_torch.ops import _build, cuda_blocked, cuda_gen, routes
+from sigkernel_tpu_torch.ops import _build, band, cuda_gen, routes
 
 from conftest import make_paths
 from test_torch_band_gen import _inputs
@@ -140,10 +140,8 @@ def test_the_folded_collapse_writes_every_base_cell(case):
         ct = torch.full((len(ii), M - 1, N - 1), float("nan"),
                         dtype=torch.float64)
         out = ct.transpose(-1, -2) if M > N else ct
-        cuda_blocked.banded_adjoint(u, stack, u.new_ones(len(ii),
-                                                         u.shape[2] + 1),
-                                    out, 0, u.shape[1], f, False, H, Wc,
-                                    fold=fold)
+        band.banded_adjoint(u, stack, u.new_ones(len(ii), u.shape[2] + 1),
+                            out, 0, u.shape[1], f, False, H, Wc, fold=fold)
         if fold is None:
             assert ct.isnan().all()
         else:
@@ -223,12 +221,17 @@ def test_gradient_on_the_band_k3_gen_matches_jax(banded_gen_chain, M, N,
 @pytest.fixture
 def posing_as_cuda(monkeypatch):
     """Meta tensors stand in for CUDA ones: the pair check passes and each
-    launch is recorded, ``(name, fns, key, args)``, instead of run."""
+    launch is recorded, ``(name, fns, key, args)``, and counted as
+    ``_build.launch`` counts it, instead of run."""
     launches = []
+
+    def launch(what, fns, counts, t, *args, key=None):
+        launches.append((what, fns, key, args))
+        counts[key or _build.dtype_key(t)] += 1
+
     monkeypatch.setattr(cuda_gen, "check_pairs",
                         lambda X, Y, ii, jj, what, in_range=False: (ii, jj))
-    monkeypatch.setattr(_build, "launch", lambda what, fns, counts, t, *args,
-                        key=None: launches.append((what, fns, key, args)))
+    monkeypatch.setattr(_build, "launch", launch)
     return launches
 
 
@@ -250,7 +253,7 @@ def test_f_past_a_warp_takes_the_one_block_kernel(posing_as_cuda,
     ``"one_block"``, and only there the row bound); the band launch passes
     the pairs' orientation just before the scheme; the emulation refuses
     what the band kernel cannot run."""
-    assert [cuda_blocked.stripe_adjoint_kernel(d) for d in range(8)] == (
+    assert [band.adjoint_kernel(d) for d in range(8)] == (
         ["band"] * 6 + ["one_block"] * 2)
     assert "one_block" in cuda_gen.ADJOINT_COUNTS
     monkeypatch.setattr(_build, "max_rows", lambda itemsize: 150)
@@ -273,47 +276,28 @@ def test_f_past_a_warp_takes_the_one_block_kernel(posing_as_cuda,
         cuda_gen.rbf_gen_adjoint_banded_plain(X, Y, ii, ii, 1.0, None, 6)
 
 
-def test_band_launches_split_by_the_scratch_bound(posing_as_cuda,
-                                                  monkeypatch):
-    """With the scratch bound cut to one pair's hand-off rows, K3<gen>
-    launches once a pair, each launch's ct, weights and stack a pair
-    further on (no weights: a null pointer)."""
-    X, Y, ii, stack = _meta(140, 150, 0, P=3)  # R 139: two bands
-    monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", 150 * 8)
-    g = torch.empty(5, device="meta", dtype=torch.float64)[2:]
-    cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 1.0, stack)
-    cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 1.0, stack, g=g)
-    assert len(posing_as_cuda) == 6
-    per_stack = stack[0].numel() * 8
-    per_ct = 139 * 149 * 8
-    for n, (_, _, _, args) in enumerate(posing_as_cuda):
-        wt = None if n < 3 else g.data_ptr() + 8 * (n - 3)
-        assert args[4] - posing_as_cuda[3 * (n // 3)][3][4] == per_ct * (n % 3)
-        assert args[5] == wt
-        assert args[6] == per_stack * (n % 3) and args[9] == 1
-
-
 def test_folded_epilogues_are_counted(posing_as_cuda):
-    """``FOLDED_EPILOGUES`` counts K3<gen>'s calls by where the scale and
-    the weights were applied: ``band`` in the kernel (dyadic 0-5), and
-    ``one_block`` in PyTorch after the one-block kernel (dyadic 6); a call
-    with nothing to launch counts nothing. Its name keeps it out of the
-    launch tables (``*COUNTS``); a weight of the wrong shape is refused."""
-    assert not "FOLDED_EPILOGUES".endswith("COUNTS")
-    for dyadic, key in ((1, "band"), (5, "band"), (6, "one_block")):
+    """Where K3<gen>'s scale and weights were applied, read from
+    ``ADJOINT_COUNTS``: in the band kernel (its dtype key, dyadic 0-5),
+    which takes the weights' pointer, or in PyTorch after the one-block
+    kernel (``one_block``, dyadic 6), which takes none; a call with nothing
+    to launch counts nothing; a weight of the wrong shape is refused."""
+    for dyadic, key in ((1, "float64"), (5, "float64"), (6, "one_block")):
         X, Y, ii, stack = _meta(4, 3, dyadic)
-        before = dict(cuda_gen.FOLDED_EPILOGUES)
-        ct = cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 1.0, stack, dyadic,
-                                      g=torch.ones(2, device="meta",
-                                                   dtype=torch.float64))
+        g = torch.empty(4, device="meta", dtype=torch.float64)[2:]
+        before = dict(cuda_gen.ADJOINT_COUNTS)
+        ct = cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 1.0, stack, dyadic, g=g)
         assert ct.shape == (2, 3, 2)
         assert {k: v - before[k] for k, v in
-                cuda_gen.FOLDED_EPILOGUES.items()} == {
+                cuda_gen.ADJOINT_COUNTS.items()} == {
                     k: int(k == key) for k in before}
-    before = dict(cuda_gen.FOLDED_EPILOGUES)
+        what, fns, _, args = posing_as_cuda.pop()
+        assert (fns is cuda_gen._ADJOINT_FNS) == (key == "float64")
+        assert (args[5] == g.data_ptr() == 16) == (key == "float64")
+    before = dict(cuda_gen.ADJOINT_COUNTS)
     X, Y, ii, _ = _meta(1, 3, 1)
     cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 1.0, None, 1)
-    assert cuda_gen.FOLDED_EPILOGUES == before
+    assert cuda_gen.ADJOINT_COUNTS == before and not posing_as_cuda
     X, Y, ii, stack = _meta(4, 3, 1)
     with pytest.raises(ValueError, match="g must be"):
         cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, 1.0, stack, 1,
@@ -325,7 +309,8 @@ def test_north_star_backward_folds_every_chunk(posing_as_cuda, monkeypatch):
     """At the north star's shape (10,000 pairs of length 1024, dim 3, dyadic
     1) the generator's backward runs 79 chunks of at most 128 pairs, and
     each K3<gen> launch gets its chunk's weights (the band kernel's
-    epilogue, counted under ``band``), with no multiply after it."""
+    epilogue, counted under the dtype's key, none under ``one_block``),
+    with no multiply after it."""
     from sigkernel_tpu_torch import sigkernel
 
     monkeypatch.setattr(sigkernel.incvjp, "rbf_dd_vjp",
@@ -336,11 +321,11 @@ def test_north_star_backward_folds_every_chunk(posing_as_cuda, monkeypatch):
     P = 10_000
     ii = torch.zeros(P, dtype=torch.int64, device="meta")
     g = torch.empty(P, device="meta", dtype=torch.float64)
-    before = dict(cuda_gen.FOLDED_EPILOGUES)
+    before = dict(cuda_gen.ADJOINT_COUNTS)
     sigkernel._gen_backward(X, X, ii, ii, 1.0, g, torch.float64, 1, False)
     assert {k: v - before[k] for k, v in
-            cuda_gen.FOLDED_EPILOGUES.items()} == {"band": 79,
-                                                    "one_block": 0}
+            cuda_gen.ADJOINT_COUNTS.items()} == {
+                "float32": 0, "float64": 79, "one_block": 0, "plain": 0}
     wts = [args[5] for what, _, _, args in posing_as_cuda
            if what == "adjoint_collapse_gen"]
     assert wts == [g.data_ptr() + 8 * 128 * k for k in range(79)]

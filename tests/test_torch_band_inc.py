@@ -19,9 +19,9 @@ stack, bit for bit.
 The negative control: the hand-off row between two bands read as 1s
 breaks the bit-equality on every case of more than one band. The wrappers
 (on meta tensors posing as CUDA ones) take a shorter side past
-``_build.max_rows`` and split their pairs by the scratch and ticket
-bounds; ``routes.resolve_inc_tier`` still sends such grids to the stripes,
-for K3<inc>, which keeps its row bound.
+``_build.max_rows`` (their split: ``tests/test_torch_band.py``);
+``routes.resolve_inc_tier`` still sends such grids to the stripes, for
+K3<inc>, which keeps its row bound.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -31,8 +31,7 @@ import torch
 from sigkernel_tpu.ops import scan_solver as jscan
 from sigkernel_tpu.utils import dyadic_refine as jrefine
 
-from sigkernel_tpu_torch.ops import (_build, cuda_gen, cuda_solver, routes,
-                                     scan_solver)
+from sigkernel_tpu_torch.ops import _build, cuda_solver, routes, scan_solver
 
 # (Mb, Nb, dyadic, H, Wc): R = min(Mb, Nb) 2^dyadic rows, the frame
 # transposed when Mb > Nb; bands of H rows and chunks of Wc columns, the
@@ -228,41 +227,6 @@ def test_no_row_bound_on_the_card(posing_as_cuda, dtype):
     assert not posing_as_cuda
 
 
-def test_launches_split_by_the_scratch_bound(posing_as_cuda, monkeypatch):
-    """With the scratch bound cut to two pairs' hand-off rows, each wrapper
-    launches 5 pairs in chunks of 2, 2 and 1, each launch's grids, corners
-    and stacks further on."""
-    P, Mb, Nb = 5, 140, 150  # R 140: two bands, one hand-off row of C + 1
-    per_pair = 1 * 151 * 8 + 4 * 2
-    monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", 2 * per_pair + 4)
-    R, C = 140, 150
-    stacks = {"inc_wavefront": 0,
-              "inc_wavefront[stack]": (R + C + 1) * (R + 1) * 8,
-              "inc_wavefront[sparse]": 2 * ((R + C - 2) // 8 + 1) * (R + 1)
-              * 8}
-    for what, (wrapper, _) in _wrappers().items():
-        wrapper(_meta(P, Mb, Nb))
-        got = [args for w, _, _, args in posing_as_cuda if w == what]
-        assert len(got) == 3
-        stack = 1 if stacks[what] else 0
-        for n, args in enumerate(got):
-            s = 2 * n
-            assert args[0] == Mb * Nb * 8 * s and args[1] == 8 * s
-            if stack:
-                assert args[2] == stacks[what] * s
-            assert args[4 + stack] == min(2, P - s)
-            assert args[5 + stack:8 + stack] == (Mb, Nb, 1)
-            assert args[-2:] == (2, 0)
-
-
-def test_launches_split_by_the_ticket_bound(posing_as_cuda, monkeypatch):
-    """At most ``TICKETS`` blocks a launch: 5 pairs of two bands at a
-    bound of 5 blocks are launched 2, 2 and 1."""
-    monkeypatch.setattr(cuda_solver, "TICKETS", 5)
-    cuda_solver.inc_solve_final(_meta(5, 140, 150))
-    assert [args[4] for *_, args in posing_as_cuda] == [2, 2, 1]
-
-
 @pytest.mark.parametrize("dtype", sorted(_DTYPES))
 def test_routes_keep_the_stripes_past_the_row_bound(dtype):
     """K3<inc> is still one block a pair within the row bound, so the
@@ -272,19 +236,3 @@ def test_routes_keep_the_stripes_past_the_row_bound(dtype):
     assert routes.resolve_inc_tier((rows, rows + 5), size) == "stripes"
     assert routes.resolve_inc_tier((rows, rows + 5), size, True) == "striped"
     assert routes.resolve_inc_tier((rows - 1, rows), size) == "single"
-
-
-@pytest.mark.parametrize("Mb,Nb,dyadic,R,bands", [
-    (143, 143, 0, 143, 2), (140, 150, 1, 280, 3), (150, 140, 1, 280, 3),
-    (128, 300, 0, 128, 1)])
-def test_band_fill_counts_rows_and_band_slots(posing_as_cuda, monkeypatch,
-                                              Mb, Nb, dyadic, R, bands):
-    """K2, K2-stack and K2-sparse each add pairs x rows and pairs x bands x
-    128 to ``cuda_gen.BAND_FILL``, over every launch of a split."""
-    monkeypatch.setattr(cuda_gen, "BAND_FILL", {"rows": 0, "slots": 0})
-    monkeypatch.setattr(cuda_solver, "TICKETS", 2 * bands)
-    for what, (wrapper, _) in _wrappers().items():
-        wrapper(_meta(5, Mb, Nb), dyadic)
-    assert len(posing_as_cuda) == 3 * 3          # 2, 2 and 1 pairs a launch
-    assert cuda_gen.BAND_FILL == {"rows": 3 * 5 * R,
-                                  "slots": 3 * 5 * bands * 128}

@@ -15,7 +15,7 @@ import torch
 from sigkernel_tpu.ops import scan_solver as jscan
 from sigkernel_tpu.utils import dyadic_refine as jrefine
 
-from sigkernel_tpu_torch.ops import cuda_blocked
+from sigkernel_tpu_torch.ops import band, cuda_blocked
 
 # base grids (P, Mb, Nb) per dyadic order, transposed in the solve's frame
 # (Mb > Nb): refined R = 41, 42, 44 rows and C = 50, 52, 52 columns
@@ -33,7 +33,7 @@ def _stripe(dyadic, case, dtype, seed):
     f = 2 ** dyadic
     P, Mb, Nb = _BASE[dyadic]
     inc = rng.normal(size=(P, Mb, Nb)) * 0.3
-    R, C = cuda_blocked.frame(Mb, Nb, dyadic)
+    R, C = band.frame(Mb, Nb, dyadic)
     row0, rows = (f, R - f) if case == "inside" else (R - 2 * f, 48)
     bd = 1.0 + 0.1 * rng.random(size=(P, C + 1))
     bd[:, 0] = 1.0
@@ -110,13 +110,14 @@ def test_banded_stripe_matches_jax_solve_stripe(dyadic, flip):
 
 
 def test_band_constants_match_the_kernel_source():
-    """The wrapper sizes K7's scratch from BAND_ROWS; the kernel checks the
-    band count it is given against its own kBandRows."""
+    """``band.launch`` sizes every band kernel's scratch from BAND_ROWS;
+    the kernel checks the band count it is given against its own
+    kBandRows."""
     from pathlib import Path
 
-    src = (Path(cuda_blocked.__file__).parent.parent / "csrc"
+    src = (Path(band.__file__).parent.parent / "csrc"
            / "band_sweep.cuh").read_text()
     assert "kBandRows = 32 * kBandWarps" in src
     assert "constexpr int kBandWarps = 4;" in src
     assert "constexpr int kChunk = 32;" in src
-    assert (cuda_blocked.BAND_ROWS, cuda_blocked.CHUNK) == (128, 32)
+    assert (band.BAND_ROWS, band.CHUNK) == (128, 32)

@@ -30,7 +30,7 @@ import pytest
 import torch
 
 import sigkernel_tpu_torch as skt
-from sigkernel_tpu_torch.ops import (_build, cuda_blocked, cuda_deriv,
+from sigkernel_tpu_torch.ops import (_build, band, cuda_blocked, cuda_deriv,
                                      cuda_gen, cuda_lgen, cuda_solver, incvjp,
                                      routes)
 from sigkernel_tpu_torch.utils import double_difference
@@ -266,12 +266,13 @@ def test_length_one_gradients_are_zero_without_launches(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_lincomb_reads_sigma_once_on_the_host(cuda, dtype):
+def test_lincomb_reads_sigma_once_on_the_host(cuda, dtype, monkeypatch):
     """The north-star call at a small shape (6 x 5 paths of length 33, dim
     3, dyadic 1, 7 pairs a chunk: 5 chunks), fwd + bwd under the profiler,
     reads the card on the host once, sigma on the card requiring a gradient
     (one ``sk.sync.sigma`` span), and not at all with sigma held on the
-    host; it reads no index bounds (``INDEX_CHECKS``). Its value and its
+    host; it reads no index bounds (a spy on the ops' host reads records
+    each read's site). Its value and its
     gradients in X, Y and sigma are equal bit for bit either way, and agree
     with the plain tier."""
     from torch.profiler import ProfilerActivity, profile
@@ -290,15 +291,22 @@ def test_lincomb_reads_sigma_once_on_the_host(cuda, dtype):
         S.backward()
         return S.detach(), X.grad, Y.grad, sigma.grad.to(cuda)
 
+    sites, host = [], cuda_gen.host
+
+    def spy(t, site):
+        sites.append(site)
+        return host(t, site)
+
+    monkeypatch.setattr(cuda_gen, "host", spy)
+
     def traced(where):
-        before = dict(cuda_gen.INDEX_CHECKS)
+        sites.clear()
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             out = call(where)
             torch.cuda.synchronize()
         names = [e.name() for e in prof.profiler.kineto_results.events()]
         assert "sk.est.sig_gram_lincomb" in names
-        assert cuda_gen.INDEX_CHECKS["read"] == before["read"]
-        assert cuda_gen.INDEX_CHECKS["built"] >= before["built"] + 3 * 5
+        assert "index_bounds" not in sites
         return out, [n for n in names if n.startswith("sk.sync.")]
 
     call(cuda)  # the library's build and the allocator's first blocks
@@ -462,7 +470,7 @@ def test_stripe_kernels_match_plain(cuda, dtype, naive, dyadic, Mb, Nb):
     K2-stack -> K3<inc>, bit for bit."""
     inc = _grid(Mb, Nb, 30 + Mb + dyadic, cuda, dtype)
     f = 2 ** dyadic
-    R, C = cuda_blocked.frame(Mb, Nb, dyadic)
+    R, C = band.frame(Mb, Nb, dyadic)
     rows = 4 * f
     bd = torch.ones(3, C + 1, dtype=dtype, device=cuda)
     for row0 in range(0, R, rows):
@@ -677,7 +685,7 @@ def test_band_gen_splits_its_launches_by_the_scratch_bound(cuda, monkeypatch):
     jj = torch.tensor([3, 2, 1, 0, 0], device=cuda)
     whole = cuda_gen.rbf_gen_solve_final(X, X, ii, jj, 1.0)
     _, whole_stack = cuda_gen.rbf_gen_solve_stack(X, X, ii, jj, 1.0)
-    monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", 140 * 8)
+    monkeypatch.setattr(band, "SCRATCH_BYTES", 140 * 8)
     n, n_stack = cuda_gen.COUNTS["float64"], cuda_gen.STACK_COUNTS["float64"]
     assert torch.equal(cuda_gen.rbf_gen_solve_final(X, X, ii, jj, 1.0), whole)
     v, stk = cuda_gen.rbf_gen_solve_stack(X, X, ii, jj, 1.0)
@@ -765,7 +773,7 @@ def test_band_gen_adjoint_splits_its_launches_by_the_scratch_bound(
     jj = torch.tensor([3, 2, 1, 0, 0], device=cuda)
     _, stk = cuda_gen.rbf_gen_solve_stack(Y, X, jj, ii, 1.0)
     whole = cuda_gen.rbf_gen_adjoint(Y, X, jj, ii, 1.0, stk)
-    monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", 150 * 8)
+    monkeypatch.setattr(band, "SCRATCH_BYTES", 150 * 8)
     n = cuda_gen.ADJOINT_COUNTS["float64"]
     assert torch.equal(cuda_gen.rbf_gen_adjoint(Y, X, jj, ii, 1.0, stk),
                        whole)
@@ -804,6 +812,7 @@ def test_band_gen_adjoint_folds_the_weights(cuda, monkeypatch):
     scratch bound (the weights' pointer a pair further on each launch) the
     same cotangent as one launch. Past f = 32 the one-block kernel, weighted
     after it (``one_block``), equals its plain version too."""
+    zero = dict.fromkeys(cuda_gen.ADJOINT_COUNTS, 0)
     for dtype in (torch.float32, torch.float64):
         for P, M, N, D, dyadic in _GEN_FOLD:
             X, Y, ii, jj = _gen_pairs(P, M, N, D, cuda, dtype)
@@ -811,7 +820,7 @@ def test_band_gen_adjoint_folds_the_weights(cuda, monkeypatch):
             for naive in (False, True):
                 _, stk = cuda_gen.rbf_gen_solve_stack(X, Y, ii, jj, 0.8,
                                                       dyadic, naive)
-                before = dict(cuda_gen.FOLDED_EPILOGUES)
+                before = dict(cuda_gen.ADJOINT_COUNTS)
                 plain = _poisoned_adjoint(
                     (P, M - 1, N - 1), dtype, cuda,
                     lambda: cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, 0.8, stk,
@@ -820,8 +829,9 @@ def test_band_gen_adjoint_folds_the_weights(cuda, monkeypatch):
                     (P, M - 1, N - 1), dtype, cuda,
                     lambda: cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, 0.8, stk,
                                                      dyadic, naive, g=g))
-                assert _launched(cuda_gen.FOLDED_EPILOGUES, before) == {
-                    "band": 2, "one_block": 0}
+                key = str(dtype).removeprefix("torch.")
+                assert _launched(cuda_gen.ADJOINT_COUNTS, before) == {
+                    **zero, key: 2}
                 assert not (plain.isnan().any() or got.isnan().any())
                 assert torch.equal(plain, cuda_gen.rbf_gen_adjoint_plain(
                     X, Y, ii, jj, 0.8, stk, dyadic, naive))
@@ -837,7 +847,7 @@ def test_band_gen_adjoint_folds_the_weights(cuda, monkeypatch):
     whole = cuda_gen.rbf_gen_adjoint(Y, X, jj, ii, 1.0, stk, g=g)
     assert torch.equal(whole, cuda_gen.rbf_gen_adjoint_plain(
         Y, X, jj, ii, 1.0, stk, g=g))
-    monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", 150 * 8)
+    monkeypatch.setattr(band, "SCRATCH_BYTES", 150 * 8)
     n = cuda_gen.ADJOINT_COUNTS["float64"]
     split = _poisoned_adjoint(
         whole.shape, torch.float64, cuda,
@@ -848,10 +858,10 @@ def test_band_gen_adjoint_folds_the_weights(cuda, monkeypatch):
     X, Y, ii, jj = _gen_pairs(3, 4, 3, 3, cuda, torch.float64)
     g = _fold_weights(3, torch.float64, cuda)
     _, stk = cuda_gen.rbf_gen_solve_stack(X, Y, ii, jj, 0.8, 6)
-    before = dict(cuda_gen.FOLDED_EPILOGUES)
+    before = dict(cuda_gen.ADJOINT_COUNTS)
     got = cuda_gen.rbf_gen_adjoint(X, Y, ii, jj, 0.8, stk, 6, g=g)
-    assert _launched(cuda_gen.FOLDED_EPILOGUES, before) == {
-        "band": 0, "one_block": 1}
+    assert _launched(cuda_gen.ADJOINT_COUNTS, before) == {
+        **zero, "one_block": 1}
     assert torch.equal(got, cuda_gen.rbf_gen_adjoint_plain(
         X, Y, ii, jj, 0.8, stk, 6, g=g))
 

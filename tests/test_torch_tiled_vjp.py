@@ -32,7 +32,7 @@ import torch
 
 from sigkernel_tpu.ops import df_prep
 
-from sigkernel_tpu_torch.ops import _build, cuda_gen, incvjp
+from sigkernel_tpu_torch.ops import _build, band, cuda_gen, incvjp
 
 from conftest import make_paths
 
@@ -233,7 +233,7 @@ def test_partials_split_by_the_scratch_bound(posing_as_cuda, monkeypatch):
     at the north star's length and D 3."""
     P, M, N, D = 5, 150, 60, 3
     per_pair = 3 * (D + 1) * N * 8
-    monkeypatch.setattr(cuda_gen, "SCRATCH_BYTES", 2 * per_pair + 7)
+    monkeypatch.setattr(band, "SCRATCH_BYTES", 2 * per_pair + 7)
     X, Y, ii, jj, ct = _meta(P, M, N, D, torch.float64)
     incvjp.rbf_dd_vjp(X, Y, ii, jj, 0.5, ct)
     (_, args), = posing_as_cuda["launches"]
