@@ -58,7 +58,11 @@ Phases (any failure raises and the script exits non-zero):
    against C 301, f 1 to 64, W 2, 3 and 8, 3,000 pairs, and K2 in float
    at 19,376 rows, past the one-block bound). K2, K2-stack and K2-sparse
    are checked bit for bit against their plain versions wherever phase 1
-   runs them.
+   runs them. Last, K9 (``rbf_gen_increments``, the RBF increment grids of
+   the ``inc`` family's gradient route) bit for bit against its plain
+   version and a second launch, one launch a call, at ``INCREMENT_CASES``
+   (``longpath.scoring``'s 560 pairs of length 1024, dim 5; ragged frames,
+   D 1 to 13, M or N = 2).
 2. The forward main path at the north-star size: ``SigKernel(RBFKernel(1.0),
    dyadic_order=1)`` on X, Y of shape (100, 1024, 3), float64 and float32:
    ``compute_Gram(X, X, sym=True)``, ``compute_Gram(X, Y)``,
@@ -92,12 +96,14 @@ Phases (any failure raises and the script exits non-zero):
     through K7; two pairs against the plain stripes.
 11. Long paths, training: ``sig_mmd(X, Y, max_batch=4, pair_chunk=16)
     .backward()`` at phase 10's size, 8 vs 8 paths, gradients in X and
-    sigma, in the float64 grade and with ``grad_solver="f32"``: K7 forward,
-    then the striped adjoint (K7 boundaries, K7-stack, K3<inc, boundary>);
+    sigma, in the float64 grade and with ``grad_solver="f32"``: K9's grids
+    and K7 forward, then the striped adjoint (K9's grids, K7 boundaries,
+    K7-stack, K3<inc, boundary>) and K4;
     a sub-problem at a forced small stripe height against the plain tier.
 12. The sparse-checkpoint adjoint: ``sig_scoring_rule(X, y).backward()``
     at BASELINE config 4's size (len 1,024, dyadic 2, dim 5; X 32 paths, y
-    one: 560 pairs), float64, through K2 and K2-sparse -> K8; float32 paths
+    one: 560 pairs), float64, through K9's grids, K2 and K2-sparse -> K8 and
+    K4; float32 paths
     of length 2,049 (X 8, y 1) on the same route; X 100 paths, whose
     5,050-pair sym tile at the default ``max_batch`` is built and solved
     chunk by chunk. The counted runs patch both ckpt gates (``SPARSE_GATE``)
@@ -119,15 +125,17 @@ versions come after the counters are read, then each kernel is timed beside
 its plain version at 128 pairs, length 1024, dyadic 1, dim 3 (the stripe
 kernels at phase 10's grid; K7 at both the forward's and the adjoint's
 stripe height, two entries; K2-sparse and K8 also at phase 12's shape, 128
-pairs of length 1024, dyadic 2, dim 5, a second entry each; K1, K1-stack,
-K3<gen>, K8, K2, K2-stack and K2-sparse beside their times before the band
-kernel). The last three
+pairs of length 1024, dyadic 2, dim 5, a second entry each; K9, and K4 in
+a second entry, at ``longpath.scoring``'s call, 560 pairs of length 1024,
+dim 5; K1, K1-stack, K3<gen>, K8, K2, K2-stack and K2-sparse beside their
+times before the band kernel). The last three
 lines of the output are the card's ``nvidia-smi`` line, one JSON object
 describing the kernels (each with its launches on the main path, its
 largest error against its plain version, its time and its plain version's,
-and its bound: the larger of the bytes it must move over 3.35 TB/s and its
-operations over the card's non-tensor peak in its dtype), and the result
-line ``{"ok": true, "device": {...}}``.
+its bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over the card's non-tensor peak in its dtype, and for K9 the time
+of the PyTorch ops it replaces, ``library_ms``), and the result line
+``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -354,6 +362,24 @@ VJP_CASES = [
     ("the 16-pair tail chunk", 16, 1024, 1024, 3, ("float64", "float32")),
 ]
 VJP_TAIL = 16  # pairs of the tail chunk K4 is also timed at
+# phase 1: K9 bit for bit against its plain version and a second launch:
+# name, pairs, M, N, dim, drawn with repeats over 32 x and 33 y paths. The
+# scoring cell's call (560 pairs of 1024 x 1024, D 5); M < N and M > N with
+# a short last band (64 rows) and a short last chunk of columns (512); D 1;
+# D 9 and 13, past the register instances (any D through __ldg); M = 2 and
+# N = 2; N - 1 = 1,100 cuts a warp's span of columns
+INCREMENT_CASES = [
+    ("the scoring cell's call", 560, 1024, 1024, 5),
+    ("M < N, a short last band", 6, 70, 200, 3),
+    ("M > N, short last columns", 6, 200, 70, 3),
+    ("D 1", 5, 134, 600, 1),
+    ("D 9: past the register instances", 4, 90, 40, 9),
+    ("D 13", 3, 40, 130, 13),
+    ("M 2", 6, 2, 90, 5),
+    ("N 2, D 8", 6, 90, 2, 8),
+    ("a warp's span cut", 3, 66, 1101, 2),
+]
+SCORING_PAIRS = 560  # K9 and K4 timed at longpath.scoring's call
 # phase 1: K3<inc, boundary> at dyadic 6 (f = 64 > 32: the one-block
 # kernel, by its counter), as BAND_CASES
 ONE_BLOCK_CASE = ("dyadic 6: the one-block kernel", 2, 5, 4, 3, 6, 0, 192,
@@ -500,6 +526,7 @@ def work(kind, P, M, N, D, f, s, rows=0, W=2):
         "adj_ckpt": (2 * base * s + sparse,
                      12 * cells + 10 * cells * (W - 2) // W + base),
         "vjp": (paths + base * s + (M + N) * D * s, (10 * D + 13) * M * N),
+        "incr": (paths + base * s, rbf + 3 * base),
         "deriv": (3 * base * s + 3 * s, 45 * cells + 3 * base),
         "lgen": (paths + s, 10 * cells + 2 * D * base + (M + N) * D),
         "stripe": (band * s + 2 * (C + 1) * s, 10 * rows * C + band),
@@ -696,6 +723,7 @@ def main():
         "adj_stripe": ("adjoint_collapse_stripe", cuda_blocked.ADJOINT_COUNTS),
         "inc_sparse": ("inc_wavefront[sparse]", cuda_solver.SPARSE_COUNTS),
         "adj_ckpt": ("adjoint_ckpt", cuda_solver.CKPT_COUNTS),
+        "incr": ("rbf_gen_increments", cuda_gen.INCREMENT_COUNTS),
     }
     long_kinds = ("stripe", "stripe_stack", "adj_stripe", "inc_sparse",
                   "adj_ckpt")
@@ -1318,6 +1346,40 @@ def main():
         torch.cuda.empty_cache()
     print(f"[1] vjp cases passed in {time.perf_counter() - t_phase:.1f} s")
 
+    # K9 at the scoring cell's call and its edges: bit for bit against its
+    # plain version and a second launch, from counters zeroed just before
+    t_phase = time.perf_counter()
+    for cname, P, M, N, D in INCREMENT_CASES:
+        X64 = make_paths(gen, 32, M, D, F64)
+        Y64 = make_paths(gen, 33, N, D, F64)
+        ii = torch.randint(0, 32, (P,), generator=gen, device=dev)
+        jj = torch.randint(0, 33, (P,), generator=gen, device=dev)
+        for dtype in (F64, F32):
+            X, Y = X64.to(dtype), Y64.to(dtype)
+            limit = F64_RTOL if dtype == F64 else F32_RTOL_LONG
+            label = f"K9 {cname} {name[dtype]} ({P} pairs, {M} x {N}, D {D})"
+            zero_counters()
+            got, t9 = synced(
+                lambda: cuda_gen.rbf_gen_increments(X, Y, ii, jj, 0.6))
+            again = cuda_gen.rbf_gen_increments(X, Y, ii, jj, 0.6)
+            k9n = dict(cuda_gen.INCREMENT_COUNTS)
+            check(k9n == {**{n: 0 for n in k9n}, name[dtype]: 2},
+                  f"{label}: launches {k9n}, expected two")
+            check(torch.equal(again, got), f"{label}: two launches differ")
+            del again
+            want = cuda_gen.rbf_gen_increments_plain(X, Y, ii, jj, 0.6)
+            check(got.shape == (P, M - 1, N - 1) and got.dtype == dtype,
+                  f"{label}: shape {tuple(got.shape)}, {got.dtype}")
+            compare_bits("incr", dtype, got, want, limit,
+                         f"{label} vs its plain version")
+            del got, want
+            print(f"[1] {label}: K9 bit-equal to its plain version, two "
+                  f"launches identical ({t9 * 1e3:.1f} ms)")
+        torch.cuda.empty_cache()
+    zero_counters()
+    print(f"[1] increment cases passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
     # ---- phases 2-4: the forward main path, counted ---------------------
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     A, L = NORTH_STAR
@@ -1827,7 +1889,7 @@ def main():
               f"{torch.cuda.max_memory_allocated()} bytes ({base} before "
               f"the call), MMD {float(v)}, dsigma {float(s.grad)}")
     read_counters("11", [(k, dt) for k in ("stripe", "stripe_stack",
-                                           "adj_stripe")
+                                           "adj_stripe", "incr", "vjp")
                          for dt in (F32, F64)], not_gen)
     check(cuda_blocked.ADJOINT_COUNTS["one_block"] == 0,
           "[11] K3<inc, boundary> took the one-block kernel")
@@ -1942,7 +2004,8 @@ def main():
           f"{peakw} bytes ({basew} before the call) ({card})")
     del X12w
     set_gates(routes, saved_pairs)
-    read_counters("12", [(k, dt) for k in ("inc", "inc_sparse", "adj_ckpt")
+    read_counters("12", [(k, dt) for k in ("inc", "inc_sparse", "adj_ckpt",
+                                           "incr", "vjp")
                          for dt in (F32, F64)],
                   [(k, dt) for k in ("gen_stack", "inc_stack", "adj_gen",
                                      "adj_inc") for dt in (F32, F64)])
@@ -1990,27 +2053,36 @@ def main():
     # ---- kernel times beside their plain versions -----------------------
     timing = {}
 
-    def timed(kind, dtype, kern, plain, cmp, lim, shape, where, tag=None):
+    def timed(kind, dtype, kern, plain, cmp, lim, shape, where, tag=None,
+              library=None):
         """Time ``plain`` (its one call, whose result the comparison uses)
         and ``kern`` (5 launches after a warm-up) by CUDA events; ``shape`` =
         (P, M, N, D, f[, rows[, W]]) for the bound; ``tag``: a second shape
-        of the same kernel, kept beside the first."""
+        of the same kernel, kept beside the first; ``library``: the PyTorch
+        ops the kernel replaces, timed once after a warm-up."""
         got = kern()  # warm-up
         want, plain_ms = event_call(plain)
         r = cmp(kind, dtype, got, want, lim,
                 f"{instances[(kind, dtype)]} at {where}")
         del got, want
+        library_ms = None
+        if library is not None:
+            library()
+            _, library_ms = event_call(library)
+            torch.cuda.empty_cache()
         ms = event_ms(kern, 5)
         b, o = work(kind, *shape[:5], torch.empty((), dtype=dtype)
                     .element_size(), *shape[5:])
         bound_ms, by = bound(b, o, name[dtype])
         timing[(kind, dtype) + ((tag,) if tag else ())] = (
-            ms, plain_ms, bound_ms, by, where)
+            ms, plain_ms, bound_ms, by, where, library_ms)
         earlier = EARLIER_MS.get((kind, name[dtype])) if not tag else None
         before = f" (one-block design: {earlier:.3f} ms)" if earlier else ""
+        lib = (f", the PyTorch ops it replaces {library_ms:.3f} ms"
+               if library_ms is not None else "")
         print(f"[t] {instances[(kind, dtype)]}: {where}: kernel {ms:.3f} ms"
-              f"{before}, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-              f"({by}; {b} bytes, {o} operations), err {r:.2e} ({card})")
+              f"{before}, plain {plain_ms:.3f} ms{lib}, bound {bound_ms:.3f} "
+              f"ms ({by}; {b} bytes, {o} operations), err {r:.2e} ({card})")
         torch.cuda.empty_cache()
 
     P = TIMED_PAIRS
@@ -2103,6 +2175,28 @@ def main():
               f"{P} pairs, len {L12}, dyadic {dy12}, dim {D12} (phase 12's "
               f"frame; the plain version {c} pairs a call)", tag="phase 12")
         del sparse, inc
+        # K9, and K4 on its grids as a cotangent, at longpath.scoring's call
+        # (560 pairs, len 1,024, dim 5), pairs drawn over 32 x and 33 y paths
+        P9 = SCORING_PAIRS
+        X9 = make_paths(gen, 32, L12, D12, dtype)
+        Y9 = make_paths(gen, 33, L12, D12, dtype)
+        i9 = torch.randint(0, 32, (P9,), generator=gen, device=dev)
+        j9 = torch.randint(0, 33, (P9,), generator=gen, device=dev)
+        at9 = (f"{P9} pairs, len {L12}, dim {D12} (longpath.scoring's "
+               "call)")
+        timed("incr", dtype,
+              lambda: cuda_gen.rbf_gen_increments(X9, Y9, i9, j9, 1.0),
+              lambda: cuda_gen.rbf_gen_increments_plain(X9, Y9, i9, j9, 1.0),
+              compare_bits, limit, (P9, L12, L12, D12, 1), at9,
+              library=lambda: double_difference(skt.RBFKernel(1.0)
+                                                .batch_kernel(X9[i9], Y9[j9])))
+        ct9 = cuda_gen.rbf_gen_increments(X9, Y9, i9, j9, 1.0)
+        timed("vjp", dtype,
+              lambda: incvjp.rbf_dd_vjp(X9, Y9, i9, j9, 1.0, ct9)[1],
+              lambda: incvjp.rbf_dd_vjp_plain(X9, Y9, i9, j9, 1.0, ct9)[1],
+              compare_max, glimit, (P9, L12, L12, D12, 1), at9, tag="scoring")
+        del X9, Y9, ct9
+        torch.cuda.empty_cache()
         nlimit = F64_RTOL if dtype == F64 else NEW_F32
         timed("lgen", dtype,
               lambda: cuda_lgen.linear_gen_solve_final(Xt, Yt, ar, ar, 1.0, 1),
@@ -2208,6 +2302,10 @@ def main():
         ("stripe", F64): (f"{blocked}:415", []),
         ("stripe_stack", F32): (f"{blocked}:200", []),
         ("stripe_stack", F64): (f"{blocked}:555", []),
+        # K9 replaces no TPU kernel: the JAX package leaves the increment
+        # grid's build to XLA (``library_ms``: the PyTorch ops in its place)
+        ("incr", F32): (None, []),
+        ("incr", F64): (None, []),
         # the reverse stripe's grid kernel, and the product and collapse
         # that adjoint_blocked / adjoint_blocked_df run in XLA
         ("adj_stripe", F32): (f"{blocked}:200", [f"{blocked}:346"]),
@@ -2224,21 +2322,24 @@ def main():
               "deriv": "deriv_wavefront.cu",
               "lgen": "linear_gen_wavefront.cu",
               "stripe": "stripe_wavefront.cu",
-              "stripe_stack": "stripe_wavefront.cu"}
+              "stripe_stack": "stripe_wavefront.cu",
+              "incr": "rbf_gen_increments.cu"}
     check(set(instances) <= {k[:2] for k in timing}, "a kernel was not timed")
     kernels = []
     for tkey in timing:
         key = tkey[:2]
         iname, (rep, also) = instances[key], replaces[key]
-        ms, plain_ms, bound_ms, by, where = timing[tkey]
-        # no single PyTorch call computes a wavefront sweep or its adjoint
+        ms, plain_ms, bound_ms, by, where, library_ms = timing[tkey]
+        # no single PyTorch call computes a wavefront sweep or its adjoint;
+        # K9's grids are PyTorch ops (``library_ms``)
         kernels.append({"name": iname, "route": "cuda",
                         "source": f"sigkernel_tpu_torch/csrc/{source[key[0]]}",
                         "replaces": rep, "also_replaces": also,
                         "launches": launches[key],
                         "max_abs_err": max_abs[key], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": by, "library_ms": None, "at": where})
+                        "bound_by": by, "library_ms": library_ms,
+                        "at": where})
     print(f"[t] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

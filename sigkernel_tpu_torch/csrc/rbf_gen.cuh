@@ -1,7 +1,7 @@
 // RBF increment generation from path points, shared by K1 and K3<gen> for
 // f <= 32 (rbf_gen_wavefront.cu and adjoint_collapse.cu, RbfSource), K3<gen>
-// past it (adjoint_collapse.cu, RbfGen) and K4 (rbf_dd_vjp.cu), so that all
-// of them round exactly alike.
+// past it (adjoint_collapse.cu, RbfGen), K4 (rbf_dd_vjp.cu) and K9
+// (rbf_gen_increments.cu), so that all of them round exactly alike.
 #pragma once
 
 #include "wavefront.cuh"
@@ -24,6 +24,20 @@ __device__ __forceinline__ T sqdist(const T* xa, const T* yb, int D) {
     sy = add(sy, mul(yb[d], yb[d]));
   }
   return sub(add(sx, sy), mul(T(2), dot));
+}
+
+// G = exp(-|x_a - y_b|^2 / sigma) from |x_a|^2, |y_b|^2 and <x_a, y_b>, in
+// sqdist's expression: the one every generator rounds G by.
+template <typename T>
+__device__ __forceinline__ T rbf_value(T sx, T sy, T dot, T sigma) {
+  return sk_exp(-sub(add(sx, sy), mul(T(2), dot)) / sigma);
+}
+
+// A base cell's increment from its corners' G values, (g11 + g00) - (g10 +
+// g01): the TPU generation kernels' op order, and gen_increments'.
+template <typename T>
+__device__ __forceinline__ T rbf_dd(T g11, T g00, T g10, T g01) {
+  return sub(add(g11, g00), add(g10, g01));
 }
 
 // One pair's generator: x (Lx, D), y (Ly, D) and sigma.
@@ -106,7 +120,7 @@ struct RbfSource {
     T g0, g1;                  // G(ra, b), G(ra + 1, b): the last column b
 
     __device__ __forceinline__ T G(T sx, T sy, T dot) const {
-      return sk_exp(-sub(add(sx, sy), mul(T(2), dot)) / sigma);
+      return rbf_value(sx, sy, dot, sigma);
     }
 
     // G(ra, b) and G(ra + 1, b) into g0n, g1n, from point b's values (kD >
@@ -151,8 +165,8 @@ struct RbfSource {
       column(b, yn, g0n, g1n);
       if (q + 1 < Cb) load(flip ? b - 1 : b + 1);
       // the same operand pairs either way (see above)
-      const T v = flip ? mul(sub(add(g1, g0n), add(g1n, g0)), scale)
-                       : mul(sub(add(g1n, g0), add(g1, g0n)), scale);
+      const T v = flip ? mul(rbf_dd(g1, g0n, g1n, g0), scale)
+                       : mul(rbf_dd(g1n, g0, g1, g0n), scale);
       g0 = g0n;
       g1 = g1n;
       return v;

@@ -120,6 +120,11 @@ _SIGNATURES = {
                           _I, _I, _D, _I, _I64, _I, _P],
     "sk_rbf_dd_vjp_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
                           _I, _I, _D, _I, _I64, _I, _P],
+    # X, Y, ii, jj, out, P, M, N, D, sigma, device, stream
+    "sk_rbf_gen_increments_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _D,
+                                  _I, _P],
+    "sk_rbf_gen_increments_f64": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _D,
+                                  _I, _P],
     # inc, inc_d, inc_dd, out, scratch, counters, P, Mb, Nb, f, nbands,
     # device, stream
     "sk_deriv_wavefront_f32": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,

@@ -1,6 +1,7 @@
 """K1: the RBF-generation wavefront (``csrc/rbf_gen_wavefront.cu``), its
-stack-emitting instance, and K3<gen>, the adjoint with the same generation
-(``csrc/adjoint_collapse.cu``).
+stack-emitting instance, K3<gen>, the adjoint with the same generation
+(``csrc/adjoint_collapse.cu``), and K9, the base increment grids written
+from the same points (``csrc/rbf_gen_increments.cu``).
 
 K1 replaces the value path of ``sigkernel_tpu/ops/pallas_gen32.py``
 (``_wavefront_f32_gen_kernel``), ``sigkernel_tpu/ops/pallas_df64.py``
@@ -36,6 +37,13 @@ it); no row bound applies, and its launches are split as K1's. Past that it
 is the one-block kernel (a block a pair, a barrier a diagonal, within the
 row bound), chosen by :func:`.band.adjoint_kernel`.
 
+K9 (:func:`rbf_gen_increments`) replaces no TPU kernel: it writes the
+grids ``(P, M-1, N-1)`` that :func:`gen_increments` computes, for the
+``inc`` family's gradient route (``sigkernel._GridPairs``), where the JAX
+package leaves the grid's build to XLA. It makes one pass over each pair's
+grid, each G computed once (a block a band of rows and a chunk of columns,
+the east neighbour by a shuffle).
+
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (``*_plain``) only for CPU tensors. ``sigma`` reaches the kernels
 by value: a number passes as it is, and a tensor on the card is read on the
@@ -45,8 +53,8 @@ its read of the pair indices' bounds (``sk.sync.index_bounds``, one wait for
 the card) when its caller passes ``in_range=True``, for index arrays it
 built from the paths' batch sizes.
 
-``COUNTS``, ``STACK_COUNTS`` and
-``ADJOINT_COUNTS`` hold the kernel launches per dtype and the calls of the
+``COUNTS``, ``STACK_COUNTS``, ``ADJOINT_COUNTS`` and
+``INCREMENT_COUNTS`` hold the kernel launches per dtype and the calls of the
 plain versions; ``ADJOINT_COUNTS["one_block"]`` counts K3<gen>'s one-block
 launches (``f > 32``), which the dtype keys leave out.
 
@@ -70,6 +78,7 @@ from ..utils import dyadic_refine
 COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 STACK_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 ADJOINT_COUNTS = {"float32": 0, "float64": 0, "one_block": 0, "plain": 0}
+INCREMENT_COUNTS = {"float32": 0, "float64": 0, "plain": 0}
 BAND_FILL = band.BAND_FILL
 
 _FNS = {torch.float32: "sk_rbf_gen_wavefront_f32",
@@ -80,6 +89,8 @@ _ADJOINT_FNS = {torch.float32: "sk_adjoint_gen_band_f32",
                 torch.float64: "sk_adjoint_gen_band_f64"}
 _ONE_BLOCK_FNS = {torch.float32: "sk_adjoint_gen_f32",
                   torch.float64: "sk_adjoint_gen_f64"}
+_INCREMENT_FNS = {torch.float32: "sk_rbf_gen_increments_f32",
+                  torch.float64: "sk_rbf_gen_increments_f64"}
 
 # the plain version solves pairs in chunks whose refined grids stay near this
 _PLAIN_CHUNK_BYTES = 1 << 30
@@ -133,6 +144,19 @@ def plain_chunk(X, Y, dyadic_order: int, grids: int) -> int:
                 + grids * f * f * max(M - 1, 0) * max(N - 1, 0)) \
         * X.element_size()
     return max(1, _PLAIN_CHUNK_BYTES // max(per_pair, 1))
+
+
+def rbf_gen_increments_plain(X, Y, ii, jj, sigma) -> torch.Tensor:
+    """Plain version of K9: :func:`gen_increments` of the pairs ``(X[ii[p]],
+    Y[jj[p]])`` -> ``(P, M-1, N-1)``, in chunks of pairs."""
+    INCREMENT_COUNTS["plain"] += 1
+    P, M, N = ii.shape[0], X.shape[1], Y.shape[1]
+    out = X.new_empty(P, max(M - 1, 0), max(N - 1, 0))
+    chunk = plain_chunk(X, Y, 0, 2)
+    for s in range(0, P, chunk):
+        out[s:s + chunk] = gen_increments(X[ii[s:s + chunk]],
+                                          Y[jj[s:s + chunk]], sigma)
+    return out
 
 
 def rbf_gen_solve_final_plain(X, Y, ii, jj, sigma, dyadic_order: int = 0,
@@ -389,6 +413,29 @@ def _launch_banded(what, fns, counts, X, Y, ii, jj, sigma, dyadic_order,
     band.launch(what, fns, counts, X, ii.shape[0], R, C, ptrs,
                 (Lr, Lc, X.shape[2], f, sig, band.bands(R),
                  *((transposed,) if adjoint else ()), int(naive)))
+
+
+@spanned("sk.op.rbf_gen_increments")
+def rbf_gen_increments(X, Y, ii, jj, sigma, *,
+                       in_range: bool = False) -> torch.Tensor:
+    """K9: the base RBF increment grids ``(P, M-1, N-1)`` of the pairs
+    ``(X[ii[p]], Y[jj[p]])`` in the paths' dtype, each pair in its own frame
+    (``X``'s points the rows): ``double_difference(exp(-|x - y|^2 /
+    sigma))`` in :func:`gen_increments`' op order, bit for bit. ``sigma``
+    and ``in_range`` as :func:`rbf_gen_solve_final`'s."""
+    if X.device.type == "cpu":
+        return rbf_gen_increments_plain(X, Y, ii, jj, sigma)
+    ii, jj = check_pairs(X, Y, ii, jj, "rbf_gen_increments",
+                         in_range=in_range)
+    P, M, N = ii.shape[0], X.shape[1], Y.shape[1]
+    out = torch.empty((P, max(M - 1, 0), max(N - 1, 0)), dtype=X.dtype,
+                      device=X.device)
+    if P == 0 or M < 2 or N < 2:
+        return out
+    _build.launch("rbf_gen_increments", _INCREMENT_FNS, INCREMENT_COUNTS, X,
+                  X.data_ptr(), Y.data_ptr(), ii.data_ptr(), jj.data_ptr(),
+                  out.data_ptr(), P, M, N, X.shape[2], sigma_value(sigma))
+    return out
 
 
 @spanned("sk.op.rbf_gen_wavefront")

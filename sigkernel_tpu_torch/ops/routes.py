@@ -18,7 +18,9 @@ family    computation                            kernels (forward; adjoint)
                                                  K3<inc> on the recomputed
                                                  grid
 ``inc``   ``double_difference(Gram)`` in torch   K2 ``cuda_solver``;
-                                                 K2-stack, K3<inc>
+          (with a gradient, for exactly          K2-stack, K3<inc> or
+          ``RBFKernel``: K9 ``cuda_gen``)        K2-sparse, K8 (then K4
+                                                 for ``RBFKernel``)
 ``scan``  the same increments, plain loop        none (``scan_solver``)
 ========  =====================================  ==========================
 
@@ -30,7 +32,10 @@ while one backward chunk holds enough full stacks (the ckpt gates,
 route leaves the generator past its gates (``sigkernel.py:290-316``). With
 a gradient, the ``inc`` family builds each chunk's increment grid and drops
 it, and the backward builds it again (``sigkernel._GridPairs``), so memory
-is one chunk's grids and stacks at any tile size. The ``inc`` family picks
+is one chunk's grids and stacks at any tile size; for exactly
+``RBFKernel`` the grid comes from K9 and its cotangent goes to the paths
+and ``sigma`` by K4, any other static kernel's by autograd through the
+grid built in torch. The ``inc`` family picks
 its tier by shape (:func:`resolve_inc_tier`):
 
 =============  =========================  ===================================

@@ -27,7 +27,10 @@ module. Each tile's solver family and gradient dtype come from
   the paths and the kernel's hyper-parameters. On the ``inc`` family a
   gradient goes through :class:`_GridPairs` instead, which builds each
   chunk's grid in the forward and again in the backward, so no tile keeps
-  its grids alive.
+  its grids alive: for exactly ``RBFKernel`` the K9 kernel writes the grid
+  from the paths and K4 carries its cotangent to the paths and ``sigma``,
+  with no autograd; any other static kernel builds it in torch and
+  differentiates it by autograd.
 
 Every estimator is differentiable in ``X``, ``Y``, ``W`` and the static
 kernel's hyper-parameter (``RBFKernel.sigma`` or ``LinearKernel.scale``, a
@@ -178,36 +181,114 @@ def _grid_chunk(X, Y, P):
         max(X.shape[1] - 1, 0), max(Y.shape[1] - 1, 0), X.element_size()))
 
 
+def _torch_grid(static_kernel, X, Y, ic, jc):
+    """A chunk's base increment grids built in PyTorch,
+    ``double_difference(batch_kernel(x, y))``, differentiable."""
+    with span("sk.grid"):
+        return double_difference(static_kernel.batch_kernel(X[ic], Y[jc]))
+
+
+def _rbf_grid_backward(X, Y, ii, jj, sv, g, bwd_dtype, dyadic_order, naive):
+    """``(d sigma, dX, dY)`` of ``sum_p g_p k(X[ii_p], Y[jj_p])`` for the RBF
+    kernel on the ``inc`` family, in ``bwd_dtype``: per chunk the grids from
+    the paths by K9, the increment-grid adjoint on them
+    (:func:`.ops.solve.inc_route_bwd`), and K4 from their cotangent to the
+    paths and ``sigma``. ``sv``: ``sigma``'s value (:func:`_launch_sigma`).
+    The indices come from :func:`_pairs`' callers, so no launch reads their
+    bounds."""
+    Xb = X.detach().to(bwd_dtype).contiguous()
+    Yb = Y.detach().to(bwd_dtype).contiguous()
+    ds, dX, dY = Xb.new_zeros(()), torch.zeros_like(Xb), torch.zeros_like(Yb)
+    P = ii.shape[0]
+    chunk = _grid_chunk(X, Y, P)
+    for s in range(0, P, chunk):
+        with span("sk.est.chunk"):
+            ic, jc = ii[s:s + chunk], jj[s:s + chunk]
+            dd = cuda_gen.rbf_gen_increments(Xb, Yb, ic, jc, sv,
+                                             in_range=True)
+            ct = inc_route_bwd(dd, g[s:s + chunk], naive, dyadic_order)
+            del dd
+            e, dx, dy = incvjp.rbf_dd_vjp(Xb, Yb, ic, jc, sv, ct,
+                                          in_range=True)
+            ds, dX, dY = ds + e, dX + dx, dY + dy
+    return ds, dX, dY
+
+
+def _torch_grid_backward(static_kernel, X, Y, ii, jj, g, want, bwd_dtype,
+                         dyadic_order, naive):
+    """``(dX, dY, d want)`` by JAX's ``_pair_fused_bwd``: per chunk the grids
+    built again in PyTorch under autograd, the increment-grid adjoint on
+    them in ``bwd_dtype``, and ``torch.autograd.grad`` through the grids to
+    ``X``, ``Y`` and the hyper-parameters ``want``."""
+    Xd, Yd = X.detach().requires_grad_(), Y.detach().requires_grad_()
+    acc = [torch.zeros_like(t) for t in [X, Y] + want]
+    P = ii.shape[0]
+    if not P or X.shape[1] < 2 or Y.shape[1] < 2:
+        return acc
+    chunk = _grid_chunk(X, Y, P)
+    for s in range(0, P, chunk):
+        with span("sk.est.chunk"):
+            with torch.enable_grad():
+                dd = _torch_grid(static_kernel, Xd, Yd, ii[s:s + chunk],
+                                 jj[s:s + chunk])
+            ct = inc_route_bwd(dd.detach().to(bwd_dtype).contiguous(),
+                               g[s:s + chunk], naive, dyadic_order)
+            grads = torch.autograd.grad(dd, [Xd, Yd] + want, ct.to(dd.dtype),
+                                        allow_unused=True)
+            for a, d in zip(acc, grads):
+                if d is not None:
+                    a += d
+    return acc
+
+
 class _GridPairs(torch.autograd.Function):
     """``k_sig(X[ii[p]], Y[jj[p]])`` on the ``inc`` family when a gradient
     is wanted: per chunk of pairs whose grids fit
-    :data:`.ops.routes.STACK_BYTES`, the base increment grid
-    ``double_difference(batch_kernel(x, y))`` is built, solved (K2, or K7
-    stripes past the row bound) and dropped. The backward is JAX's
-    ``_pair_fused_bwd``: per chunk it builds the grid again under autograd,
-    runs the increment-grid adjoint on it in the grade's dtype
-    (:func:`.ops.solve.inc_route_bwd`: K2-stack + K3<inc>, K2-sparse + K8 or
-    the striped adjoint) and carries the cotangent to ``X``, ``Y`` and the
-    static kernel's hyper-parameters (``hyper``, its own tensors) by
-    autograd through the grid. Memory is one chunk's grids and stacks at
+    :data:`.ops.routes.STACK_BYTES`, the base increment grid is built,
+    solved (K2, or K7 stripes past the row bound) and dropped. The backward
+    builds each chunk's grid again and runs the increment-grid adjoint on it
+    in the grade's dtype (:func:`.ops.solve.inc_route_bwd`: K2-stack +
+    K3<inc>, K2-sparse + K8 or the striped adjoint), then carries the
+    cotangent to ``X``, ``Y`` and the static kernel's hyper-parameters
+    (``hyper``, its own tensors). Memory is one chunk's grids and stacks at
     any pair count, where autograd through a tile's Gram would keep three
-    grids a pair of the whole tile alive."""
+    grids a pair of the whole tile alive.
+
+    The grid and the cotangent's way back depend on the static kernel:
+
+    - exactly ``RBFKernel``: ``sigma``'s value is read once, in the
+      forward (:func:`_launch_sigma`), K9 writes the grids from the paths
+      (:func:`.ops.cuda_gen.rbf_gen_increments`) and K4 maps the cotangent
+      to the paths and ``sigma`` (:func:`.ops.incvjp.rbf_dd_vjp`), both in
+      the grade's dtype, with no autograd (:func:`_rbf_grid_backward`). On
+      the card K4's ``index_add_`` adds the pairs of a repeated path index
+      by atomics, so ``dX`` and ``dY`` may differ in the last bits from run
+      to run, as on the ``gen`` family, unless
+      ``torch.use_deterministic_algorithms(True)`` is set;
+    - any other: the grids built in PyTorch, ``double_difference(
+      batch_kernel(x, y))``, and JAX's ``_pair_fused_bwd``, autograd through
+      them (:func:`_torch_grid_backward`)."""
 
     @staticmethod
     def forward(ctx, X, Y, ii, jj, cfg, *hyper):
         static_kernel, dyadic_order, naive, _, _ = cfg
         ctx.save_for_backward(X, Y, ii, jj)
-        ctx.cfg = cfg
+        # the RBF kernel's grids from K9, their cotangent to the paths by K4
+        sv = (_launch_sigma(static_kernel)
+              if type(static_kernel) is _kernels.RBFKernel else None)
+        ctx.cfg, ctx.sv = cfg, sv
         P = ii.shape[0]
         chunk = _grid_chunk(X, Y, P)
         vals = [X.new_empty(0)]
         for s in range(0, P, chunk):
             with span("sk.est.chunk"):
-                with span("sk.grid"):
-                    dd = double_difference(static_kernel.batch_kernel(
-                        X[ii[s:s + chunk]], Y[jj[s:s + chunk]]))
-                vals.append(inc_route_fwd(dd.contiguous(), naive,
-                                          dyadic_order))
+                ic, jc = ii[s:s + chunk], jj[s:s + chunk]
+                if sv is None:
+                    dd = _torch_grid(static_kernel, X, Y, ic, jc).contiguous()
+                else:
+                    dd = cuda_gen.rbf_gen_increments(X, Y, ic, jc, sv,
+                                                     in_range=True)
+                vals.append(inc_route_fwd(dd, naive, dyadic_order))
         return torch.cat(vals)
 
     @staticmethod
@@ -218,28 +299,16 @@ class _GridPairs(torch.autograd.Function):
                                grad_solver, _refined(X, Y, dyadic_order),
                                need_grad=True)
         needs = ctx.needs_input_grad[5:]
+        if ctx.sv is not None:
+            ds, dX, dY = _rbf_grid_backward(X, Y, ii, jj, ctx.sv, g,
+                                            route.bwd_dtype, dyadic_order,
+                                            naive)
+            return (dX.to(X.dtype), dY.to(Y.dtype), None, None, None,
+                    ds.to(static_kernel.sigma) if needs[0] else None)
         want = [h for h, n in zip(_hyper(static_kernel), needs) if n]
-        Xd, Yd = X.detach().requires_grad_(), Y.detach().requires_grad_()
-        acc = [torch.zeros_like(t) for t in [X, Y] + want]
-        P = ii.shape[0]
-        if P and X.shape[1] >= 2 and Y.shape[1] >= 2:
-            chunk = _grid_chunk(X, Y, P)
-            for s in range(0, P, chunk):
-                with span("sk.est.chunk"):
-                    ic, jc = ii[s:s + chunk], jj[s:s + chunk]
-                    with torch.enable_grad(), span("sk.grid"):
-                        dd = double_difference(
-                            static_kernel.batch_kernel(Xd[ic], Yd[jc]))
-                    ct = inc_route_bwd(
-                        dd.detach().to(route.bwd_dtype).contiguous(),
-                        g[s:s + chunk], naive, dyadic_order)
-                    grads = torch.autograd.grad(dd, [Xd, Yd] + want,
-                                                ct.to(dd.dtype),
-                                                allow_unused=True)
-                    for a, d in zip(acc, grads):
-                        if d is not None:
-                            a += d
-        dX, dY, *dh = acc
+        dX, dY, *dh = _torch_grid_backward(static_kernel, X, Y, ii, jj, g,
+                                           want, route.bwd_dtype,
+                                           dyadic_order, naive)
         dh = iter(dh)
         return (dX, dY, None, None, None,
                 *[next(dh) if n else None for n in needs])
@@ -248,10 +317,11 @@ class _GridPairs(torch.autograd.Function):
 class _LinearGen(_GridPairs):
     """``k_sig(X[ii[p]], Y[jj[p]])`` on the ``lgen`` family: K6 values from
     the paths, ``scale`` and the pair indices. The backward is
-    :class:`_GridPairs`' (JAX's ``_pair_fused_bwd``): each chunk's grid
-    ``double_difference(batch_kernel(x, y))`` built again, the
-    increment-grid adjoint on it (K2-stack, K3<inc>), and autograd through
-    the grid to ``X``, ``Y`` and ``scale``."""
+    :class:`_GridPairs`' for a static kernel other than ``RBFKernel`` (JAX's
+    ``_pair_fused_bwd``): each chunk's grid ``double_difference(
+    batch_kernel(x, y))`` built again, the increment-grid adjoint on it
+    (K2-stack, K3<inc>), and autograd through the grid to ``X``, ``Y`` and
+    ``scale``."""
 
     @staticmethod
     def forward(ctx, X, Y, ii, jj, cfg, *hyper):
@@ -260,7 +330,7 @@ class _LinearGen(_GridPairs):
             raise TypeError("the Linear generation route is LinearKernel's; "
                             f"got {type(static_kernel).__name__}")
         ctx.save_for_backward(X, Y, ii, jj)
-        ctx.cfg = cfg
+        ctx.cfg, ctx.sv = cfg, None
         # applied by _pairs alone, whose callers build ii and jj
         return cuda_lgen.linear_gen_solve_final(
             X, Y, ii, jj, static_kernel.scale.to(X), dyadic_order, naive,

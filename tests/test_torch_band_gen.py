@@ -279,6 +279,8 @@ def _entries(X, Y, ii, stacks, ct):
             cuda_gen.rbf_gen_adjoint(X, Y, ii, ii, s, stacks[6], 6, **kw),
         "rbf_dd_vjp": lambda s, **kw: incvjp.rbf_dd_vjp(X, Y, ii, ii, s, ct,
                                                         **kw),
+        "rbf_gen_increments": lambda s, **kw: cuda_gen.rbf_gen_increments(
+            X, Y, ii, ii, s, **kw),
     }
 
 
@@ -296,7 +298,7 @@ def _meta_entries():
 
 @pytest.mark.parametrize("entry", ["rbf_gen_solve_final",
                                    "rbf_gen_solve_stack", "rbf_gen_adjoint",
-                                   "rbf_dd_vjp"])
+                                   "rbf_dd_vjp", "rbf_gen_increments"])
 def test_caller_indices_are_read_once(meta_card, monkeypatch, entry):
     """A direct call with the caller's index arrays reads their bounds once
     (``sk.sync.index_bounds``) and still refuses an index out of range;
@@ -334,7 +336,8 @@ def test_sigma_reaches_each_launch_by_value(meta_card, sigma):
         meta_card["reads"].clear()
         call(given, in_range=True)
         what, args = meta_card["launches"][-1]
-        at = -4 if what == "adjoint_collapse_gen" else -3
+        at = {"adjoint_collapse_gen": -4, "rbf_gen_increments": -1}.get(
+            what, -3)
         assert type(args[at]) is float and args[at] == 0.5, name
         assert meta_card["reads"] == reads, name
 

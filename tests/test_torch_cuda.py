@@ -14,8 +14,10 @@ K8 (K8's band kernel at the edges of its decomposition, its one-block
 kernel past f = 32), K2, K2-stack and K2-sparse on their band kernel at
 its edges (bit for bit against their plain versions and emulations, run
 to run, past the one-block row bound), values and gradients through the
-estimators against the plain tier, and the generator's lincomb with one
-read of sigma on the host and none of the indices it builds.
+estimators against the plain tier, the generator's lincomb with one
+read of sigma on the host and none of the indices it builds, and K9 (the
+RBF increment grids) bit for bit against its plain version, with the
+scoring rule on K9 and K4 against the autograd route they replace.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode); without one
 they skip. On a GPU machine, run them without the JAX-side conftest:
@@ -1059,3 +1061,117 @@ def test_band_inc_takes_rows_past_the_one_block_bound(cuda):
     got = cuda_solver.inc_solve_final(inc, 2)
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, cuda_solver.inc_solve_final_plain(inc, 2))
+
+
+# ---- K9: the RBF increment grids of the inc family's gradient route --------
+
+# pairs, M, N, D: the scoring cell's shape (1024 x 1024, D 5); M < N and M >
+# N with a short last band (64 rows) and a short last chunk of columns (512);
+# D 1; D 9 and 13, past the register instances (any D through __ldg); M = 2
+# and N = 2; a warp's span cut mid-way (N - 1 = 1100)
+_INCREMENT_CASES = [(4, 1024, 1024, 5), (6, 70, 200, 3), (6, 200, 70, 3),
+                    (5, 134, 600, 1), (4, 90, 40, 9), (3, 40, 130, 13),
+                    (6, 2, 90, 5), (6, 90, 2, 8), (3, 66, 1101, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,M,N,D", _INCREMENT_CASES)
+def test_increments_kernel_is_its_plain_version(cuda, dtype, P, M, N, D):
+    """K9 equals its plain version (``gen_increments`` of the gathered
+    pairs) bit for bit, with repeated pair indices, and two launches equal
+    each other; one launch a call."""
+    X = _paths(3, M, D, 80 + D, cuda, dtype)
+    Y = _paths(4, N, D, 81 + D, cuda, dtype)
+    g = torch.Generator().manual_seed(P + M)
+    ii = torch.randint(0, 3, (P,), generator=g).to(cuda)
+    jj = torch.randint(0, 4, (P,), generator=g).to(cuda)
+    key = str(dtype).removeprefix("torch.")
+    before = cuda_gen.INCREMENT_COUNTS[key]
+    got = cuda_gen.rbf_gen_increments(X, Y, ii, jj, 0.6)
+    again = cuda_gen.rbf_gen_increments(X, Y, ii, jj, 0.6)
+    torch.cuda.synchronize()
+    assert cuda_gen.INCREMENT_COUNTS[key] == before + 2
+    want = cuda_gen.rbf_gen_increments_plain(X, Y, ii, jj, 0.6)
+    assert got.shape == (P, M - 1, N - 1) and got.dtype == dtype
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+def test_increments_kernel_launches_nothing_without_cells(cuda):
+    X = _paths(3, 1, 2, 90, cuda, torch.float64)
+    Y = _paths(3, 6, 2, 91, cuda, torch.float64)
+    ii = torch.arange(3, device=cuda)
+    empty = torch.zeros(0, dtype=torch.int64, device=cuda)
+    before = dict(cuda_gen.INCREMENT_COUNTS)
+    assert cuda_gen.rbf_gen_increments(X, Y, ii, ii, 1.0).shape == (3, 0, 5)
+    assert cuda_gen.rbf_gen_increments(Y, Y, empty, empty, 1.0).shape == (
+        0, 5, 5)
+    assert dict(cuda_gen.INCREMENT_COUNTS) == before
+
+
+class _AutogradRBF(skt.RBFKernel):
+    """``RBFKernel`` by another type: ``_GridPairs`` builds its grids in
+    PyTorch and differentiates them by autograd, the route K9 and K4
+    replace for ``RBFKernel`` itself."""
+
+
+# max |K9 + K4 route - autograd route| / max |autograd route| allowed for the
+# scoring rule's value and gradients in float64: on an H100 dX read 1.9e-12
+# and 2.4e-12 (value 1.5e-13, d sigma 5.0e-14), so about 4x room
+_K9_ROUTE_BAR = 1e-11
+
+
+def test_scoring_rule_on_k9_and_k4_matches_the_autograd_route(cuda):
+    """``sig_scoring_rule`` at the ``longpath.scoring`` cell's shape (32
+    paths against 1, length 1024, dim 5, dyadic 2, float64; 342 + 186 + 32
+    pairs a grid chunk): value and gradients in X and sigma within
+    ``_K9_ROUTE_BAR`` of the autograd route, with K9 three launches forward
+    and three backward, and K4 three. The two routes round each cell's
+    double difference, a cancellation of four values near 1, in other op
+    orders (K9 as ``gen_increments``, the autograd route as
+    ``RBFKernel.batch_kernel``'s einsum)."""
+    X = _paths(32, 1024, 5, 95, cuda, torch.float64)
+    y = _paths(1, 1024, 5, 96, cuda, torch.float64)
+    runs = {}
+    for name, kind in (("k9", skt.RBFKernel), ("autograd", _AutogradRBF)):
+        x = X.clone().requires_grad_()
+        sigma = torch.tensor(1.0, dtype=torch.float64, device=cuda,
+                             requires_grad=True)
+        k9, k4 = cuda_gen.INCREMENT_COUNTS["float64"], incvjp.COUNTS["float64"]
+        v = skt.sig_scoring_rule(kind(sigma), x, y, dyadic_order=2)
+        v.backward()
+        torch.cuda.synchronize()
+        launched = (cuda_gen.INCREMENT_COUNTS["float64"] - k9,
+                    incvjp.COUNTS["float64"] - k4)
+        assert launched == ((6, 3) if name == "k9" else (0, 0))
+        runs[name] = (v.detach(), x.grad, sigma.grad)
+    for got, want in zip(runs["k9"], runs["autograd"]):
+        assert _max_rel(got, want) <= _K9_ROUTE_BAR
+
+
+def test_scoring_rule_on_k9_and_k4_is_deterministic_when_asked(cuda):
+    """With ``torch.use_deterministic_algorithms(True)`` K4's scatter of the
+    pairs onto a repeated path index (``index_add_``) takes PyTorch's
+    sorted, deterministic way, so two runs of the scoring rule on K9 and K4
+    (8 paths against 1 at the cell's length: every path index repeats in
+    the symmetric triangle) give the same value and gradients bit for
+    bit."""
+    X = _paths(8, 1024, 5, 97, cuda, torch.float64)
+    y = _paths(1, 1024, 5, 98, cuda, torch.float64)
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            x = X.clone().requires_grad_()
+            sigma = torch.tensor(1.0, dtype=torch.float64, device=cuda,
+                                 requires_grad=True)
+            k4 = incvjp.COUNTS["float64"]
+            v = skt.sig_scoring_rule(skt.RBFKernel(sigma), x, y,
+                                     dyadic_order=2)
+            v.backward()
+            torch.cuda.synchronize()
+            assert incvjp.COUNTS["float64"] > k4
+            runs.append((v.detach(), x.grad, sigma.grad))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

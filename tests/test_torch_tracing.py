@@ -3,7 +3,8 @@
 With no profiler recording, no span is created. Under ``torch.profiler``
 each estimator, and ``transform``, opens ``sk.est.<function>``, one
 ``sk.est.chunk`` a pass of its pair-chunk loop, ``sk.grid`` around each
-increment grid built in PyTorch and ``sk.op.<kernel>`` around each
+increment grid built in PyTorch (``RBFKernel``'s on the ``inc`` family are
+K9's, ``sk.op.rbf_gen_increments``) and ``sk.op.<kernel>`` around each
 launching entry of ``ops/`` its route takes, each inside its parent in
 time; host reads go through ``tracing.host`` (``sk.sync.<site>``). The
 routes are steered onto the card's families by patching
@@ -70,8 +71,8 @@ def lincomb():
 def scoring():
     """``sig_scoring_rule`` of 4 paths against 1, fwd + bwd in X and sigma
     on the ``inc`` family's sparse adjoint: the sym Gram's 10 pairs in 4
-    grid chunks, the 4 pairs against ``y`` in 2, each built again in the
-    backward."""
+    grid chunks, the 4 pairs against ``y`` in 2, each built by K9 and built
+    again in the backward, whose cotangent K4 carries to X and sigma."""
     X = _paths(4, 4, 6).requires_grad_()
     y = _paths(5, 1, 6)
     sigma = torch.tensor(0.7, dtype=DT, requires_grad=True)
@@ -97,8 +98,9 @@ def transform():
 CALLS = {
     "lincomb": (lincomb, "gen", "sig_gram_lincomb", 3, False,
                 {"rbf_gen_stack", "adjoint_collapse_gen", "rbf_dd_vjp"}),
-    "scoring": (scoring, "ckpt", "sig_scoring_rule", 0, True,
-                {"inc_wavefront", "inc_wavefront[sparse]", "adjoint_ckpt"}),
+    "scoring": (scoring, "ckpt", "sig_scoring_rule", 0, False,
+                {"rbf_gen_increments", "inc_wavefront",
+                 "inc_wavefront[sparse]", "adjoint_ckpt", "rbf_dd_vjp"}),
     "gram_sym": (gram_sym, "gen", "sig_gram", 3, False,
                  {"rbf_gen_wavefront"}),
     "transform": (transform, "gen", "transform", 0, False, set()),
@@ -185,17 +187,22 @@ def test_spans_under_the_profiler_nest_by_layer(steer, call):
 
 def test_the_backward_rebuilds_each_grid_chunk(steer):
     """The scoring rule's grids, 4 + 2 chunks, are built once in the
-    forward and once more in the backward, each inside its own chunk."""
+    forward and once more in the backward (K9), each inside its own chunk,
+    and each backward chunk's cotangent goes to X and sigma by K4."""
     steer("ckpt")
     got = spans(scoring)
     est = next(s for s in got if s[0] == "sk.est.sig_scoring_rule")
-    grids = [s for s in got if s[0] == "sk.grid"]
+    grids = [s for s in got if s[0] == "sk.op.rbf_gen_increments"]
     assert sum(g[1] < est[2] for g in grids) == 6
     assert sum(g[1] > est[2] for g in grids) == 6
-    for g in grids:
+    vjps = [s for s in got if s[0] == "sk.op.rbf_dd_vjp"]
+    assert len(vjps) == 6 and all(s[1] > est[2] for s in vjps)
+    for g in grids + vjps:
         assert parent(g, got)[0] == "sk.est.chunk"
     # the adjoint's chunks (one pair's sparse stack each) inside the grid's
-    adjoint = [s for s in got if s[0].startswith("sk.op.") and s[1] > est[2]]
+    adjoint = [s for s in got if s[0] in ("sk.op.inc_wavefront[sparse]",
+                                          "sk.op.adjoint_ckpt")
+               and s[1] > est[2]]
     assert len(adjoint) == 2 * (10 + 4)
     for s in adjoint:
         up = parent(s, got)
@@ -277,7 +284,7 @@ def test_no_launch_table_is_added():
         "cuda_blocked.COUNTS", "cuda_blocked.STACK_COUNTS",
         "cuda_blocked.ADJOINT_COUNTS", "cuda_deriv.COUNTS",
         "cuda_gen.COUNTS", "cuda_gen.STACK_COUNTS", "cuda_gen.ADJOINT_COUNTS",
-        "cuda_lgen.COUNTS", "cuda_solver.COUNTS", "cuda_solver.STACK_COUNTS",
+        "cuda_gen.INCREMENT_COUNTS", "cuda_lgen.COUNTS", "cuda_solver.COUNTS", "cuda_solver.STACK_COUNTS",
         "cuda_solver.ADJOINT_COUNTS", "cuda_solver.SPARSE_COUNTS",
         "cuda_solver.CKPT_COUNTS", "incvjp.COUNTS"}
     assert not any(n.endswith("COUNTS") for n in vars(tracing))
