@@ -62,7 +62,13 @@ Phases (any failure raises and the script exits non-zero):
    the ``inc`` family's gradient route) bit for bit against its plain
    version and a second launch, one launch a call, at ``INCREMENT_CASES``
    (``longpath.scoring``'s 560 pairs of length 1024, dim 5; ragged frames,
-   D 1 to 13, M or N = 2).
+   D 1 to 13, M or N = 2); and K10 (``linear_gen_increments``, the Linear
+   increment grids) bit for bit against its plain version and a second
+   launch, K11 (``linear_dd_vjp``, their VJP to the scaled increments)
+   within ``LINEAR_VJP`` of its plain version and bit for bit against a
+   second launch, one launch a call each, at ``LINEAR_CASES``
+   (``northstar_linear.train``'s 128-pair chunk of length 1024, dim 3;
+   ragged frames, D 1 to 13, M or N = 2).
 2. The forward main path at the north-star size: ``SigKernel(RBFKernel(1.0),
    dyadic_order=1)`` on X, Y of shape (100, 1024, 3), float64 and float32:
    ``compute_Gram(X, X, sym=True)``, ``compute_Gram(X, Y)``,
@@ -77,7 +83,8 @@ Phases (any failure raises and the script exits non-zero):
    (float64) grade.
 6. ``MMDFlow(RBFKernel(1.0), dyadic_order=1).fit`` for 5 steps at batch 32,
    length 200, float64; and a ``LinearKernel`` ``sym=True`` Gram at batch
-   50, length 100 with ``.backward()`` (K6 values; K2-stack and K3<inc>).
+   50, length 100 with ``.backward()`` (K6 values; K10's grids, K2-stack,
+   K3<inc> and K11).
 7. The derivative Gram at the north-star size: ``compute_kernel_and_
    derivatives_Gram(X, Y, gamma, max_batch=16)`` of ``SigKernel(RBFKernel
    (1.0), dyadic_order=1)``, float64 and float32 (K5); and one float64
@@ -127,14 +134,16 @@ kernels at phase 10's grid; K7 at both the forward's and the adjoint's
 stripe height, two entries; K2-sparse and K8 also at phase 12's shape, 128
 pairs of length 1024, dyadic 2, dim 5, a second entry each; K9, and K4 in
 a second entry, at ``longpath.scoring``'s call, 560 pairs of length 1024,
-dim 5; K1, K1-stack, K3<gen>, K8, K2, K2-stack and K2-sparse beside their
+dim 5; K10 and K11 beside the PyTorch grid and its autograd VJP, which
+they replace; K1, K1-stack, K3<gen>, K8, K2, K2-stack and K2-sparse beside their
 times before the band kernel). The last three
 lines of the output are the card's ``nvidia-smi`` line, one JSON object
 describing the kernels (each with its launches on the main path, its
 largest error against its plain version, its time and its plain version's,
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
-operations over the card's non-tensor peak in its dtype, and for K9 the time
-of the PyTorch ops it replaces, ``library_ms``), and the result line
+operations over the card's non-tensor peak in its dtype, and for K9, K10
+and K11 the time of the PyTorch ops they replace, ``library_ms``), and the
+result line
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -380,6 +389,15 @@ INCREMENT_CASES = [
     ("a warp's span cut", 3, 66, 1101, 2),
 ]
 SCORING_PAIRS = 560  # K9 and K4 timed at longpath.scoring's call
+# phase 1: K10 bit for bit against its plain version and a second launch,
+# K11 within LINEAR_VJP of its plain version (``bmm``, another order of
+# sums) and bit for bit against a second launch: name, pairs, M, N, dim,
+# drawn with repeats over 32 x and 33 y paths. northstar_linear.train's
+# chunk (128 pairs of 1024 x 1024, D 3); the edges of K9's cases (K10 past
+# D 8: any D through __ldg; K11: a second pass of coordinates)
+LINEAR_CASES = ([("northstar_linear.train's chunk", 128, 1024, 1024, 3)]
+                + INCREMENT_CASES[1:])
+LINEAR_VJP = {"float64": 1e-13, "float32": 1e-5}
 # phase 1: K3<inc, boundary> at dyadic 6 (f = 64 > 32: the one-block
 # kernel, by its counter), as BAND_CASES
 ONE_BLOCK_CASE = ("dyadic 6: the one-block kernel", 2, 5, 4, 3, 6, 0, 192,
@@ -527,6 +545,8 @@ def work(kind, P, M, N, D, f, s, rows=0, W=2):
                      12 * cells + 10 * cells * (W - 2) // W + base),
         "vjp": (paths + base * s + (M + N) * D * s, (10 * D + 13) * M * N),
         "incr": (paths + base * s, rbf + 3 * base),
+        "lincr": (paths + base * s, 2 * D * base),
+        "lvjp": (paths + base * s + (M + N) * D * s, 4 * D * base),
         "deriv": (3 * base * s + 3 * s, 45 * cells + 3 * base),
         "lgen": (paths + s, 10 * cells + 2 * D * base + (M + N) * D),
         "stripe": (band * s + 2 * (C + 1) * s, 10 * rows * C + band),
@@ -545,6 +565,25 @@ def bound(nbytes, ops, dtype_name):
     t_ops = ops / PEAK_FLOPS[dtype_name]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def torch_linear_grid(X, Y, ct=None):
+    """What K10 and K11 replace: the Linear grids of the pairs ``(X[p],
+    Y[p])`` built in PyTorch, ``double_difference(LinearKernel(1.0)
+    .batch_kernel(x, y))``; given a cotangent ``ct``, built under autograd
+    and differentiated to the paths and ``scale`` by ``torch.autograd``."""
+    import torch
+    import sigkernel_tpu_torch as skt
+    from sigkernel_tpu_torch.utils import double_difference
+
+    if ct is None:
+        return double_difference(skt.LinearKernel(1.0).batch_kernel(X, Y))
+    with torch.enable_grad():
+        x, y = X.detach().requires_grad_(), Y.detach().requires_grad_()
+        s = torch.tensor(1.0, dtype=X.dtype, device=X.device,
+                         requires_grad=True)
+        dd = double_difference(skt.LinearKernel(s).batch_kernel(x, y))
+        return torch.autograd.grad(dd, [x, y, s], ct)
 
 
 def deriv_grids(kernel, X, Y, gamma, ii, jj):
@@ -724,6 +763,8 @@ def main():
         "inc_sparse": ("inc_wavefront[sparse]", cuda_solver.SPARSE_COUNTS),
         "adj_ckpt": ("adjoint_ckpt", cuda_solver.CKPT_COUNTS),
         "incr": ("rbf_gen_increments", cuda_gen.INCREMENT_COUNTS),
+        "lincr": ("linear_gen_increments", cuda_lgen.INCREMENT_COUNTS),
+        "lvjp": ("linear_dd_vjp", cuda_lgen.VJP_COUNTS),
     }
     long_kinds = ("stripe", "stripe_stack", "adj_stripe", "inc_sparse",
                   "adj_ckpt")
@@ -1380,6 +1421,60 @@ def main():
     print(f"[1] increment cases passed in "
           f"{time.perf_counter() - t_phase:.1f} s")
 
+    # K10 and K11 at the Linear training cell's chunk and their edges: K10
+    # bit for bit against its plain version, K11 within LINEAR_VJP of its
+    # plain version, both bit for bit against a second launch
+    t_phase = time.perf_counter()
+    for cname, P, M, N, D in LINEAR_CASES:
+        X64 = make_paths(gen, 32, M, D, F64)
+        Y64 = make_paths(gen, 33, N, D, F64)
+        ii = torch.randint(0, 32, (P,), generator=gen, device=dev)
+        jj = torch.randint(0, 33, (P,), generator=gen, device=dev)
+        for dtype in (F64, F32):
+            a = cuda_lgen.scaled_increments(X64.to(dtype), 0.8)
+            b = cuda_lgen.scaled_increments(Y64.to(dtype), 0.8)
+            limit = F64_RTOL if dtype == F64 else F32_RTOL_LONG
+            label = f"{cname} {name[dtype]} ({P} pairs, {M} x {N}, D {D})"
+            zero_counters()
+            got, t10 = synced(
+                lambda: cuda_lgen.linear_gen_increments(a, b, ii, jj))
+            again = cuda_lgen.linear_gen_increments(a, b, ii, jj)
+            ct = torch.randn(got.shape, generator=gen, device=dev,
+                             dtype=dtype)
+            vjp, t11 = synced(
+                lambda: cuda_lgen.linear_dd_vjp(a, b, ii, jj, ct))
+            vjp2 = cuda_lgen.linear_dd_vjp(a, b, ii, jj, ct)
+            for counts, what in ((cuda_lgen.INCREMENT_COUNTS, "K10"),
+                                 (cuda_lgen.VJP_COUNTS, "K11")):
+                n = dict(counts)
+                check(n == {**{k: 0 for k in n}, name[dtype]: 2},
+                      f"{what} {label}: launches {n}, expected two")
+            check(torch.equal(again, got), f"K10 {label}: two launches "
+                                           "differ")
+            check(all(torch.equal(u, v) for u, v in zip(vjp, vjp2)),
+                  f"K11 {label}: two launches differ")
+            del again, vjp2
+            want = cuda_lgen.linear_gen_increments_plain(a, b, ii, jj)
+            check(got.shape == (P, M - 1, N - 1) and got.dtype == dtype,
+                  f"K10 {label}: shape {tuple(got.shape)}, {got.dtype}")
+            compare_bits("lincr", dtype, got, want, limit,
+                         f"K10 {label} vs its plain version")
+            del got, want
+            vlimit = LINEAR_VJP[name[dtype]]
+            want = cuda_lgen.linear_dd_vjp_plain(a, b, ii, jj, ct)
+            rv = max(compare_max("lvjp", dtype, g, w, vlimit,
+                                 f"K11 {label} output {n}")
+                     for n, g, w in zip("UV", vjp, want))
+            del vjp, want, ct
+            print(f"[1] {label}: K10 bit-equal to its plain version, K11 "
+                  f"{rv:.2e} of max |plain| (limit {vlimit:.0e}), each two "
+                  f"launches identical (K10 {t10 * 1e3:.1f} ms, K11 "
+                  f"{t11 * 1e3:.1f} ms)")
+        torch.cuda.empty_cache()
+    zero_counters()
+    print(f"[1] Linear increment cases passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
     # ---- phases 2-4: the forward main path, counted ---------------------
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     A, L = NORTH_STAR
@@ -1494,8 +1589,10 @@ def main():
               f"{LL} fwd+bwd: {sec:.3f} s ({AL * (AL + 1) // 2} pairs)")
     read_counters("6", [("gen", F64), ("gen_stack", F64), ("adj_gen", F64),
                         ("vjp", F64), ("lgen", F32), ("lgen", F64),
-                        ("inc_stack", F32), ("inc_stack", F64),
-                        ("adj_inc", F32), ("adj_inc", F64)])
+                        ("lincr", F32), ("lincr", F64), ("lvjp", F32),
+                        ("lvjp", F64), ("inc_stack", F32),
+                        ("inc_stack", F64), ("adj_inc", F32),
+                        ("adj_inc", F64)])
 
     # ---- phase 7: the derivative Gram at the north-star size, counted ---
     zero_counters()
@@ -2197,6 +2294,24 @@ def main():
               compare_max, glimit, (P9, L12, L12, D12, 1), at9, tag="scoring")
         del X9, Y9, ct9
         torch.cuda.empty_cache()
+        # K10, and K11 on its grids as a cotangent, at the Linear training
+        # cell's chunk, beside the PyTorch grid and its autograd VJP
+        at_, bt_ = (cuda_lgen.scaled_increments(t, 1.0) for t in (Xt, Yt))
+        timed("lincr", dtype,
+              lambda: cuda_lgen.linear_gen_increments(at_, bt_, ar, ar),
+              lambda: cuda_lgen.linear_gen_increments_plain(at_, bt_, ar, ar),
+              compare_bits, limit, ns[:4] + (1,), at,
+              library=lambda: torch_linear_grid(Xt, Yt))
+        ctl = cuda_lgen.linear_gen_increments(at_, bt_, ar, ar)
+        timed("lvjp", dtype,
+              lambda: torch.cat(cuda_lgen.linear_dd_vjp(at_, bt_, ar, ar,
+                                                        ctl), 1),
+              lambda: torch.cat(cuda_lgen.linear_dd_vjp_plain(at_, bt_, ar,
+                                                              ar, ctl), 1),
+              compare_max, LINEAR_VJP[name[dtype]], ns[:4] + (1,), at,
+              library=lambda: torch_linear_grid(Xt, Yt, ctl))
+        del ctl
+        torch.cuda.empty_cache()
         nlimit = F64_RTOL if dtype == F64 else NEW_F32
         timed("lgen", dtype,
               lambda: cuda_lgen.linear_gen_solve_final(Xt, Yt, ar, ar, 1.0, 1),
@@ -2302,10 +2417,15 @@ def main():
         ("stripe", F64): (f"{blocked}:415", []),
         ("stripe_stack", F32): (f"{blocked}:200", []),
         ("stripe_stack", F64): (f"{blocked}:555", []),
-        # K9 replaces no TPU kernel: the JAX package leaves the increment
-        # grid's build to XLA (``library_ms``: the PyTorch ops in its place)
+        # K9, K10 and K11 replace no TPU kernel: the JAX package leaves the
+        # increment grid's build and its VJP to XLA (``library_ms``: the
+        # PyTorch ops in their place)
         ("incr", F32): (None, []),
         ("incr", F64): (None, []),
+        ("lincr", F32): (None, []),
+        ("lincr", F64): (None, []),
+        ("lvjp", F32): (None, []),
+        ("lvjp", F64): (None, []),
         # the reverse stripe's grid kernel, and the product and collapse
         # that adjoint_blocked / adjoint_blocked_df run in XLA
         ("adj_stripe", F32): (f"{blocked}:200", [f"{blocked}:346"]),
@@ -2323,7 +2443,9 @@ def main():
               "lgen": "linear_gen_wavefront.cu",
               "stripe": "stripe_wavefront.cu",
               "stripe_stack": "stripe_wavefront.cu",
-              "incr": "rbf_gen_increments.cu"}
+              "incr": "rbf_gen_increments.cu",
+              "lincr": "linear_gen_increments.cu",
+              "lvjp": "linear_dd_vjp.cu"}
     check(set(instances) <= {k[:2] for k in timing}, "a kernel was not timed")
     kernels = []
     for tkey in timing:
@@ -2331,7 +2453,7 @@ def main():
         iname, (rep, also) = instances[key], replaces[key]
         ms, plain_ms, bound_ms, by, where, library_ms = timing[tkey]
         # no single PyTorch call computes a wavefront sweep or its adjoint;
-        # K9's grids are PyTorch ops (``library_ms``)
+        # K9's, K10's and K11's are PyTorch ops (``library_ms``)
         kernels.append({"name": iname, "route": "cuda",
                         "source": f"sigkernel_tpu_torch/csrc/{source[key[0]]}",
                         "replaces": rep, "also_replaces": also,

@@ -131,6 +131,16 @@ _SIGNATURES = {
                                _I, _P],
     "sk_deriv_wavefront_f64": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                                _I, _P],
+    # A, B, ii, jj, out, P, Mb, Nb, D, device, stream
+    "sk_linear_gen_increments_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                                     _I, _P],
+    "sk_linear_gen_increments_f64": [_P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                                     _I, _P],
+    # A, B, ii, jj, ct, U, V, upart, vpart, P, Mb, Nb, D, device, stream
+    "sk_linear_dd_vjp_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
+                             _I, _I, _I, _P],
+    "sk_linear_dd_vjp_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
+                             _I, _I, _I, _P],
     # rows, cols, ri, ci, out, P, Lr, Lc, D, f, naive, device, stream
     "sk_linear_gen_wavefront_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                                     _I, _I, _P],

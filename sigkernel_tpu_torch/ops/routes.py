@@ -14,13 +14,14 @@ family    computation                            kernels (forward; adjoint)
 ========  =====================================  ==========================
 ``gen``   RBF increments generated in-kernel     K1 ``cuda_gen``; K1-stack,
                                                  K3<gen>, K4 ``incvjp``
-``lgen``  Linear increments generated in-kernel  K6 ``cuda_lgen``; K2-stack,
-                                                 K3<inc> on the recomputed
-                                                 grid
+``lgen``  Linear increments generated in-kernel  K6 ``cuda_lgen``; K10
+                                                 ``cuda_lgen`` (the grid),
+                                                 K2-stack, K3<inc>, K11
 ``inc``   ``double_difference(Gram)`` in torch   K2 ``cuda_solver``;
           (with a gradient, for exactly          K2-stack, K3<inc> or
-          ``RBFKernel``: K9 ``cuda_gen``)        K2-sparse, K8 (then K4
-                                                 for ``RBFKernel``)
+          ``RBFKernel``: K9 ``cuda_gen``;        K2-sparse, K8 (then K4
+          ``LinearKernel``: K10 ``cuda_lgen``)   for ``RBFKernel``, K11
+                                                 for ``LinearKernel``)
 ``scan``  the same increments, plain loop        none (``scan_solver``)
 ========  =====================================  ==========================
 
@@ -34,8 +35,9 @@ a gradient, the ``inc`` family builds each chunk's increment grid and drops
 it, and the backward builds it again (``sigkernel._GridPairs``), so memory
 is one chunk's grids and stacks at any tile size; for exactly
 ``RBFKernel`` the grid comes from K9 and its cotangent goes to the paths
-and ``sigma`` by K4, any other static kernel's by autograd through the
-grid built in torch. The ``inc`` family picks
+and ``sigma`` by K4, for exactly ``LinearKernel`` from K10 and by K11 (to
+the scaled increments, then the paths and ``scale``), any other static
+kernel's by autograd through the grid built in torch. The ``inc`` family picks
 its tier by shape (:func:`resolve_inc_tier`):
 
 =============  =========================  ===================================

@@ -18,8 +18,9 @@ module. Each tile's solver family and gradient dtype come from
   nothing, so it runs ahead of the card.
 - ``lgen``: Linear increments generated in the K6 kernel from the paths'
   increments and the pair index arrays. Gradients through
-  :class:`_LinearGen`, whose backward recomputes each chunk's increment
-  grid and runs the ``inc`` family's adjoint on it (K2-stack, K3<inc>).
+  :class:`_LinearGen`, whose backward writes each chunk's increment grid
+  by K10, runs the ``inc`` family's adjoint on it (K2-stack, K3<inc>) and
+  maps its cotangent to the increments by K11, with no autograd.
 - ``inc``/``scan``: ``double_difference`` of the static-kernel Gram in torch,
   solved by the K2 kernel (K7 stripes past the row bound) or the plain loop
   (:func:`.ops.solve.solve`, whose adjoint backward is the ``inc`` tier's or
@@ -28,9 +29,10 @@ module. Each tile's solver family and gradient dtype come from
   gradient goes through :class:`_GridPairs` instead, which builds each
   chunk's grid in the forward and again in the backward, so no tile keeps
   its grids alive: for exactly ``RBFKernel`` the K9 kernel writes the grid
-  from the paths and K4 carries its cotangent to the paths and ``sigma``,
-  with no autograd; any other static kernel builds it in torch and
-  differentiates it by autograd.
+  from the paths and K4 carries its cotangent to the paths and ``sigma``;
+  for exactly ``LinearKernel`` K10 writes it from the scaled increments and
+  K11 carries its cotangent to them, with no autograd; any other static
+  kernel builds it in torch and differentiates it by autograd.
 
 Every estimator is differentiable in ``X``, ``Y``, ``W`` and the static
 kernel's hyper-parameter (``RBFKernel.sigma`` or ``LinearKernel.scale``, a
@@ -214,6 +216,39 @@ def _rbf_grid_backward(X, Y, ii, jj, sv, g, bwd_dtype, dyadic_order, naive):
     return ds, dX, dY
 
 
+def _linear_grid_backward(X, Y, ii, jj, scale, g, bwd_dtype, dyadic_order,
+                          naive):
+    """``(d scale, dX, dY)`` of ``sum_p g_p k(X[ii_p], Y[jj_p])`` for the
+    Linear kernel on the ``inc`` and ``lgen`` families, in ``bwd_dtype``:
+    per chunk the grids from the scaled increments by K10, the
+    increment-grid adjoint on them (:func:`.ops.solve.inc_route_bwd`), and
+    K11 from their cotangent to the increments, scattered onto the paths'
+    increments; then the increments' VJP to the paths and ``scale``
+    (:func:`.ops.cuda_lgen.scaled_increments_vjp`). ``scale`` reaches the
+    card only inside the scaled increments: no host read. The indices come
+    from :func:`_pairs`' callers, so no launch reads their bounds."""
+    Xb = X.detach().to(bwd_dtype).contiguous()
+    Yb = Y.detach().to(bwd_dtype).contiguous()
+    a = cuda_lgen.scaled_increments(Xb, scale)
+    b = cuda_lgen.scaled_increments(Yb, scale)
+    ua, vb = torch.zeros_like(a), torch.zeros_like(b)
+    P = ii.shape[0]
+    chunk = _grid_chunk(X, Y, P)
+    for s in range(0, P, chunk):
+        with span("sk.est.chunk"):
+            ic, jc = ii[s:s + chunk], jj[s:s + chunk]
+            dd = cuda_lgen.linear_gen_increments(a, b, ic, jc, in_range=True)
+            ct = inc_route_bwd(dd, g[s:s + chunk], naive, dyadic_order)
+            del dd
+            u, v = cuda_lgen.linear_dd_vjp(a, b, ic, jc, ct, in_range=True)
+            del ct
+            ua.index_add_(0, ic, u)
+            vb.index_add_(0, jc, v)
+    dX, dsx = cuda_lgen.scaled_increments_vjp(Xb, scale, ua)
+    dY, dsy = cuda_lgen.scaled_increments_vjp(Yb, scale, vb)
+    return dsx + dsy, dX, dY
+
+
 def _torch_grid_backward(static_kernel, X, Y, ii, jj, g, want, bwd_dtype,
                          dyadic_order, naive):
     """``(dX, dY, d want)`` by JAX's ``_pair_fused_bwd``: per chunk the grids
@@ -260,14 +295,21 @@ class _GridPairs(torch.autograd.Function):
       forward (:func:`_launch_sigma`), K9 writes the grids from the paths
       (:func:`.ops.cuda_gen.rbf_gen_increments`) and K4 maps the cotangent
       to the paths and ``sigma`` (:func:`.ops.incvjp.rbf_dd_vjp`), both in
-      the grade's dtype, with no autograd (:func:`_rbf_grid_backward`). On
-      the card K4's ``index_add_`` adds the pairs of a repeated path index
-      by atomics, so ``dX`` and ``dY`` may differ in the last bits from run
-      to run, as on the ``gen`` family, unless
-      ``torch.use_deterministic_algorithms(True)`` is set;
+      the grade's dtype, with no autograd (:func:`_rbf_grid_backward`);
+    - exactly ``LinearKernel``: K10 writes the grids from the paths' scaled
+      increments (:func:`.ops.cuda_lgen.linear_gen_increments`) and K11
+      maps the cotangent to the increments
+      (:func:`.ops.cuda_lgen.linear_dd_vjp`), both in the grade's dtype,
+      then small PyTorch passes to the paths and ``scale``, with no
+      autograd and no host read (:func:`_linear_grid_backward`);
     - any other: the grids built in PyTorch, ``double_difference(
       batch_kernel(x, y))``, and JAX's ``_pair_fused_bwd``, autograd through
-      them (:func:`_torch_grid_backward`)."""
+      them (:func:`_torch_grid_backward`).
+
+    On the card the ``index_add_`` of K4's and K11's outputs adds the pairs
+    of a repeated path index by atomics, so ``dX`` and ``dY`` may differ in
+    the last bits from run to run, as on the ``gen`` family, unless
+    ``torch.use_deterministic_algorithms(True)`` is set."""
 
     @staticmethod
     def forward(ctx, X, Y, ii, jj, cfg, *hyper):
@@ -277,17 +319,25 @@ class _GridPairs(torch.autograd.Function):
         sv = (_launch_sigma(static_kernel)
               if type(static_kernel) is _kernels.RBFKernel else None)
         ctx.cfg, ctx.sv = cfg, sv
+        # the Linear kernel's grids from K10, their cotangent by K11
+        linear = type(static_kernel) is _kernels.LinearKernel
+        if linear:
+            a = cuda_lgen.scaled_increments(X, static_kernel.scale)
+            b = cuda_lgen.scaled_increments(Y, static_kernel.scale)
         P = ii.shape[0]
         chunk = _grid_chunk(X, Y, P)
         vals = [X.new_empty(0)]
         for s in range(0, P, chunk):
             with span("sk.est.chunk"):
                 ic, jc = ii[s:s + chunk], jj[s:s + chunk]
-                if sv is None:
-                    dd = _torch_grid(static_kernel, X, Y, ic, jc).contiguous()
-                else:
+                if sv is not None:
                     dd = cuda_gen.rbf_gen_increments(X, Y, ic, jc, sv,
                                                      in_range=True)
+                elif linear:
+                    dd = cuda_lgen.linear_gen_increments(a, b, ic, jc,
+                                                         in_range=True)
+                else:
+                    dd = _torch_grid(static_kernel, X, Y, ic, jc).contiguous()
                 vals.append(inc_route_fwd(dd, naive, dyadic_order))
         return torch.cat(vals)
 
@@ -305,6 +355,13 @@ class _GridPairs(torch.autograd.Function):
                                             naive)
             return (dX.to(X.dtype), dY.to(Y.dtype), None, None, None,
                     ds.to(static_kernel.sigma) if needs[0] else None)
+        if type(static_kernel) is _kernels.LinearKernel:
+            ds, dX, dY = _linear_grid_backward(X, Y, ii, jj,
+                                               static_kernel.scale, g,
+                                               route.bwd_dtype, dyadic_order,
+                                               naive)
+            return (dX.to(X.dtype), dY.to(Y.dtype), None, None, None,
+                    ds.to(static_kernel.scale) if needs[0] else None)
         want = [h for h, n in zip(_hyper(static_kernel), needs) if n]
         dX, dY, *dh = _torch_grid_backward(static_kernel, X, Y, ii, jj, g,
                                            want, route.bwd_dtype,
@@ -317,11 +374,11 @@ class _GridPairs(torch.autograd.Function):
 class _LinearGen(_GridPairs):
     """``k_sig(X[ii[p]], Y[jj[p]])`` on the ``lgen`` family: K6 values from
     the paths, ``scale`` and the pair indices. The backward is
-    :class:`_GridPairs`' for a static kernel other than ``RBFKernel`` (JAX's
-    ``_pair_fused_bwd``): each chunk's grid ``double_difference(
-    batch_kernel(x, y))`` built again, the increment-grid adjoint on it
-    (K2-stack, K3<inc>), and autograd through the grid to ``X``, ``Y`` and
-    ``scale``."""
+    :class:`_GridPairs`' for exactly ``LinearKernel``
+    (:func:`_linear_grid_backward`): each chunk's grid written by K10 from
+    the scaled increments, the increment-grid adjoint on it (K2-stack,
+    K3<inc>), and K11 from its cotangent to the increments, then to ``X``,
+    ``Y`` and ``scale``, with no autograd."""
 
     @staticmethod
     def forward(ctx, X, Y, ii, jj, cfg, *hyper):

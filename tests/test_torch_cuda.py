@@ -17,7 +17,10 @@ to run, past the one-block row bound), values and gradients through the
 estimators against the plain tier, the generator's lincomb with one
 read of sigma on the host and none of the indices it builds, and K9 (the
 RBF increment grids) bit for bit against its plain version, with the
-scoring rule on K9 and K4 against the autograd route they replace.
+scoring rule on K9 and K4 against the autograd route they replace, and K10
+and K11 (the Linear increment grids and their VJP) against their plain
+versions, with the Linear lincomb on them against the autograd route they
+replace.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode); without one
 they skip. On a GPU machine, run them without the JAX-side conftest:
@@ -1172,6 +1175,165 @@ def test_scoring_rule_on_k9_and_k4_is_deterministic_when_asked(cuda):
             torch.cuda.synchronize()
             assert incvjp.COUNTS["float64"] > k4
             runs.append((v.detach(), x.grad, sigma.grad))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ---- K10 and K11: the Linear increment grids and their VJP ----------------
+
+# pairs, M, N, D: the Linear training cell's chunk shape (1024 x 1024, D 3);
+# M < N and M > N with a short last band (64 rows) and a short last chunk
+# of columns (512); D 1; D 9 and 13, past the register instances (K10: any
+# D through __ldg; K11: a second pass of coordinates); M = 2 and N = 2; a
+# warp's span cut mid-way (N - 1 = 1100)
+_LINEAR_CASES = [(4, 1024, 1024, 3), (6, 70, 200, 3), (6, 200, 70, 3),
+                 (5, 134, 600, 1), (4, 90, 40, 9), (3, 40, 130, 13),
+                 (6, 2, 90, 5), (6, 90, 2, 8), (3, 66, 1101, 2)]
+# K11 against its plain version (``bmm``), max |err| / max |plain|: the two
+# sum each row and column in other orders
+_K11_BAR = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+def _linear_inputs(P, M, N, D, cuda, dtype):
+    X = _paths(3, M, D, 100 + D, cuda, dtype)
+    Y = _paths(4, N, D, 101 + D, cuda, dtype)
+    g = torch.Generator().manual_seed(P + M + N)
+    ii = torch.randint(0, 3, (P,), generator=g).to(cuda)
+    jj = torch.randint(0, 4, (P,), generator=g).to(cuda)
+    return (cuda_lgen.scaled_increments(X, 0.8),
+            cuda_lgen.scaled_increments(Y, 0.8), ii, jj)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,M,N,D", _LINEAR_CASES)
+def test_linear_increments_kernel_is_its_plain_version(cuda, dtype, P, M, N,
+                                                       D):
+    """K10 equals its plain version (``pair_increments`` of the gathered
+    scaled increments) bit for bit, with repeated pair indices, and two
+    launches equal each other; one launch a call."""
+    a, b, ii, jj = _linear_inputs(P, M, N, D, cuda, dtype)
+    key = str(dtype).removeprefix("torch.")
+    before = cuda_lgen.INCREMENT_COUNTS[key]
+    got = cuda_lgen.linear_gen_increments(a, b, ii, jj)
+    again = cuda_lgen.linear_gen_increments(a, b, ii, jj)
+    torch.cuda.synchronize()
+    assert cuda_lgen.INCREMENT_COUNTS[key] == before + 2
+    want = cuda_lgen.linear_gen_increments_plain(a, b, ii, jj)
+    assert got.shape == (P, M - 1, N - 1) and got.dtype == dtype
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,M,N,D", _LINEAR_CASES)
+def test_linear_vjp_kernel_matches_its_plain_version(cuda, dtype, P, M, N,
+                                                     D):
+    """K11's cotangents of the increments within ``_K11_BAR`` of its plain
+    version's, and two launches equal bit for bit (fixed-order sums, no
+    atomics); one launch a call."""
+    a, b, ii, jj = _linear_inputs(P, M, N, D, cuda, dtype)
+    g = torch.Generator(device=cuda).manual_seed(P * N)
+    ct = torch.randn(P, M - 1, N - 1, generator=g, device=cuda, dtype=dtype)
+    key = str(dtype).removeprefix("torch.")
+    before = cuda_lgen.VJP_COUNTS[key]
+    got = cuda_lgen.linear_dd_vjp(a, b, ii, jj, ct)
+    again = cuda_lgen.linear_dd_vjp(a, b, ii, jj, ct)
+    torch.cuda.synchronize()
+    assert cuda_lgen.VJP_COUNTS[key] == before + 2
+    want = cuda_lgen.linear_dd_vjp_plain(a, b, ii, jj, ct)
+    for k, k2, w in zip(got, again, want):
+        assert k.shape == w.shape and k.dtype == dtype
+        assert torch.equal(k, k2)
+        assert _max_rel(k, w) <= _K11_BAR[dtype]
+
+
+def test_linear_kernels_launch_nothing_without_cells(cuda):
+    a = cuda_lgen.scaled_increments(_paths(3, 1, 2, 110, cuda,
+                                           torch.float64), 1.0)
+    b = cuda_lgen.scaled_increments(_paths(3, 6, 2, 111, cuda,
+                                           torch.float64), 1.0)
+    ii = torch.arange(3, device=cuda)
+    empty = torch.zeros(0, dtype=torch.int64, device=cuda)
+    before = (dict(cuda_lgen.INCREMENT_COUNTS), dict(cuda_lgen.VJP_COUNTS))
+    assert cuda_lgen.linear_gen_increments(a, b, ii, ii).shape == (3, 0, 5)
+    assert cuda_lgen.linear_gen_increments(b, b, empty, empty).shape == (
+        0, 5, 5)
+    U, V = cuda_lgen.linear_dd_vjp(a, b, ii, ii, a.new_zeros(3, 0, 5))
+    assert U.shape == (3, 0, 2) and V.shape == (3, 5, 2)
+    assert not V.any()
+    assert (dict(cuda_lgen.INCREMENT_COUNTS),
+            dict(cuda_lgen.VJP_COUNTS)) == before
+
+
+class _AutogradLinear(skt.LinearKernel):
+    """``LinearKernel`` by another type: ``_GridPairs`` builds its grids in
+    PyTorch and differentiates them by autograd (``_torch_grid_backward``),
+    the route K10 and K11 replace for ``LinearKernel`` itself."""
+
+
+# max |K10 + K11 route - autograd route| / max |autograd route| allowed for
+# the lincomb's gradients in float64
+_K10_ROUTE_BAR = 1e-11
+
+
+def _linear_lincomb(kind, X, Y, W):
+    x = X.clone().requires_grad_()
+    scale = torch.tensor(1.0, dtype=X.dtype, device=X.device,
+                         requires_grad=True)
+    S = skt.sig_gram_lincomb(kind(scale), x, Y, W, dyadic_order=1,
+                             pair_chunk=128)
+    S.backward()
+    torch.cuda.synchronize()
+    return S.detach(), x.grad, scale.grad
+
+
+def test_linear_lincomb_on_k10_and_k11_matches_the_autograd_route(cuda):
+    """``sig_gram_lincomb`` of ``LinearKernel`` at 128 pairs (8 paths
+    against 16), length 1024, dim 3, dyadic 1, float64: its gradients in X
+    and scale within ``_K10_ROUTE_BAR`` of the autograd route's, with K6,
+    K10 and K11 one launch each (the ``lgen`` family: K6 forward, K10's
+    grid and K11 in the backward); the autograd route launches neither."""
+    X = _paths(8, 1024, 3, 112, cuda, torch.float64)
+    Y = _paths(16, 1024, 3, 113, cuda, torch.float64)
+    W = torch.full((8, 16), 1.0 / 128, dtype=torch.float64, device=cuda)
+    runs = {}
+    for name, kind in (("k10", skt.LinearKernel),
+                       ("autograd", _AutogradLinear)):
+        counts = (cuda_lgen.COUNTS, cuda_lgen.INCREMENT_COUNTS,
+                  cuda_lgen.VJP_COUNTS)
+        before = [c["float64"] for c in counts]
+        runs[name] = _linear_lincomb(kind, X, Y, W)
+        launched = tuple(c["float64"] - b for c, b in zip(counts, before))
+        assert launched == ((1, 1, 1) if name == "k10" else (0, 0, 0))
+    (v, dX, ds), (wv, wdX, wds) = runs["k10"], runs["autograd"]
+    assert _max_rel(v, wv) <= _K10_ROUTE_BAR
+    assert _max_rel(dX, wdX) <= _K10_ROUTE_BAR
+    assert _max_rel(ds, wds) <= _K10_ROUTE_BAR
+
+
+def test_linear_lincomb_on_k10_and_k11_is_deterministic_when_asked(cuda):
+    """With ``torch.use_deterministic_algorithms(True)`` the scatter of
+    K11's outputs onto a repeated path index takes PyTorch's deterministic
+    way, so two runs of the ``sym`` lincomb (12 paths, every index
+    repeating in the triangle) give the same value and gradients bit for
+    bit."""
+    X = _paths(12, 1024, 3, 114, cuda, torch.float64)
+    W = torch.full((12, 12), 1.0 / 144, dtype=torch.float64, device=cuda)
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            x = X.clone().requires_grad_()
+            scale = torch.tensor(1.0, dtype=torch.float64, device=cuda,
+                                 requires_grad=True)
+            k11 = cuda_lgen.VJP_COUNTS["float64"]
+            S = skt.sig_gram_lincomb(skt.LinearKernel(scale), x, x, W,
+                                     sym=True, dyadic_order=1)
+            S.backward()
+            torch.cuda.synchronize()
+            assert cuda_lgen.VJP_COUNTS["float64"] > k11
+            runs.append((S.detach(), x.grad, scale.grad))
     finally:
         torch.use_deterministic_algorithms(was)
     assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -5,8 +5,10 @@ For exactly ``RBFKernel`` each chunk's base increment grid comes from K9's
 plain version (``cuda_gen.rbf_gen_increments_plain``) in the forward and
 again in the backward, and its cotangent reaches the paths and sigma by
 K4's (``incvjp.rbf_dd_vjp_plain``), with no autograd. ``RBF_ID_Kernel`` (an
-``RBFKernel`` subclass) and ``LinearKernel`` keep the grid built in
-PyTorch and autograd through it. Values and gradients in X and sigma
+``RBFKernel`` subclass) keeps the grid built in PyTorch and autograd
+through it; ``LinearKernel`` takes neither K9 nor K4 but its own K10 and
+K11 (``tests/test_torch_linear_grid.py``). Values and gradients in X and
+sigma (``scale``)
 against ``jax.grad`` of the JAX scan tier at dyadic order 2 within
 ``test_torch_ckpt.GRAD_BAR``, on the ``ckpt`` tier (K2-sparse -> K8) and
 the ``full`` tier (K2-stack -> K3<inc>), which agree bit for bit.
@@ -23,7 +25,7 @@ import torch
 import sigkernel_tpu as sk
 
 import sigkernel_tpu_torch as skt
-from sigkernel_tpu_torch.ops import cuda_gen, incvjp, routes
+from sigkernel_tpu_torch.ops import cuda_gen, cuda_lgen, incvjp, routes
 from sigkernel_tpu_torch.utils import double_difference
 
 from conftest import make_paths
@@ -106,17 +108,24 @@ def test_rbf_gradient_takes_k9_and_k4_and_matches_jax(rng, tier_on_cpu, name,
 @pytest.mark.parametrize("tier", ["ckpt", "full"])
 def test_other_kernels_keep_the_autograd_grid(rng, tier_on_cpu, tier,
                                               kernel):
-    """An ``RBFKernel`` subclass and ``LinearKernel`` take neither K9 nor K4:
-    their grids are built in PyTorch and differentiated by autograd, and
-    still match JAX."""
+    """An ``RBFKernel`` subclass and ``LinearKernel`` take neither K9 nor K4,
+    and still match JAX: the subclass's grids are built in PyTorch and
+    differentiated by autograd; ``LinearKernel``'s come from K10 and their
+    cotangent goes by K11 (their plain counts rise)."""
     make = {"rbf_id": lambda m, s: m.RBF_ID_Kernel(s),
             "linear": lambda m, s: m.LinearKernel(s)}[kernel]
     tier_on_cpu(1 << 40 if tier == "ckpt" else 0)
     X, y = _inputs(rng, "scoring")
     want_v, want_g = _jax("scoring", make, X, y)
     before = _counts()
+    linear = (cuda_lgen.INCREMENT_COUNTS["plain"],
+              cuda_lgen.VJP_COUNTS["plain"])
     v, dX, ds = _run("scoring", make, X, y, torch.float64)
     assert _counts() == before
+    k10 = cuda_lgen.INCREMENT_COUNTS["plain"] - linear[0]
+    k11 = cuda_lgen.VJP_COUNTS["plain"] - linear[1]
+    if kernel == "linear":
+        assert k10 == 2 * k11 > 0
     _close(v, want_v, GRAD_BAR[torch.float64])
     _close(dX, want_g[0], GRAD_BAR[torch.float64])
     _close(ds, want_g[1], GRAD_BAR[torch.float64])

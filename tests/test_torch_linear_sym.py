@@ -7,7 +7,7 @@ reference (``bench_torch/reference.lincomb_grads`` with
 and shares no code with the port. The route is steered onto ``lgen`` on CPU
 tensors by patching ``routes.resolve_family``, as
 ``test_torch_linear_gen.py`` does; the wrappers then take their plain
-versions (K6's, K2-stack's and K3<inc>'s).
+versions (K6's, K10's, K2-stack's, K3<inc>'s and K11's).
 
 Bars, in float64 (the same call in float32 misses them:
 :func:`test_float32_fails_the_bars`):
@@ -16,9 +16,10 @@ Bars, in float64 (the same call in float32 misses them:
   scheme on the same increments in another order of operations, a few
   hundred steps of rounding at 1e-16 each, so 1e-10 leaves five decades;
 - ``dX`` and ``dscale`` within 1e-9 of max |grad|: the port's adjoint
-  collapses the products on the base grid and autograd maps them through
-  the Linear Gram, the reference by its hand-written VJP, summing over the
-  grid's cells in another order; float32's ~1e-7 fails it by decades.
+  collapses the products on the base grid and K11 maps them to the scaled
+  increments, the reference by its hand-written VJP through the Linear
+  Gram, summing over the grid's cells in another order; float32's ~1e-7
+  fails it by decades.
 """
 import pytest
 import torch
@@ -83,7 +84,8 @@ def _errors(got, want):
             abs(float(ds) - float(wds)) / abs(float(wds)))
 
 
-COUNTS = {"K6": cuda_lgen.COUNTS, "K2-stack": cuda_solver.STACK_COUNTS,
+COUNTS = {"K6": cuda_lgen.COUNTS, "K10": cuda_lgen.INCREMENT_COUNTS,
+          "K11": cuda_lgen.VJP_COUNTS, "K2-stack": cuda_solver.STACK_COUNTS,
           "K3<inc>": cuda_solver.ADJOINT_COUNTS,
           "K2-sparse": cuda_solver.SPARSE_COUNTS,
           "K8": cuda_solver.CKPT_COUNTS}
@@ -103,6 +105,7 @@ def test_sym_lincomb_matches_the_plain_reference(lgen_on_cpu, n, length,
     pairs = n * (n + 1) // 2
     chunks = -(-pairs // chunk)
     assert ran["K6"] == chunks
+    assert ran["K10"] == ran["K11"] == chunks
     assert ran["K2-stack"] == ran["K3<inc>"] == chunks
     assert ran["K2-sparse"] == ran["K8"] == 0
     value, dx, dscale = _errors(got, _reference(X, dyadic))

@@ -4,14 +4,15 @@ With no profiler recording, no span is created. Under ``torch.profiler``
 each estimator, and ``transform``, opens ``sk.est.<function>``, one
 ``sk.est.chunk`` a pass of its pair-chunk loop, ``sk.grid`` around each
 increment grid built in PyTorch (``RBFKernel``'s on the ``inc`` family are
-K9's, ``sk.op.rbf_gen_increments``) and ``sk.op.<kernel>`` around each
+K9's, ``sk.op.rbf_gen_increments``; ``LinearKernel``'s K10's,
+``sk.op.linear_gen_increments``) and ``sk.op.<kernel>`` around each
 launching entry of ``ops/`` its route takes, each inside its parent in
 time; host reads go through ``tracing.host`` (``sk.sync.<site>``). The
 routes are steered onto the card's families by patching
 ``routes.resolve_family``, as the other CPU tests of those families do:
-their Functions then run the plain versions behind the same entries. No
-launch table is added to ``ops/``, so the benchmark's launch count reads
-what it read before."""
+their Functions then run the plain versions behind the same entries. The
+launch tables of ``ops/`` are the ones listed here, so the benchmark's
+launch count reads exactly them."""
 import importlib
 import math
 import pkgutil
@@ -37,6 +38,7 @@ def _paths(seed, batch, length, dim=2):
 @pytest.fixture
 def steer(monkeypatch):
     """``steer("gen")``: RBF tiles take the generator's family; ``steer
+    ("lgen")``: Linear tiles take the Linear generator's; ``steer
     ("ckpt")``: every tile takes the ``inc`` family with the sparse adjoint
     (K2-sparse -> K8), its grids chunked three pairs at a time."""
     orig = routes.resolve_family
@@ -45,7 +47,7 @@ def steer(monkeypatch):
         def steered(static_kernel, device_type, solver, **gates):
             if solver == "scan":
                 return orig(static_kernel, device_type, solver, **gates)
-            return "gen" if family == "gen" else "inc"
+            return family if family in ("gen", "lgen") else "inc"
 
         monkeypatch.setattr(routes, "resolve_family", steered)
         if family == "ckpt":
@@ -80,6 +82,19 @@ def scoring():
                          dyadic_order=1).backward()
 
 
+def linear_sym():
+    """``sig_gram_lincomb(sym=True)`` of ``LinearKernel`` over 3 paths, 5
+    pairs a chunk, fwd + bwd in X and scale on the Linear generator's
+    family: the triangle's 6 pairs in 2 chunks, each K6 forward, then K10's
+    grid, K2-stack -> K3<inc> and K11, with no grid built in PyTorch."""
+    X = _paths(11, 3, 6).requires_grad_()
+    scale = torch.tensor(0.8, dtype=DT, requires_grad=True)
+    W = torch.randn(3, 3, generator=torch.Generator().manual_seed(12),
+                    dtype=DT)
+    skt.sig_gram_lincomb(skt.LinearKernel(scale), X, X, W, sym=True,
+                         dyadic_order=1, pair_chunk=5).backward()
+
+
 def gram_sym():
     """``sig_gram(sym=True)`` of 4 paths, 4 pairs a chunk, on the
     generator's family: the 10 pairs of the triangle in 3 chunks."""
@@ -101,6 +116,10 @@ CALLS = {
     "scoring": (scoring, "ckpt", "sig_scoring_rule", 0, False,
                 {"rbf_gen_increments", "inc_wavefront",
                  "inc_wavefront[sparse]", "adjoint_ckpt", "rbf_dd_vjp"}),
+    "linear_sym": (linear_sym, "lgen", "sig_gram_lincomb", 2, False,
+                   {"linear_gen_wavefront", "linear_gen_increments",
+                    "inc_wavefront[stack]", "adjoint_collapse_inc",
+                    "linear_dd_vjp"}),
     "gram_sym": (gram_sym, "gen", "sig_gram", 3, False,
                  {"rbf_gen_wavefront"}),
     "transform": (transform, "gen", "transform", 0, False, set()),
@@ -284,7 +303,9 @@ def test_no_launch_table_is_added():
         "cuda_blocked.COUNTS", "cuda_blocked.STACK_COUNTS",
         "cuda_blocked.ADJOINT_COUNTS", "cuda_deriv.COUNTS",
         "cuda_gen.COUNTS", "cuda_gen.STACK_COUNTS", "cuda_gen.ADJOINT_COUNTS",
-        "cuda_gen.INCREMENT_COUNTS", "cuda_lgen.COUNTS", "cuda_solver.COUNTS", "cuda_solver.STACK_COUNTS",
+        "cuda_gen.INCREMENT_COUNTS", "cuda_lgen.COUNTS",
+        "cuda_lgen.INCREMENT_COUNTS", "cuda_lgen.VJP_COUNTS",
+        "cuda_solver.COUNTS", "cuda_solver.STACK_COUNTS",
         "cuda_solver.ADJOINT_COUNTS", "cuda_solver.SPARSE_COUNTS",
         "cuda_solver.CKPT_COUNTS", "incvjp.COUNTS"}
     assert not any(n.endswith("COUNTS") for n in vars(tracing))
